@@ -1,0 +1,9 @@
+from .manager import is_checkpoint_dir, load_pytree_dict, read_leaves
+from .release import (
+    ReleaseError,
+    find_release,
+    load_release_params,
+    params_sha256,
+    verify_release,
+    warn_no_release,
+)

@@ -1,0 +1,44 @@
+"""Public entry to the pointer ops: the single-step and whole-decode
+kernels, their shape gates, the build helper and the launch counters.
+
+On CPU tensors every op runs its plain PyTorch version; on CUDA tensors it
+launches its kernel or raises.  The gates test the CUDA kernels' own limits
+— the 512-thread block and the 227 KB of shared memory a block may use —
+and nothing of the TPU's tiling.
+"""
+
+from __future__ import annotations
+
+from .build import BUILD_DIR, LAUNCHES, build_kernels
+from .decode import decode_kernel_supported
+from .kernel import MAX_SMEM_BYTES, pointer_step_cuda, step_kernel_supported
+from .ref import precompute_refs, reference_pointer_step
+
+__all__ = [
+    "precompute_refs",
+    "pointer_step",
+    "make_logits_fn",
+    "step_kernel_supported",
+    "decode_kernel_supported",
+    "build_kernels",
+    "LAUNCHES",
+    "BUILD_DIR",
+    "MAX_SMEM_BYTES",
+]
+
+
+def pointer_step(net, C, CWg, CWp, h, mask):
+    """One glimpse + pointer step for a batch: C, CWg, CWp (B, n, H); h
+    (B, H); mask (B, n) bool.  The CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    g, p = net.glimpse, net.pointer
+    fn = pointer_step_cuda if C.is_cuda else reference_pointer_step
+    return fn(C, CWg, CWp, h, g.w_q, g.v, p.w_q, p.v, mask)
+
+
+def make_logits_fn(net, C):
+    """``logits_fn(h, mask)`` for :meth:`PointerNet.decode`: hoists the
+    context projections once per batch, then runs :func:`pointer_step`
+    every decode step."""
+    CWg, CWp = precompute_refs(net, C)
+    return lambda h, mask: pointer_step(net, C, CWg, CWp, h, mask)
