@@ -15,7 +15,19 @@ Run from the repository root:  python3 chip_smoke.py
    heterogeneous results to the plain PyTorch path on the CPU;
 5. holds each kernel to its plain PyTorch version on the card at the main
    path's shapes, times both with CUDA events, computes each kernel's bound
-   and the end-to-end cold-miss rate.
+   and the end-to-end cold-miss rate;
+6. the LM zoo's serving path: the full zamba2-7b (81 layers, d_model 3584,
+   bf16, seeded random weights) serves a batch of 2 x 2048-token prompts and
+   a ragged 1 x 1000 one (prefill, then 16 greedy decode steps each), with
+   the launch counters reset just before and read just after (13 flash and
+   68 SSD launches a prefill, none in decode); prints prefill and decode
+   tokens/s and where a prefill's device time goes;
+7. holds the flash-attention and SSD-scan kernels to their plain versions
+   at the path's shapes (and a GQA, a Dv != D, an Sq < Sk and an
+   in_scale != dt case), times kernel, plain version and — for flash —
+   PyTorch's scaled_dot_product_attention as a yardstick, with their bounds;
+8. runs one full-width mmmmmA unit in float32 through the kernels and
+   through the plain versions on the card, and compares the logits.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -35,6 +47,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "dnn_schedules.json"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 STAGES = 4
 TOL_LOGITS = 1e-4              # single step: float32 sums in another order
 TOL_LOGP = 1e-3                # whole decode: drift carried through n LSTM steps
@@ -109,8 +122,8 @@ def decode_work(graphs, orders, n: int, H: int, D: int) -> tuple[float, float]:
     return nbytes, flops
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -141,6 +154,318 @@ def first_divergence(net_cpu, graph, kernel_order, max_deg: int) -> str:
             f"CPU top-2 logit margin {float(top2[0] - top2[1]):.3e}")
 
 
+# ---------------------------------------------------------------------- #
+# the LM zoo's serving path: zamba2-7b, kernels B3 (flash) and B4 (SSD)
+# ---------------------------------------------------------------------- #
+ZOO_ARCH = "zamba2-7b"
+ZOO_PARAMS = 5_768_654_656     # count_params of the full config (the JAX package's count)
+SERVE = ((2, 2048), (1, 1000))  # (batch, prompt tokens) of the served run; 1000: ragged
+DECODE_STEPS = 16
+PER_PREFILL = {"flash_fwd": 13, "ssd_scan": 68}   # 13 "A" sites, 13 x 5 + 3 "m" layers
+# |got - want| <= atol + rtol * |want|.  A bf16 output of the kernel and of its
+# plain version round float32 sums taken in another order, so they may differ
+# by one bf16 step, 2^-7 = 7.8e-3 of the value (measured: one step, 1.95e-3 at
+# most for flash and 0.25 at |y| >= 32 for the SSD scan, on an H100); rtol 8e-3
+# holds exactly that one step at any magnitude, atol 4e-3 the values near 0.
+TOL_BF16_OUT = (4e-3, 8e-3)
+TOL_SSD_STATE = (1e-4, 1e-4)   # float32 state, sums in another order (measured <= 1.05e-5)
+TOL_ZOO_F32 = 1e-4             # x max(1, |logits|): float32 logits through a full-width unit
+                               # (measured 1.35e-5 at |logits| <= 4; a bf16 slip is ~1e-3)
+
+
+def flash_work(b, hq, hkv, sq, sk, d, dv, itemsize) -> tuple[float, float]:
+    """(bytes, flops) of a causal attention: q, k, v read once, o written
+    once; the two products over the (query, key) pairs the mask keeps."""
+    pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2
+    flops = 2.0 * b * hq * pairs * (d + dv)
+    return itemsize * b * (hq * sq * d + hkv * sk * (d + dv) + hq * sq * dv), flops
+
+
+def ssd_work(bt, s, h, p, g, n, q, itemsize, in_scale: bool) -> tuple[float, float]:
+    """(bytes, flops) of an SSD scan: x, B, C, dt (and in_scale) read once, y
+    and the final state written once; per chunk the lower triangle of
+    C B^T and of its product with x, and the two (N, P) state products."""
+    chunks = -(-s // q)
+    tri = q * (q + 1) // 2
+    flops = 2.0 * bt * h * chunks * (tri * n + tri * p + 2 * q * n * p)
+    nbytes = (itemsize * bt * s * (2 * h * p + 2 * g * n) + 4 * bt * s * h * (2 if in_scale else 1)
+              + 4 * h + 4 * bt * h * n * p)
+    return nbytes, flops
+
+
+def device_split(label: str, card: str, fn) -> None:
+    """Profile one call of ``fn`` and print where its device time goes (the
+    two zoo kernels, cuBLAS matmuls, everything else, and the largest of the
+    rest), with the device's busy and idle share of the kernels' window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        print(f"{label} time split: the profiler saw no device time (not measured)", flush=True)
+        return
+    split = {"flash (B3)": 0.0, "ssd scan (B4)": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    other: dict[str, float] = {}
+    spans = []
+    for e in kern:
+        name, us = e.name, e.time_range.elapsed_us()
+        low = name.lower()
+        spans.append((e.time_range.start, e.time_range.end))
+        key = ("flash (B3)" if "flash_fwd" in low else "ssd scan (B4)" if "ssd_scan" in low
+               else "matmul (cuBLAS)" if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass",
+                                                                "cublas", "matmul"))
+               else "other")
+        split[key] += us
+        if key == "other":
+            other[name[:60]] = other.get(name[:60], 0.0) + us
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for st, en in spans[1:]:
+        if st > cur_e:
+            busy, cur_s = busy + cur_e - cur_s, st
+        cur_e = max(cur_e, en)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    total = sum(split.values())
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
+    print(f"{label} time split on {card} (torch.profiler, device time): "
+          + ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
+          + f"; {len(kern)} kernels, device busy {busy / 1e3:.2f} ms of a {window / 1e3:.2f} ms "
+          f"window (idle {100 * (1 - busy / window):.1f}%), host {host * 1e3:.1f} ms profiled; "
+          "largest other: " + ", ".join(f"{n} {v / 1e3:.2f} ms" for n, v in top), flush=True)
+
+
+def zoo_phase(card: str) -> list[dict]:
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash.ref import reference_attention
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    from repro_torch.models.model import build_model, count_params
+
+    def plain_flash(q, k, v, *, causal=True, scale=None):
+        return reference_attention(q, k, v, causal=causal, scale=scale)
+
+    def plain_ssd(x, dt, A, B, C, *, chunk, in_scale=None):
+        y, hf = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
+        return y.to(x.dtype), hf
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        """The ops' plain versions in place of their CUDA launches (same
+        padding and layout code around them), for comparison only."""
+        with mock.patch.object(flash_ops, "flash_attention_cuda", plain_flash), \
+                mock.patch.object(ssd_ops, "ssd_scan_cuda", plain_ssd):
+            yield
+
+    def wall(fn, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    cfg = get_config(ZOO_ARCH)
+    model = build_model(cfg)                                   # device: cuda
+    check(count_params(model) == ZOO_PARAMS, f"{ZOO_ARCH}: parameter count differs")
+    t0 = time.perf_counter()
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    print(f"zoo: {ZOO_ARCH} full config ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype}, {ZOO_PARAMS} parameters) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = {shape: torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).cuda()
+               for shape in SERVE}
+
+    # ---- the zoo's main path, counted: prefill then greedy decode ------- #
+    for k in kbuild.LAUNCHES:
+        kbuild.LAUNCHES[k] = 0
+    for (b, s), tokens in prompts.items():
+        before = dict(kbuild.LAUNCHES)
+        logits, cache = model.prefill(params, {"tokens": tokens},
+                                      max_len=s + DECODE_STEPS)
+        torch.cuda.synchronize()
+        mid = dict(kbuild.LAUNCHES)
+        seq, tok = [logits], logits.argmax(-1)
+        for t in range(DECODE_STEPS):
+            logits, cache = model.decode_step(params, tok, cache, s + t)
+            seq.append(logits)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        after = dict(kbuild.LAUNCHES)
+        pre = {k: mid[k] - before[k] for k in PER_PREFILL}
+        dec = {k: after[k] - mid[k] for k in PER_PREFILL}
+        out = torch.cat(seq, dim=1).float()
+        print(f"zoo served B={b} S={s}: prefill launches {pre}, {DECODE_STEPS} decode steps "
+              f"launches {dec}; logits {tuple(out.shape)}", flush=True)
+        check(pre == PER_PREFILL, f"prefill B={b} S={s}: launches {pre}, expected {PER_PREFILL}")
+        check(not any(dec.values()), f"decode launched kernels {dec}")
+        check(out.shape == (b, DECODE_STEPS + 1, cfg.vocab_size) and bool(torch.isfinite(out).all()),
+              f"served B={b} S={s}: logits not finite or of the wrong shape")
+        del cache, logits, seq
+    launches = dict(kbuild.LAUNCHES)
+
+    # ---- throughput, and where a prefill's device time goes ------------- #
+    for (b, s), tokens in prompts.items():
+        t_pre = wall(lambda: model.prefill(params, {"tokens": tokens}, max_len=s + DECODE_STEPS),
+                     reps=3)
+        logits, cache = model.prefill(params, {"tokens": tokens}, max_len=s + DECODE_STEPS)
+
+        def decode(logits=logits, cache=cache):
+            tok = logits.argmax(-1)
+            for t in range(DECODE_STEPS):
+                logits, _ = model.decode_step(params, tok, cache, s + t)
+                tok = logits.argmax(-1)
+        t_dec = wall(decode, reps=1)
+        print(f"zoo serve B={b} S={s} on {card}: prefill {t_pre * 1e3:.1f} ms = "
+              f"{b * s / t_pre:.0f} tokens/s (median of 3); decode {DECODE_STEPS} steps "
+              f"{t_dec * 1e3:.1f} ms = {b * DECODE_STEPS / t_dec:.1f} tokens/s "
+              f"({t_dec / DECODE_STEPS * 1e3:.2f} ms a step)", flush=True)
+        del cache, logits
+    b, s = SERVE[0]
+    device_split(f"zoo prefill B={b} S={s}", card, lambda: model.prefill(
+        params, {"tokens": prompts[(b, s)]}, max_len=s + DECODE_STEPS))
+    logits, cache = model.prefill(params, {"tokens": prompts[(b, s)]}, max_len=s + DECODE_STEPS)
+    device_split(f"zoo decode step B={b} kv_len={s}", card,
+                 lambda: model.decode_step(params, logits.argmax(-1), cache, s))
+    del cache, logits
+    del params, prompts
+    torch.cuda.empty_cache()
+
+    # ---- each kernel against its plain version, at the path's shapes ---- #
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def within(got, want, tol):
+        atol, rtol = tol
+        got, want = got.float(), want.float()
+        return bool(((got - want).abs() <= atol + rtol * want.abs()).all()), \
+            float((got - want).abs().max())
+
+    rows = []
+    flash_err, flash_t = 0.0, None
+    for label, b, hq, hkv, sq, sk, d, dv in (
+            ("path", 2, 32, 32, 2048, 2048, 112, 112),
+            ("GQA group 4, ragged", 1, 32, 8, 1000, 1000, 112, 112),
+            ("Dv != D", 2, 32, 32, 1000, 1000, 112, 64),
+            ("Sq < Sk", 2, 32, 32, 128, 2048, 112, 112)):
+        # the path's layout: (B, S, H, D) activations viewed as (B, H, S, D)
+        q = randn(b, sq, hq, d).transpose(1, 2)
+        k = randn(b, sk, hkv, d).transpose(1, 2)
+        v = randn(b, sk, hkv, dv).transpose(1, 2)
+        got = flash_ops.flash_attention(q, k, v, causal=True)
+        with plain_kernels():
+            want = flash_ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ok, err = within(got, want, TOL_BF16_OUT)
+        check(ok, f"flash {label}: kernel and plain version differ (max |err| {err:.3e})")
+        flash_err = max(flash_err, err)
+        print(f"flash {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} bf16: "
+              f"max |err| {err:.3e} (tolerance atol, rtol {TOL_BF16_OUT})", flush=True)
+        if label == "path":
+            ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True), iters=10)
+            with plain_kernels():
+                plain_ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True),
+                                   iters=3)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                             iters=10)
+            b_ms, b_by = bound(*flash_work(b, hq, hkv, sq, sk, d, dv, 2), BF16_FLOPS_PER_S)
+            flash_t = (ms, plain_ms, b_ms, b_by, lib_ms)
+            print(f"flash_fwd path shape on {card}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+    rows.append({"name": "flash_fwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
+                 "replaces": "src/repro/kernels/flash/kernel.py:43",
+                 "launches": launches["flash_fwd"], "max_abs_err": flash_err, "ms": flash_t[0],
+                 "plain_ms": flash_t[1], "bound_ms": flash_t[2], "bound_by": flash_t[3],
+                 "library_ms": flash_t[4]})
+
+    ssd_err, ssd_t = 0.0, None
+    d_inner, nh, g, n, p, chunk = 7168, 112, 2, 64, 64, 64
+    for label, bt, s, scaled in (("path", 2, 2048, False), ("in_scale != dt", 2, 2048, True),
+                                 ("ragged", 1, 1000, False)):
+        # the path's layout: x, B and C are views into the conv output
+        xbc = randn(bt, s, d_inner + 2 * g * n)
+        x = xbc[..., :d_inner].reshape(bt, s, nh, p)
+        Bm = xbc[..., d_inner: d_inner + g * n].reshape(bt, s, g, n)
+        Cm = xbc[..., d_inner + g * n:].reshape(bt, s, g, n)
+        dt = F.softplus(torch.randn((bt, s, nh), generator=gen, device="cuda") * 0.5 - 2.0)
+        A = torch.exp(0.2 * torch.randn((nh,), generator=gen, device="cuda"))
+        sc = (torch.rand((bt, s, nh), generator=gen, device="cuda") if scaled else None)
+        args = (x, dt, A, Bm, Cm)
+        y, hf = ssd_ops.ssd_scan(*args, chunk=chunk, in_scale=sc)
+        with plain_kernels():
+            wy, wh = ssd_ops.ssd_scan(*args, chunk=chunk, in_scale=sc)
+        torch.cuda.synchronize()
+        ok_y, err_y = within(y, wy, TOL_BF16_OUT)
+        ok_h, err_h = within(hf, wh, TOL_SSD_STATE)
+        check(ok_y and ok_h, f"ssd {label}: kernel and plain version differ "
+              f"(y {err_y:.3e}, state {err_h:.3e})")
+        ssd_err = max(ssd_err, err_y, err_h)
+        print(f"ssd {label} Bt={bt} S={s} H={nh} P={p} N={n} G={g} chunk {chunk} bf16: max |err| "
+              f"y {err_y:.3e} (tolerance atol, rtol {TOL_BF16_OUT}), state {err_h:.3e} "
+              f"(tolerance {TOL_SSD_STATE})", flush=True)
+        if label == "path":
+            ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=chunk), iters=10)
+            with plain_kernels():
+                plain_ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=chunk), iters=2)
+            b_ms, b_by = bound(*ssd_work(bt, s, nh, p, g, n, chunk, 2, False), BF16_FLOPS_PER_S)
+            ssd_t = (ms, plain_ms, b_ms, b_by)
+            print(f"ssd_scan path shape on {card}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    rows.append({"name": "ssd_scan", "route": "cuda",
+                 "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
+                 "replaces": "src/repro/kernels/ssd/kernel.py:41",
+                 "launches": launches["ssd_scan"], "max_abs_err": ssd_err, "ms": ssd_t[0],
+                 "plain_ms": ssd_t[1], "bound_ms": ssd_t[2], "bound_by": ssd_t[3],
+                 "library_ms": None})
+
+    # ---- one full-width unit in float32: kernels against plain versions  #
+    cfg6 = cfg.scaled(n_layers=6, dtype="float32")
+    m6 = build_model(cfg6)
+    p6 = m6.init_params(seed=1)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 1000))).cuda()
+    before = dict(kbuild.LAUNCHES)
+    got, _ = m6.prefill(p6, {"tokens": tokens})
+    mid = dict(kbuild.LAUNCHES)
+    with plain_kernels():
+        want, _ = m6.prefill(p6, {"tokens": tokens})
+    torch.cuda.synchronize()
+    check(mid["flash_fwd"] - before["flash_fwd"] == 1 and mid["ssd_scan"] - before["ssd_scan"] == 5
+          and kbuild.LAUNCHES == mid, "f32 unit: unexpected kernel launches")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(err <= TOL_ZOO_F32 * max(1.0, scale) and torch.equal(got.argmax(-1), want.argmax(-1)),
+          f"f32 unit: kernel path and plain path differ (max |err| {err:.3e}, |logits| {scale:.3f})")
+    print(f"zoo f32 unit ({cfg6.pattern()}, d_model {cfg.d_model}), B=1 S=1000: kernel path vs "
+          f"plain path on the card, logits max |err| {err:.3e} (|logits| up to {scale:.3f}, "
+          f"tolerance {TOL_ZOO_F32} x max(1, |logits|)), greedy tokens equal", flush=True)
+    del m6, p6
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -160,7 +485,7 @@ def run() -> dict:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t_build = ops.build_kernels()
-    print(f"build: both kernels in {t_build:.2f} s (nvcc, sm_90a, in parallel)", flush=True)
+    print(f"build: all four kernels in {t_build:.2f} s (nvcc, sm_90a, in parallel)", flush=True)
 
     golden = json.loads(GOLDEN.read_text())
     names = list(golden["models"])
@@ -348,6 +673,8 @@ def run() -> dict:
     print(f"time split, Table-I batch on {card} (host clock, synchronized): "
           + ", ".join(f"{k} {v * 1e3:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items()),
           flush=True)
+    del sched, net
+    kernels += zoo_phase(card)
     return {"kernels": kernels, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "card": card}
 

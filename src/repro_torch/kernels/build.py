@@ -1,11 +1,14 @@
-"""Build and load the pointer kernels' CUDA sources, and count launches.
+"""Build and load the port's CUDA kernels, and count their launches.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, loaded with ``ctypes``.  A library's file name
-carries a hash of its sources and flags, so an edited source never reuses a
-stale build.  Builds go to ``build/repro_torch/`` at the repository root
-(listed in ``.gitignore``) at first use; :func:`build_kernels` starts one
-``nvcc`` per missing library, all at once.
+Every kernel — the pointer kernels (``ptr/csrc``), flash attention
+(``flash/csrc``) and the SSD scan (``ssd/csrc``) — compiles with ``nvcc``
+into its own shared library with a plain C interface, loaded with
+``ctypes``; each exports ``kernel_error_string``, which names a CUDA error
+code.  A library's file name carries a hash of its sources and flags,
+so an edited source never reuses a stale build.  Builds go to
+``build/repro_torch/`` at the repository root (listed in ``.gitignore``) at
+first use; :func:`build_kernels` starts one ``nvcc`` per missing library,
+all at once.
 
 :data:`LAUNCHES` counts, per kernel, the launches its wrapper has made.
 """
@@ -13,6 +16,7 @@ stale build.  Builds go to ``build/repro_torch/`` at the repository root
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -23,21 +27,38 @@ from pathlib import Path
 
 __all__ = ["LAUNCHES", "KERNELS", "BUILD_DIR", "build_kernels", "load_function", "check"]
 
+
+@dataclasses.dataclass(frozen=True)
+class KernelSource:
+    subdir: str            # kernels/<subdir>/csrc
+    source: str            # the .cu file
+    headers: tuple = ()    # headers it includes from the same csrc/
+
+
+_PTR = ("ptr_common.cuh",)
+#: kernel name -> its sources
+KERNELS = {
+    "ptr_step": KernelSource("ptr", "ptr_step.cu", _PTR),
+    "ptr_decode": KernelSource("ptr", "ptr_decode.cu", _PTR),
+    "flash_fwd": KernelSource("flash", "flash_fwd.cu"),
+    "ssd_scan": KernelSource("ssd", "ssd_scan.cu"),
+}
+
 #: launches per kernel, bumped by each wrapper right after a successful launch
-LAUNCHES: dict[str, int] = {"ptr_step": 0, "ptr_decode": 0}
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
-#: kernel name -> its source file under csrc/
-KERNELS = {"ptr_step": "ptr_step.cu", "ptr_decode": "ptr_decode.cu"}
-
-CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("ptr_common.cuh",)
-# src/repro_torch/kernels/ptr/build.py -> repository root
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+_KERNELS_DIR = Path(__file__).resolve().parent
+# src/repro_torch/kernels/build.py -> repository root
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+
+def _csrc(name: str) -> Path:
+    return _KERNELS_DIR / KERNELS[name].subdir / "csrc"
 
 
 def _nvcc() -> str:
@@ -52,9 +73,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    k = KERNELS[name]
     h = hashlib.sha256()
-    for f in (KERNELS[name],) + _HEADERS:
-        h.update((CSRC / f).read_bytes())
+    for f in (k.source,) + k.headers:
+        h.update((_csrc(name) / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -74,7 +96,7 @@ def build_kernels(names=None) -> float:
     for nm in todo:
         final = library_path(nm)
         tmp = final.with_name(f"{final.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[nm])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_csrc(nm) / KERNELS[nm].source)]
         procs.append((nm, tmp, final, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures = []
@@ -98,8 +120,9 @@ def load_function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
         if lib is None:
             build_kernels([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            lib.ptr_error_string.argtypes = [ctypes.c_int]
-            lib.ptr_error_string.restype = ctypes.c_char_p
+            err = lib.kernel_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
             _libs[name] = lib
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
@@ -110,5 +133,5 @@ def load_function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
 def check(name: str, code: int) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if code != 0:
-        msg = _libs[name].ptr_error_string(code).decode()
+        msg = _libs[name].kernel_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")

@@ -149,6 +149,6 @@ __device__ __forceinline__ void ptr_weighted_rows(const float* __restrict__ C, c
   __syncthreads();
 }
 
-extern "C" const char* ptr_error_string(int code) {
+extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

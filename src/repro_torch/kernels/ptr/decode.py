@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from . import build
+from .. import build
 from .kernel import MAX_SMEM_BYTES, THREADS, _WARPS, hidden_ok
 from .ref import precompute_refs
 

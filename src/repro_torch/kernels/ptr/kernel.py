@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from . import build
+from .. import build
 
 __all__ = ["pointer_step_cuda", "step_kernel_supported", "THREADS", "MAX_SMEM_BYTES"]
 

@@ -9,7 +9,7 @@ and nothing of the TPU's tiling.
 
 from __future__ import annotations
 
-from .build import BUILD_DIR, LAUNCHES, build_kernels
+from ..build import BUILD_DIR, LAUNCHES, build_kernels
 from .decode import decode_kernel_supported
 from .kernel import MAX_SMEM_BYTES, pointer_step_cuda, step_kernel_supported
 from .ref import precompute_refs, reference_pointer_step

@@ -1,0 +1,72 @@
+"""Wrapper of the SSD chunked-scan CUDA kernel (``csrc/ssd_scan.cu``).
+
+The counterpart of the reference's ``ssd_scan_pallas``.  On CUDA tensors it
+launches the kernel on PyTorch's current stream; it takes nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+
+__all__ = ["ssd_scan_cuda", "smem_bytes", "MAX_DIM", "MAX_SMEM_BYTES"]
+
+MAX_DIM = 128                 # SSD_MAX_DIM in csrc/ssd_scan.cu: chunk, N and P
+MAX_SMEM_BYTES = 227 * 1024   # dynamic shared memory one block may use on Hopper
+_DTYPES = (torch.float32, torch.bfloat16)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 9 + [_I] * 9 + [_P]
+
+
+def smem_bytes(chunk: int, n: int, p: int) -> int:
+    """Dynamic shared memory of one block (mirrors ``ssd_smem_floats``)."""
+    return 4 * (n * (p + 1) + chunk * (p + 1) + 2 * chunk * (n + 1)
+                + chunk * (chunk + 1) + 2 * chunk)
+
+
+def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int, in_scale=None):
+    """x: (Bt, S, H, P); dt, in_scale: (Bt, S, H); A: (H,); B, C:
+    (Bt, S, G, N), with x, B and C of one dtype (float32 or bfloat16) and S a
+    multiple of ``chunk``.  Any strides with the last dimension contiguous.
+    Returns y (Bt, S, H, P) in x's dtype and h_final (Bt, H, N, P) float32."""
+    if not x.is_cuda:
+        raise ValueError("ssd_scan_cuda takes CUDA tensors")
+    bt, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if tuple(B.shape) != (bt, s, g, n) or tuple(C.shape) != (bt, s, g, n):
+        raise ValueError(f"B, C must be {(bt, s, g, n)}, got {tuple(B.shape)}, {tuple(C.shape)}")
+    sc = dt if in_scale is None else in_scale
+    if tuple(dt.shape) != (bt, s, h) or tuple(sc.shape) != (bt, s, h) or tuple(A.shape) != (h,):
+        raise ValueError("dt and in_scale must be (Bt, S, H) and A (H,)")
+    if h % g:
+        raise ValueError("H must be a multiple of G")
+    if s % chunk:
+        raise ValueError(f"S={s} must be a multiple of the chunk {chunk}")
+    if max(chunk, n, p) > MAX_DIM or smem_bytes(chunk, n, p) > MAX_SMEM_BYTES:
+        raise ValueError(f"the kernel takes chunk, N, P <= {MAX_DIM} within "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory; got chunk={chunk}, "
+                         f"N={n}, P={p} ({smem_bytes(chunk, n, p)} bytes)")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"x, B, C must share one dtype of {_DTYPES}, got "
+                         f"{x.dtype}, {B.dtype}, {C.dtype}")
+    for t in (dt, sc, A, B, C):
+        if t.device != x.device:
+            raise ValueError("all operands must be on one device")
+    x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
+    dt, sc = (t.float() if t.stride(-1) == 1 else t.float().contiguous() for t in (dt, sc))
+    A = A.float().contiguous()
+    y = torch.empty((bt, s, h, p), dtype=x.dtype, device=x.device)
+    hout = torch.empty((bt, h, n, p), dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_longlong * 18)(*(st for t in (x, dt, sc, B, C, y) for st in t.stride()[:3]))
+    fn = build.load_function("ssd_scan", "ssd_scan_launch", _ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), dt.data_ptr(), sc.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), hout.data_ptr(), strides, bt, s, h, g, n, p, chunk,
+            int(x.dtype == torch.bfloat16), x.device.index or 0, stream)
+    build.check("ssd_scan", rc)
+    build.LAUNCHES["ssd_scan"] += 1
+    return y, hout

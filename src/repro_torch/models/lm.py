@@ -1,0 +1,185 @@
+"""Decoder-only LM assembly for hybrid patterns (``repro.models.lm``).
+
+The layer pattern is decomposed as ``unit * n_full + tail``.  Parameters
+keep the reference's pytree as nested dicts: the ``n_full`` unit repetitions
+are stacked leaves with a leading ``n_full`` axis under ``blocks/u{i}``; a
+shared-weight block (token ``A``, zamba2) has one parameter set,
+``shared_attn``, used at every call site, while its per-site caches stack
+like the others; the tail blocks sit under ``tail/t{i}``.  The reference's
+layer scan becomes a Python loop over per-layer slices (views) of the
+stacks.
+
+Caches are filled in place: prefill writes each layer's cache into a cache
+of ``max_len`` (default S) and decode writes its new entries into the cache
+it is given, which it returns.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import blocks
+from .common import Init, dtype_of, rms_norm
+
+__all__ = [
+    "decompose_pattern", "init_lm", "init_lm_cache", "lm_forward", "lm_prefill",
+    "pad_cache_to", "lm_decode_step", "params_from_numpy",
+]
+
+# cache leaves with a sequence axis (padded by pad_cache_to)
+_SEQ_CACHE_KEYS = {"k", "v"}
+
+
+def decompose_pattern(cfg):
+    unit = cfg.block_pattern or "a"
+    pattern = cfg.pattern()
+    n_full = len(pattern) // len(unit)
+    return unit, n_full, pattern[n_full * len(unit):]
+
+
+def init_lm(init: Init, cfg):
+    unit, n_full, tail = decompose_pattern(cfg)
+    dt = dtype_of(cfg)
+    params = {
+        "embed": init.normal((cfg.vocab_size, cfg.d_model), 0.02, dt),
+        "final_norm": init.full((cfg.d_model,), 1.0, torch.float32),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init.normal((cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5, dt)
+    if "A" in unit:
+        params["shared_attn"] = blocks.init_block(init, cfg, "A")
+    params["blocks"] = {f"u{i}": blocks.init_block(init.stacked(n_full), cfg, tok)
+                        for i, tok in enumerate(unit) if tok != "A" and n_full > 0}
+    params["tail"] = {f"t{i}": blocks.init_block(init, cfg, tok) for i, tok in enumerate(tail)}
+    return params
+
+
+def init_lm_cache(init: Init, cfg, batch: int, max_len: int):
+    unit, n_full, tail = decompose_pattern(cfg)
+    return {"blocks": {f"u{i}": blocks.init_block_cache(init.stacked(n_full), cfg, tok,
+                                                        batch, max_len)
+                       for i, tok in enumerate(unit) if n_full > 0},
+            "tail": {f"t{i}": blocks.init_block_cache(init, cfg, tok, batch, max_len)
+                     for i, tok in enumerate(tail)}}
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _store(slot, new) -> None:
+    """Write one layer's new cache into its slot of the full cache."""
+    for key, val in new.items():
+        if val is slot[key]:
+            continue
+        if key in _SEQ_CACHE_KEYS:
+            slot[key][:, : val.shape[1]] = val
+        else:
+            slot[key].copy_(val)
+
+
+def _backbone(params, cfg, x, positions, *, mode, cache, kv_len):
+    unit, n_full, tail = decompose_pattern(cfg)
+    shared = params.get("shared_attn")
+    for layer in range(n_full):
+        for i, tok in enumerate(unit):
+            p = shared if tok == "A" else _layer(params["blocks"][f"u{i}"], layer)
+            slot = _layer(cache["blocks"][f"u{i}"], layer)
+            x, nc = blocks.block_forward(p, cfg, tok, x, positions, mode=mode,
+                                         cache=slot if mode == "decode" else None,
+                                         kv_len=kv_len)
+            _store(slot, nc)
+    for i, tok in enumerate(tail):
+        slot = cache["tail"][f"t{i}"]
+        x, nc = blocks.block_forward(params["tail"][f"t{i}"], cfg, tok, x, positions, mode=mode,
+                                     cache=slot if mode == "decode" else None, kv_len=kv_len)
+        _store(slot, nc)
+    return x
+
+
+def _logits(params, cfg, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+def lm_forward(params, cfg, tokens, *, mode, cache, kv_len=None):
+    """Embed, run every block (filling ``cache``), final norm.  tokens
+    (B, S) int on the parameters' device."""
+    x = params["embed"][tokens]
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    if mode == "decode":
+        positions = positions + kv_len
+    x = _backbone(params, cfg, x, positions, mode=mode, cache=cache, kv_len=kv_len)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def lm_prefill(params, cfg, batch, *, max_len: int | None = None):
+    """Full-sequence pass that also emits the serving cache.  Returns
+    (logits of the last position (B, 1, V), cache with attention entries
+    right-padded to ``max_len``, default S)."""
+    tokens = batch["tokens"].to(params["embed"].device)
+    b, s = tokens.shape
+    cache = init_lm_cache(Init(tokens.device), cfg, b, max(max_len or s, s))
+    x = lm_forward(params, cfg, tokens, mode="prefill", cache=cache)
+    return _logits(params, cfg, x[:, -1:, :]), cache
+
+
+def pad_cache_to(cache, max_len: int):
+    """Right-pad the sequence axis of the attention entries of a cache (axis
+    2 under the layer-stacked ``blocks``, else 1) to ``max_len``."""
+    def pad(tree, axis):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                out[key] = pad(val, axis)
+            elif key in _SEQ_CACHE_KEYS and val.shape[axis] < max_len:
+                shape = list(val.shape)
+                shape[axis] = max_len - shape[axis]
+                out[key] = torch.cat([val, val.new_zeros(shape)], dim=axis)
+            else:
+                out[key] = val
+        return out
+    return {"blocks": pad(cache["blocks"], 2), "tail": pad(cache["tail"], 1)}
+
+
+def lm_decode_step(params, cfg, token, cache, kv_len: int):
+    """token: (B, 1) int; kv_len: count of filled cache entries.  Writes the
+    step's entries into ``cache``.  Returns (logits (B, 1, V), cache)."""
+    token = token.to(params["embed"].device)
+    x = lm_forward(params, cfg, token, mode="decode", cache=cache, kv_len=int(kv_len))
+    return _logits(params, cfg, x), cache
+
+
+def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> torch, keeping the dtype; bfloat16 arrays (ml_dtypes) are
+    carried bit for bit through uint16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(cfg, tree, device) -> dict:
+    """Load the reference's ``init_lm`` pytree, as nested dicts of numpy
+    arrays, into the port's parameters on ``device``.  Every leaf keeps its
+    dtype; the tree must have the structure and shapes of :func:`init_lm`."""
+    device = torch.device(device)
+    want = init_lm(Init(torch.device("meta")), cfg)
+
+    def convert(w, t, path):
+        if isinstance(w, dict):
+            if not isinstance(t, dict) or set(t) != set(w):
+                got = sorted(t) if isinstance(t, dict) else type(t).__name__
+                raise ValueError(f"{path or 'params'}: expected keys {sorted(w)}, got {got}")
+            return {k: convert(w[k], t[k], f"{path}/{k}") for k in w}
+        out = _to_torch(t, device)
+        if tuple(out.shape) != tuple(w.shape) or out.dtype != w.dtype:
+            raise ValueError(f"{path}: expected {w.dtype} {tuple(w.shape)}, "
+                             f"got {out.dtype} {tuple(out.shape)}")
+        return out
+
+    return convert(want, tree, "")

@@ -34,7 +34,8 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_cuda_sources_call_no_library_kernels():
-    assert {p.name for p in CUDA_FILES} >= {"ptr_step.cu", "ptr_decode.cu", "ptr_common.cuh"}
+    assert {p.name for p in CUDA_FILES} >= {"ptr_step.cu", "ptr_decode.cu", "ptr_common.cuh",
+                                            "flash_fwd.cu", "ssd_scan.cu"}
     pattern = re.compile(r"cublas|cudnn|cutlass|cufft|thrust|cub/|torch", re.IGNORECASE)
     for path in CUDA_FILES:
         for line in path.read_text().splitlines():
@@ -53,6 +54,13 @@ def test_port_runs_with_jax_unimportable():
         g = sample_dag(np.random.default_rng(0), n=20, deg=3)
         res = sched.schedule_many([g, g], 4)
         assert res[0]["assignment"].shape == (20,) and res[1]["cache_hit"]
+        import torch
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models.model import build_model
+        model = build_model(get_smoke_config("zamba2-7b"), device="cpu")
+        logits, cache = model.prefill(model.init_params(0),
+                                      {"tokens": torch.zeros((1, 10), dtype=torch.long)})
+        assert logits.shape == (1, 1, 256) and bool(torch.isfinite(logits.float()).all())
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -1,0 +1,133 @@
+"""The port's SSD scan against the reference's, and the CUDA kernel against
+its plain version.
+
+On the CPU, ``ssd_scan`` runs its plain chunkwise version; it is held to the
+reference's Pallas kernel in interpret mode on the same numpy inputs — y and
+the final state, with B/C groups (G > 1), a decoupled ``in_scale`` and
+sequences that do not divide the chunk (right-padded with identity steps):
+
+* float32 at atol = rtol = 2e-5 (float32 sums and exps in another order);
+* bfloat16 inputs at atol = rtol = 2e-2 for y (one rounding to bfloat16)
+  and 2e-4 for the float32 state.
+
+The per-timestep and chunkwise plain versions are held to the reference's
+``reference_ssd``/``reference_ssd_chunked`` at 2e-5.  The kernel itself runs
+only on the card: the ``cuda`` tests skip here.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd.ops import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd.ref import reference_ssd as jax_reference_ssd
+from repro.kernels.ssd.ref import reference_ssd_chunked as jax_reference_ssd_chunked
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd.kernel import smem_bytes, ssd_scan_cuda
+from repro_torch.kernels.ssd.ops import ssd_scan
+from repro_torch.kernels.ssd.ref import reference_ssd, reference_ssd_chunked, ssd_chunked
+
+torch.set_num_threads(1)
+
+
+def _inputs(bt, s, h, p, g, n, seed=0, in_scale=False):
+    rng = np.random.default_rng(seed)
+    out = {
+        "x": rng.standard_normal((bt, s, h, p)).astype(np.float32),
+        "dt": (np.abs(rng.standard_normal((bt, s, h))) * 0.1 + 0.01).astype(np.float32),
+        "A": (np.abs(rng.standard_normal((h,))) + 0.5).astype(np.float32),
+        "B": rng.standard_normal((bt, s, g, n)).astype(np.float32),
+        "C": rng.standard_normal((bt, s, g, n)).astype(np.float32),
+    }
+    out["in_scale"] = rng.uniform(0, 1, (bt, s, h)).astype(np.float32) if in_scale else None
+    return out
+
+
+CASES = [
+    # (bt, s, h, p, g, n, chunk, in_scale, dtype, tol_y, tol_h)
+    (2, 64, 4, 16, 2, 8, 16, False, "float32", 2e-5, 2e-5),
+    (1, 50, 4, 8, 2, 4, 16, False, "float32", 2e-5, 2e-5),     # 50 = 3 chunks + 2
+    (2, 40, 6, 8, 3, 8, 16, True, "float32", 2e-5, 2e-5),      # in_scale != dt, G = 3
+    (2, 40, 2, 16, 2, 8, 16, False, "bfloat16", 2e-2, 2e-4),
+]
+
+
+@pytest.mark.parametrize("bt,s,h,p,g,n,chunk,use_scale,dtype,tol_y,tol_h", CASES)
+def test_plain_matches_pallas_interpret(bt, s, h, p, g, n, chunk, use_scale, dtype, tol_y, tol_h):
+    a = _inputs(bt, s, h, p, g, n, in_scale=use_scale)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jy, jh = jax_ssd_scan(jnp.asarray(a["x"], jdt), jnp.asarray(a["dt"]), jnp.asarray(a["A"]),
+                          jnp.asarray(a["B"], jdt), jnp.asarray(a["C"], jdt), chunk=chunk,
+                          impl="interpret",
+                          in_scale=None if a["in_scale"] is None else jnp.asarray(a["in_scale"]))
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in a.items()}
+    before = dict(build.LAUNCHES)
+    y, hf = ssd_scan(t["x"].to(tdt), t["dt"], t["A"], t["B"].to(tdt), t["C"].to(tdt),
+                     chunk=chunk, in_scale=t["in_scale"])
+    assert build.LAUNCHES == before          # nothing launched on the CPU
+    assert y.dtype == tdt and y.shape == (bt, s, h, p) and hf.shape == (bt, h, n, p)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy, np.float32),
+                               atol=tol_y, rtol=tol_y)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(jh), atol=tol_h, rtol=tol_h)
+
+
+@pytest.mark.parametrize("use_scale", [False, True])
+def test_sequence_references_match(use_scale):
+    a = _inputs(1, 32, 4, 8, 2, 4, seed=1, in_scale=use_scale)
+    one = {k: None if v is None else v[0] for k, v in a.items() if k != "A"}
+    jargs = [jnp.asarray(one[k]) for k in ("x", "dt")] + [jnp.asarray(a["A"])] + \
+        [jnp.asarray(one[k]) for k in ("B", "C")]
+    targs = [torch.from_numpy(one[k]) for k in ("x", "dt")] + [torch.from_numpy(a["A"])] + \
+        [torch.from_numpy(one[k]) for k in ("B", "C")]
+    jsc = None if one["in_scale"] is None else jnp.asarray(one["in_scale"])
+    tsc = None if one["in_scale"] is None else torch.from_numpy(one["in_scale"])
+    for jfn, tfn, kw in ((jax_reference_ssd, reference_ssd, {}),
+                         (jax_reference_ssd_chunked, reference_ssd_chunked, {"chunk": 8})):
+        jy, jh = jfn(*jargs, in_scale=jsc, **kw)
+        ty, th = tfn(*targs, in_scale=tsc, **kw)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-5, rtol=2e-5)
+
+
+def test_kernel_wrapper_takes_only_cuda_tensors_and_gates_shapes():
+    a = {k: torch.from_numpy(v) for k, v in _inputs(1, 16, 2, 8, 1, 4).items() if v is not None}
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_cuda(a["x"], a["dt"], a["A"], a["B"], a["C"], chunk=16)
+    assert smem_bytes(64, 64, 64) == 4 * (64 * 65 * 5 + 128)     # the path's shapes: 83.7 KB
+    assert smem_bytes(128, 128, 128) > 227 * 1024
+
+
+# ---------------------------------------------------------------------- #
+# on the card only
+# ---------------------------------------------------------------------- #
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,s,h,p,g,n,chunk,use_scale,dtype", [
+    (2, 256, 8, 64, 2, 64, 64, False, "float32"),     # the path's head shape
+    (1, 300, 6, 24, 3, 40, 64, True, "float32"),      # ragged S, in_scale, odd dims
+    (2, 128, 4, 128, 1, 32, 128, False, "float32"),   # chunk and P at the limit
+    (2, 512, 16, 64, 2, 64, 64, False, "bfloat16"),
+])
+def test_kernel_matches_plain_on_cuda(bt, s, h, p, g, n, chunk, use_scale, dtype):
+    _need_cuda()
+    tdt = getattr(torch, dtype)
+    a = {k: None if v is None else torch.from_numpy(v).cuda()
+         for k, v in _inputs(bt, s, h, p, g, n, seed=s, in_scale=use_scale).items()}
+    x, B, C = a["x"].to(tdt), a["B"].to(tdt), a["C"].to(tdt)
+    before = build.LAUNCHES["ssd_scan"]
+    y, hf = ssd_scan(x, a["dt"], a["A"], B, C, chunk=chunk, in_scale=a["in_scale"])
+    pad = (-s) % chunk
+    padded = [torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) if t is not None
+              else None for t in (x, a["dt"], B, C, a["in_scale"])]
+    wy, wh = ssd_chunked(padded[0], padded[1], a["A"], padded[2], padded[3], chunk=chunk,
+                         in_scale=padded[4])
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ssd_scan"] == before + 1
+    tol_y = 1e-4 if dtype == "float32" else 2e-2       # float32 order / one bf16 rounding
+    torch.testing.assert_close(y.float(), wy[:, :s].to(tdt).float(), atol=tol_y, rtol=tol_y)
+    torch.testing.assert_close(hf, wh, atol=1e-4, rtol=1e-4)
