@@ -14,14 +14,18 @@ Run from the repository root:  python3 chip_smoke.py
    (tests/golden/dnn_schedules.json) and holds the synthetic and
    heterogeneous results to the plain PyTorch path on the CPU;
 5. holds each kernel to its plain PyTorch version on the card at the main
-   path's shapes, times both with CUDA events, computes each kernel's bound
-   and the end-to-end cold-miss rate;
+   path's shapes, times both with CUDA events (and, for each kernel, its
+   device time from the profiler's kernel durations: a kernel under 0.2 ms
+   is reported by that time, which leaves out the host's enqueue), computes
+   each kernel's bound and the end-to-end cold-miss rate;
 6. the LM zoo's serving path: the full zamba2-7b (81 layers, d_model 3584,
    bf16, seeded random weights) serves a batch of 2 x 2048-token prompts and
    a ragged 1 x 1000 one (prefill, then 16 greedy decode steps each), with
    the launch counters reset just before and read just after (13 flash and
    68 SSD launches a prefill, none in decode); prints prefill and decode
-   tokens/s and where a prefill's device time goes;
+   tokens/s and where a prefill's device time goes, and checks there that
+   every B3 and B4 launch of the bf16 model ran the kernels' bfloat16
+   (tensor-core) templates;
 7. holds the flash-attention and SSD-scan kernels to their plain versions
    at the path's shapes (and a GQA, a Dv != D, an Sq < Sk and an
    in_scale != dt case), times kernel, plain version and — for flash —
@@ -88,6 +92,33 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, name: str, iters: int) -> float:
+    """Mean device time, in ms, of the kernels whose name holds ``name``:
+    the profiler's kernel durations of the last ``iters`` of ``iters + 2``
+    calls of ``fn`` (one such kernel a call; the profiler may miss the
+    first), without the host's enqueue between launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters + 2):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and name in e.name)
+    check(len(spans) >= iters, f"profiler saw {len(spans)} {name} kernels in {iters + 2} calls")
+    return sum(us for _, us in spans[-iters:]) / iters / 1e3
+
+
+def reported_ms(event_ms: float, dev_ms: float) -> float:
+    """The time a kernel row reports: CUDA events around back-to-back calls,
+    or, for a kernel under 0.2 ms, where the host's enqueue between launches
+    is a visible share of that, its device time."""
+    return dev_ms if event_ms < 0.2 else event_ms
 
 
 def frontier_sizes(graph, order) -> list[int]:
@@ -193,10 +224,11 @@ def ssd_work(bt, s, h, p, g, n, q, itemsize, in_scale: bool) -> tuple[float, flo
     return nbytes, flops
 
 
-def device_split(label: str, card: str, fn) -> None:
+def device_split(label: str, card: str, fn) -> list[str]:
     """Profile one call of ``fn`` and print where its device time goes (the
     two zoo kernels, cuBLAS matmuls, everything else, and the largest of the
-    rest), with the device's busy and idle share of the kernels' window."""
+    rest), with the device's busy and idle share of the kernels' window.
+    Returns the names of the device kernels it ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -209,7 +241,7 @@ def device_split(label: str, card: str, fn) -> None:
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
         print(f"{label} time split: the profiler saw no device time (not measured)", flush=True)
-        return
+        return []
     split = {"flash (B3)": 0.0, "ssd scan (B4)": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
     other: dict[str, float] = {}
     spans = []
@@ -239,6 +271,7 @@ def device_split(label: str, card: str, fn) -> None:
           + f"; {len(kern)} kernels, device busy {busy / 1e3:.2f} ms of a {window / 1e3:.2f} ms "
           f"window (idle {100 * (1 - busy / window):.1f}%), host {host * 1e3:.1f} ms profiled; "
           "largest other: " + ", ".join(f"{n} {v / 1e3:.2f} ms" for n, v in top), flush=True)
+    return [e.name for e in kern]
 
 
 def zoo_phase(card: str) -> list[dict]:
@@ -341,8 +374,15 @@ def zoo_phase(card: str) -> list[dict]:
               f"({t_dec / DECODE_STEPS * 1e3:.2f} ms a step)", flush=True)
         del cache, logits
     b, s = SERVE[0]
-    device_split(f"zoo prefill B={b} S={s}", card, lambda: model.prefill(
+    names = device_split(f"zoo prefill B={b} S={s}", card, lambda: model.prefill(
         params, {"tokens": prompts[(b, s)]}, max_len=s + DECODE_STEPS))
+    if names:   # bf16 inputs run the tensor-core templates, and only those
+        ran = {k: sum(k in n for n in names) for k in ("flash_fwd_bf16", "flash_fwd_f32",
+                                                       "ssd_scan_bf16", "ssd_scan_f32")}
+        print(f"zoo prefill B={b} S={s}: kernel templates launched {ran}", flush=True)
+        check(ran == {"flash_fwd_bf16": PER_PREFILL["flash_fwd"], "flash_fwd_f32": 0,
+                      "ssd_scan_bf16": PER_PREFILL["ssd_scan"], "ssd_scan_f32": 0},
+              f"bf16 prefill ran {ran}, expected only the bf16 templates")
     logits, cache = model.prefill(params, {"tokens": prompts[(b, s)]}, max_len=s + DECODE_STEPS)
     device_split(f"zoo decode step B={b} kv_len={s}", card,
                  lambda: model.decode_step(params, logits.argmax(-1), cache, s))
@@ -383,7 +423,10 @@ def zoo_phase(card: str) -> list[dict]:
         print(f"flash {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} bf16: "
               f"max |err| {err:.3e} (tolerance atol, rtol {TOL_BF16_OUT})", flush=True)
         if label == "path":
-            ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True), iters=10)
+            ev_ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True), iters=10)
+            dev_ms = device_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True),
+                               "flash_fwd_bf16", iters=10)
+            ms = reported_ms(ev_ms, dev_ms)
             with plain_kernels():
                 plain_ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True),
                                    iters=3)
@@ -391,7 +434,8 @@ def zoo_phase(card: str) -> list[dict]:
                              iters=10)
             b_ms, b_by = bound(*flash_work(b, hq, hkv, sq, sk, d, dv, 2), BF16_FLOPS_PER_S)
             flash_t = (ms, plain_ms, b_ms, b_by, lib_ms)
-            print(f"flash_fwd path shape on {card}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            print(f"flash_fwd path shape on {card}: kernel {ev_ms:.4f} ms (CUDA events; device "
+                  f"{dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
                   f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
     rows.append({"name": "flash_fwd", "route": "cuda",
@@ -427,12 +471,16 @@ def zoo_phase(card: str) -> list[dict]:
               f"y {err_y:.3e} (tolerance atol, rtol {TOL_BF16_OUT}), state {err_h:.3e} "
               f"(tolerance {TOL_SSD_STATE})", flush=True)
         if label == "path":
-            ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=chunk), iters=10)
+            ev_ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=chunk), iters=10)
+            dev_ms = device_ms(lambda: ssd_ops.ssd_scan(*args, chunk=chunk), "ssd_scan_bf16",
+                               iters=10)
+            ms = reported_ms(ev_ms, dev_ms)
             with plain_kernels():
                 plain_ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=chunk), iters=2)
             b_ms, b_by = bound(*ssd_work(bt, s, nh, p, g, n, chunk, 2, False), BF16_FLOPS_PER_S)
             ssd_t = (ms, plain_ms, b_ms, b_by)
-            print(f"ssd_scan path shape on {card}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            print(f"ssd_scan path shape on {card}: kernel {ev_ms:.4f} ms (CUDA events; device "
+                  f"{dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     rows.append({"name": "ssd_scan", "route": "cuda",
                  "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
@@ -580,13 +628,16 @@ def run() -> dict:
             check(err <= TOL_LOGP, f"ptr_decode {label} {what}: logp/entropy error {err:.3e}")
             decode_rows.append((label, what, err))
         with torch.inference_mode():
-            ms = cuda_ms(lambda: decode_batch(*args), iters=5)
+            ev_ms = cuda_ms(lambda: decode_batch(*args), iters=5)
+            dev_ms = device_ms(lambda: decode_batch(*args), "ptr_decode", iters=5)
+            ms = reported_ms(ev_ms, dev_ms)
             refs_ms = cuda_ms(lambda: ops.precompute_refs(net, C), iters=20)
             plain_ms = cuda_ms(lambda: decode_batch_reference(*args), iters=2)
         nbytes, flops = decode_work(graphs, k_out[0].cpu().numpy(), n, H, D)
         b_ms, b_by = bound(nbytes, flops)
         err = max(e for lb, _, e in decode_rows if lb == label)
-        print(f"ptr_decode {label} H={H} on {card}: kernel {ms:.3f} ms (the wrapper's two "
+        print(f"ptr_decode {label} H={H} on {card}: kernel {ev_ms:.4f} ms (CUDA events; device "
+              f"{dev_ms:.4f} ms; the wrapper's two "
               f"C @ W_ref products alone {refs_ms:.4f} ms), plain {plain_ms:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), max |err| logp/ent {err:.2e}", flush=True)
         if label.startswith("bucket 1024"):
@@ -614,14 +665,17 @@ def run() -> dict:
         err = float((k_log[sel] - p_log[sel]).abs().max())
         rel = float(((k_log[sel] - p_log[sel]).abs() / p_log[sel].abs().clamp_min(1.0)).max())
         check(rel <= TOL_LOGITS, f"ptr_step: logits error {err:.3e}")
-        ms = cuda_ms(lambda: pointer_step_cuda(*step_args), iters=50, warmup=3)
+        ev_ms = cuda_ms(lambda: pointer_step_cuda(*step_args), iters=50, warmup=3)
+        dev_ms = device_ms(lambda: pointer_step_cuda(*step_args), "ptr_step", iters=50)
+        ms = reported_ms(ev_ms, dev_ms)
         plain_ms = cuda_ms(lambda: reference_pointer_step(*step_args), iters=50, warmup=3)
     m_rows = int(sel.sum())
     nbytes = 4 * (3 * m_rows * H + B * n + B * H + 2 * H * H + 2 * H + B * n)
     flops = B * 2 * 2 * H * H + m_rows * (3 * H * 2 + 2 * H + 8)
     b_ms, b_by = bound(nbytes, flops)
     print(f"ptr_step bucket 1024, B=4, {m_rows} selectable rows, H={H} on {card}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+          f"{ev_ms:.4f} ms (CUDA events around 50 calls, the host's enqueue included), device "
+          f"{dev_ms:.5f} ms (profiler), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
           f"max |err| {err:.2e}", flush=True)
     kernels.append({
         "name": "ptr_step", "route": "cuda",

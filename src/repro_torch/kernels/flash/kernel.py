@@ -4,7 +4,10 @@ The counterpart of the reference's ``flash_attention_pallas``.  It takes
 any Sq <= Sk and any head dims D, Dv <= 256 — the ragged edges are masked
 inside the kernel, so no length rule of the TPU's tiling carries over.  On
 CUDA tensors it launches the kernel on PyTorch's current stream; it takes
-nothing else.
+nothing else.  bfloat16 inputs go to the kernel's tensor-core template,
+whose TMA loads need 16-byte aligned bases and strides: an operand that
+is not so laid out is first copied (zero-padded to 8 columns) into one
+that is.  float32 inputs go to the CUDA-core template as they are.
 """
 
 from __future__ import annotations
@@ -26,6 +29,20 @@ _ARGTYPES = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
 
 def _inner_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if TMA can load it (base 16-byte aligned, every stride of a
+    dimension longer than 1 a multiple of 8 bf16 elements), else a copy
+    padded with zero columns to a multiple of 8; the kernel still reads only
+    the columns the caller's D (or Dv) names."""
+    if x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st, n in zip(x.stride()[:3], x.shape[:3])
+                                      if n > 1):
+        return x
+    d = x.shape[-1]
+    out = x.new_zeros(x.shape[:3] + (-(-d // 8) * 8,))
+    out[..., :d] = x
+    return out
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, scale: float | None = None):
@@ -55,6 +72,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale: float | None = 
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must be on one device")
     q, k, v = (_inner_contiguous(t) for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_ready(t) for t in (q, k, v))
     o = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
     scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)

@@ -2,6 +2,9 @@
 
 The counterpart of the reference's ``ssd_scan_pallas``.  On CUDA tensors it
 launches the kernel on PyTorch's current stream; it takes nothing else.
+bfloat16 inputs go to the kernel's tensor-core template, float32 inputs to
+its CUDA-core template; each has its own shared-memory layout
+(:func:`smem_bytes`).
 """
 
 from __future__ import annotations
@@ -22,10 +25,22 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 9 + [_I] * 9 + [_P]
 
 
-def smem_bytes(chunk: int, n: int, p: int) -> int:
-    """Dynamic shared memory of one block (mirrors ``ssd_smem_floats``)."""
-    return 4 * (n * (p + 1) + chunk * (p + 1) + 2 * chunk * (n + 1)
-                + chunk * (chunk + 1) + 2 * chunk)
+#: columns of P one block of the bfloat16 template owns (SB_PB in csrc/ssd_scan.cu)
+P_SLICE = 32
+
+
+def smem_bytes(chunk: int, n: int, p: int, bf16: bool = False) -> int:
+    """Dynamic shared memory of one block: the float32 template's (mirrors
+    ``ssd_smem_floats``) or the bfloat16 template's (mirrors
+    ``SbLayout<QT, NT>::BYTES``: chunk and N rounded up to 64 or 128, a
+    double buffer of C, B, the x slice, dt and in_scale, the state slice's
+    bf16 halves and each warp's decay arrays)."""
+    if not bf16:
+        return 4 * (n * (p + 1) + chunk * (p + 1) + 2 * chunk * (n + 1)
+                    + chunk * (chunk + 1) + 2 * chunk)
+    qt, nt = (64 if chunk <= 64 else 128), (64 if n <= 64 else 128)
+    buffers = 2 * (2 * qt * nt * 2 + qt * (P_SLICE + 8) * 2 + 2 * qt * 4)
+    return buffers + 2 * P_SLICE * (nt + 8) * 2 + (qt // 16) * 2 * qt * 4
 
 
 def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int, in_scale=None):
@@ -46,13 +61,14 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int, in_scale=None):
         raise ValueError("H must be a multiple of G")
     if s % chunk:
         raise ValueError(f"S={s} must be a multiple of the chunk {chunk}")
-    if max(chunk, n, p) > MAX_DIM or smem_bytes(chunk, n, p) > MAX_SMEM_BYTES:
-        raise ValueError(f"the kernel takes chunk, N, P <= {MAX_DIM} within "
-                         f"{MAX_SMEM_BYTES} bytes of shared memory; got chunk={chunk}, "
-                         f"N={n}, P={p} ({smem_bytes(chunk, n, p)} bytes)")
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise ValueError(f"x, B, C must share one dtype of {_DTYPES}, got "
                          f"{x.dtype}, {B.dtype}, {C.dtype}")
+    smem = smem_bytes(chunk, n, p, bf16=x.dtype == torch.bfloat16)
+    if max(chunk, n, p) > MAX_DIM or smem > MAX_SMEM_BYTES:
+        raise ValueError(f"the kernel takes chunk, N, P <= {MAX_DIM} within "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory; got chunk={chunk}, "
+                         f"N={n}, P={p} ({smem} bytes, {x.dtype})")
     for t in (dt, sc, A, B, C):
         if t.device != x.device:
             raise ValueError("all operands must be on one device")

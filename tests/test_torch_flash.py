@@ -13,7 +13,9 @@ semantics: P stays float32 before P @ V) on the same numpy inputs:
 The reference refuses a Pallas prefill whose length is over 128 and not a
 multiple of it (``kernel.py:109-112``); the port takes any length, pinned at
 300 tokens against the reference's plain ``reference_attention``.  The
-kernel itself runs only on the card: the ``cuda`` tests skip here.
+kernel itself runs only on the card: the ``cuda`` tests skip here.  There
+float32 inputs run the kernel's CUDA-core template (held at 2e-5) and
+bfloat16 inputs its tensor-core template (held at 2e-2, one bf16 rounding).
 """
 
 import jax.numpy as jnp
@@ -25,7 +27,7 @@ from repro.kernels.flash.kernel import flash_attention_pallas
 from repro.kernels.flash.ops import decode_attention as jax_decode_attention
 from repro.kernels.flash.ref import reference_attention as jax_reference_attention
 from repro_torch.kernels import build
-from repro_torch.kernels.flash.kernel import flash_attention_cuda
+from repro_torch.kernels.flash.kernel import _tma_ready, flash_attention_cuda
 from repro_torch.kernels.flash.ops import decode_attention, flash_attention
 from repro_torch.kernels.flash.ref import reference_attention
 
@@ -93,6 +95,18 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
         flash_attention_cuda(q, k, v)
 
 
+def test_tma_ready_copies_only_what_tma_cannot_load():
+    """The bf16 template's TMA loads need strides in 16-byte units: a
+    (B, S, H, D) view with D = 112 passes as it is; D = 20 (40-byte rows)
+    becomes a zero-padded copy whose first 20 columns are the input."""
+    x = torch.randn(2, 16, 4, 112).to(torch.bfloat16).transpose(1, 2)
+    assert _tma_ready(x) is x
+    y = torch.randn(1, 2, 10, 20).to(torch.bfloat16)
+    z = _tma_ready(y)
+    assert z.shape == (1, 2, 10, 24) and all(st % 8 == 0 for st in z.stride()[:3])
+    assert torch.equal(z[..., :20], y) and not z[..., 20:].any()
+
+
 # ---------------------------------------------------------------------- #
 # on the card only
 # ---------------------------------------------------------------------- #
@@ -107,6 +121,9 @@ def _need_cuda():
     (1, 8, 2, 130, 300, 64, 96, True, "float32"),        # GQA 4, Dv != D, Sq < Sk
     (1, 4, 1, 77, 1000, 256, 256, False, "float32"),     # largest head dims
     (2, 4, 4, 1000, 1000, 112, 112, True, "bfloat16"),
+    (1, 4, 4, 200, 200, 256, 256, True, "bfloat16"),     # largest head dims, 4 boxes each
+    (1, 8, 2, 300, 300, 112, 64, True, "bfloat16"),      # GQA group 4, Dv = 64 != D
+    (2, 4, 4, 100, 1000, 112, 112, True, "bfloat16"),    # Sq < Sk, Sq not a multiple of 64
 ])
 def test_kernel_matches_plain_on_cuda(b, hq, hkv, sq, sk, d, dv, causal, dtype):
     _need_cuda()

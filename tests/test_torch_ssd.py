@@ -12,7 +12,9 @@ sequences that do not divide the chunk (right-padded with identity steps):
 
 The per-timestep and chunkwise plain versions are held to the reference's
 ``reference_ssd``/``reference_ssd_chunked`` at 2e-5.  The kernel itself runs
-only on the card: the ``cuda`` tests skip here.
+only on the card: the ``cuda`` tests skip here.  There float32 inputs run the
+kernel's CUDA-core template and bfloat16 inputs its tensor-core template;
+both hold the float32 state at 1e-4.
 """
 
 import jax.numpy as jnp
@@ -94,8 +96,13 @@ def test_kernel_wrapper_takes_only_cuda_tensors_and_gates_shapes():
     a = {k: torch.from_numpy(v) for k, v in _inputs(1, 16, 2, 8, 1, 4).items() if v is not None}
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_cuda(a["x"], a["dt"], a["A"], a["B"], a["C"], chunk=16)
-    assert smem_bytes(64, 64, 64) == 4 * (64 * 65 * 5 + 128)     # the path's shapes: 83.7 KB
+    # float32 template: the path's shapes take 83.7 KB; 128^3 does not fit
+    assert smem_bytes(64, 64, 64) == 4 * (64 * 65 * 5 + 128)
     assert smem_bytes(128, 128, 128) > 227 * 1024
+    # bfloat16 template: 54 KB at the path's shapes (four blocks an SM), the
+    # same for any chunk and N up to 64, and 175 KB at the limit of 128
+    assert smem_bytes(64, 64, 64, bf16=True) == 55296 == smem_bytes(16, 8, 128, bf16=True)
+    assert smem_bytes(128, 128, 128, bf16=True) == 179200 <= 227 * 1024
 
 
 # ---------------------------------------------------------------------- #
@@ -112,6 +119,9 @@ def _need_cuda():
     (1, 300, 6, 24, 3, 40, 64, True, "float32"),      # ragged S, in_scale, odd dims
     (2, 128, 4, 128, 1, 32, 128, False, "float32"),   # chunk and P at the limit
     (2, 512, 16, 64, 2, 64, 64, False, "bfloat16"),
+    (1, 300, 6, 24, 3, 40, 64, True, "bfloat16"),     # ragged S, in_scale, odd dims
+    (2, 128, 4, 128, 1, 32, 128, False, "bfloat16"),  # chunk and P at the limit
+    (1, 256, 2, 128, 1, 128, 128, False, "bfloat16"),  # chunk, N and P at the limit
 ])
 def test_kernel_matches_plain_on_cuda(bt, s, h, p, g, n, chunk, use_scale, dtype):
     _need_cuda()
