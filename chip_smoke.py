@@ -4,20 +4,23 @@
 Run from the repository root:  python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds both pointer kernels from src/repro_torch/kernels/ptr/csrc;
+2. builds all four kernel libraries from src/repro_torch/kernels/*/csrc;
 3. drives the serving miss path through the public API — the released
-   policy (checkpoints/respect-v1) on the ten Table-I graphs plus 64
-   synthetic graphs (uniform system, whole-decode kernel), then a
+   policy (checkpoints/respect-v1, hidden 128) on the ten Table-I graphs
+   plus 64 synthetic graphs (uniform system, whole-decode kernel B1 in its
+   cluster template), a seeded RespectScheduler.init (the default hidden
+   256) on the synthetic graphs (B1 in its block template), then a
    heterogeneous system (scan decode with the single-step kernel) — with
    the launch counters reset just before and read just after;
 4. checks the ten golden order/assignment digests
    (tests/golden/dnn_schedules.json) and holds the synthetic and
    heterogeneous results to the plain PyTorch path on the CPU;
-5. holds each kernel to its plain PyTorch version on the card at the main
-   path's shapes, times both with CUDA events (and, for each kernel, its
-   device time from the profiler's kernel durations: a kernel under 0.2 ms
-   is reported by that time, which leaves out the host's enqueue), computes
-   each kernel's bound and the end-to-end cold-miss rate;
+5. holds each kernel (B1's two templates apart) to its plain PyTorch
+   version on the card at the main path's shapes, times both with CUDA
+   events (and, for each kernel, its device time from the profiler's kernel
+   durations: a kernel under 0.2 ms is reported by that time, which leaves
+   out the host's enqueue), computes each kernel's bound and the end-to-end
+   cold-miss rate;
 6. the LM zoo's serving path: the full zamba2-7b (81 layers, d_model 3584,
    bf16, seeded random weights) serves a batch of 2 x 2048-token prompts and
    a ragged 1 x 1000 one (prefill, then 16 greedy decode steps each), with
@@ -31,7 +34,9 @@ Run from the repository root:  python3 chip_smoke.py
    in_scale != dt case), times kernel, plain version and — for flash —
    PyTorch's scaled_dot_product_attention as a yardstick, with their bounds;
 8. runs one full-width mmmmmA unit in float32 through the kernels and
-   through the plain versions on the card, and compares the logits.
+   through the plain versions on the card, and compares the logits;
+9. checks from the profiler's kernel names that every B1 launch of the
+   respect-v1 path (one a bucket) ran the cluster template.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -94,24 +99,42 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, name: str, iters: int) -> float:
+def device_ms(fn, name: str, iters: int, attempts: int = 3) -> float:
     """Mean device time, in ms, of the kernels whose name holds ``name``:
-    the profiler's kernel durations of the last ``iters`` of ``iters + 2``
-    calls of ``fn`` (one such kernel a call; the profiler may miss the
-    first), without the host's enqueue between launches."""
+    the profiler's kernel durations of the last ``iters`` of ``2 iters + 2``
+    calls of ``fn`` (one such kernel a call), without the host's enqueue
+    between launches.  The profiler may miss the first kernels of a window
+    (it has missed three 0.3 ms ones in a row); a window that still shows
+    fewer than ``iters`` is profiled again, up to ``attempts`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2 * iters + 2):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and name in e.name)
+        if len(spans) >= iters:
+            return sum(us for _, us in spans[-iters:]) / iters / 1e3
+        seen.append(len(spans))
+    raise SmokeFailure(f"profiler saw {seen} {name} kernels in {attempts} windows of "
+                       f"{2 * iters + 2} calls")
+
+
+def kernel_names(fn) -> list[str]:
+    """The names of the device kernels one profiled call of ``fn`` ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters + 2):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and name in e.name)
-    check(len(spans) >= iters, f"profiler saw {len(spans)} {name} kernels in {iters + 2} calls")
-    return sum(us for _, us in spans[-iters:]) / iters / 1e3
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def reported_ms(event_ms: float, dev_ms: float) -> float:
@@ -523,7 +546,7 @@ def run() -> dict:
     from repro_torch.core.batching import bucketize, pack_padded
     from repro_torch.core.segment import repair, rho_dp
     from repro_torch.kernels.ptr import ops
-    from repro_torch.kernels.ptr.decode import decode_batch, decode_batch_reference
+    from repro_torch.kernels.ptr.decode import TEMPLATES, decode_batch, decode_batch_reference
     from repro_torch.kernels.ptr.kernel import pointer_step_cuda
     from repro_torch.kernels.ptr.ref import reference_pointer_step
 
@@ -544,6 +567,8 @@ def run() -> dict:
     check(sched.release is not None
           and sched.release["params_sha256"] == golden["meta"]["params_sha256"],
           "release did not load or is not the golden one")
+    wide = RespectScheduler.init(seed=0)               # default width 256, seeded; cuda
+    check(wide.hidden == 256, "RespectScheduler.init's default width is not 256")
     hsys = PipelineSystem(**HETERO)
     hetero_graphs = [table1[names.index("InceptionResNetv2")], table1[names.index("ResNet50")]]
     hetero_graphs += synth[:16]
@@ -556,6 +581,9 @@ def run() -> dict:
     torch.cuda.synchronize()
     t_uniform = time.perf_counter() - t0
     uniform_launches = dict(ops.LAUNCHES)
+    res_w = wide.schedule_many(synth, STAGES, use_cache=False)
+    torch.cuda.synchronize()
+    wide_launches = {k: ops.LAUNCHES[k] - uniform_launches[k] for k in ops.LAUNCHES}
     t0 = time.perf_counter()
     res_h = sched.schedule_many(hetero_graphs, STAGES, hsys, use_cache=False)
     torch.cuda.synchronize()
@@ -564,7 +592,15 @@ def run() -> dict:
     print(f"main path: uniform {len(table1) + len(synth)} graphs {t_uniform:.3f} s "
           f"(first call), hetero {len(hetero_graphs)} graphs {t_hetero:.3f} s; "
           f"launches {launches}", flush=True)
-    check(uniform_launches["ptr_decode"] > 0, "uniform batch never launched ptr_decode")
+    n_buckets = len(bucketize(table1 + synth))
+    check(uniform_launches["ptr_decode_cluster"] == n_buckets
+          and uniform_launches["ptr_decode_block"] == 0,
+          f"respect-v1 uniform batch: B1 launches {uniform_launches}, expected "
+          f"{n_buckets} ptr_decode_cluster (one a bucket) and no ptr_decode_block")
+    check(wide_launches["ptr_decode_block"] == 1 and wide_launches["ptr_decode_cluster"] == 0,
+          f"width-256 batch: B1 launches {wide_launches}, expected one ptr_decode_block")
+    check(all(r["assignment"].shape == (g.n,) and validate_monotone(g, r["assignment"], STAGES)
+              for g, r in zip(synth, res_w)), "width-256 batch: invalid schedule")
     check(launches["ptr_step"] > 0, "heterogeneous batch never launched ptr_step")
 
     # ---- outputs: golden digests and the CPU plain path --------------- #
@@ -601,52 +637,62 @@ def run() -> dict:
     kernels = []
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def encoded(graphs):
+    def encoded(graphs, dnet=net):
         batch = pack_padded(graphs, max_deg=D).to("cuda")
         with torch.inference_mode():
-            C, (h0, c0), emb = net.encode(batch.feats, batch.n_valid)
+            C, (h0, c0), emb = dnet.encode(batch.feats, batch.n_valid)
         return batch, C, h0, c0, emb
 
-    decode_rows = []
-    for label, graphs in (("bucket 1024, B=4", big), ("bucket 32, B=64", synth)):
-        batch, C, h0, c0, emb = encoded(graphs)
-        B, n = batch.n_valid.shape[0], batch.bucket_n
-        args = (net, C, emb, h0, c0, batch.parent_mat, batch.n_valid)
+    def decode_case(label, dnet, graphs, template):
+        """Holds B1 to its plain version on the card (greedy and sampled,
+        orders equal, logp/entropy within TOL_LOGP), checks that the batch
+        ran ``template``, and times kernel and plain version."""
+        batch, C, h0, c0, emb = encoded(graphs, dnet)
+        B, n, Hd = batch.n_valid.shape[0], batch.bucket_n, dnet.hidden
+        args = (dnet, C, emb, h0, c0, batch.parent_mat, batch.n_valid)
         unif = torch.rand((B, n), generator=gen, device="cuda")
+        before = dict(ops.LAUNCHES)
         with torch.inference_mode():
             k_out = decode_batch(*args)
             p_out = decode_batch_reference(*args)
             k_smp = decode_batch(*args, unif)
             p_smp = decode_batch_reference(*args, unif)
         torch.cuda.synchronize()
+        ran = {t: ops.LAUNCHES[t] - before[t] for t in TEMPLATES.values()}
+        check(ran == {t: 2 * (t == template) for t in ran},
+              f"ptr_decode {label} H={Hd}: launched {ran}, expected two {template}")
         valid = torch.arange(n, device="cuda")[None, :] < batch.n_valid[:, None].long()
+        err = 0.0
         for what, (ko, kl, ke), (po, pl_, pe) in (("greedy", k_out, p_out),
                                                   ("sampled", k_smp, p_smp)):
             check(torch.equal(torch.where(valid, ko, -1), torch.where(valid, po, -1)),
-                  f"ptr_decode {label} {what}: orders differ from the plain version")
-            err = max(float((kl - pl_).abs().max()), float((ke - pe).abs().max()))
-            check(err <= TOL_LOGP, f"ptr_decode {label} {what}: logp/entropy error {err:.3e}")
-            decode_rows.append((label, what, err))
+                  f"ptr_decode {label} H={Hd} {what}: orders differ from the plain version")
+            e = max(float((kl - pl_).abs().max()), float((ke - pe).abs().max()))
+            check(e <= TOL_LOGP, f"ptr_decode {label} H={Hd} {what}: logp/entropy error {e:.3e}")
+            err = max(err, e)
         with torch.inference_mode():
             ev_ms = cuda_ms(lambda: decode_batch(*args), iters=5)
-            dev_ms = device_ms(lambda: decode_batch(*args), "ptr_decode", iters=5)
+            dev_ms = device_ms(lambda: decode_batch(*args), template, iters=5)
             ms = reported_ms(ev_ms, dev_ms)
-            refs_ms = cuda_ms(lambda: ops.precompute_refs(net, C), iters=20)
+            refs_ms = cuda_ms(lambda: ops.precompute_refs(dnet, C), iters=20)
             plain_ms = cuda_ms(lambda: decode_batch_reference(*args), iters=2)
-        nbytes, flops = decode_work(graphs, k_out[0].cpu().numpy(), n, H, D)
-        b_ms, b_by = bound(nbytes, flops)
-        err = max(e for lb, _, e in decode_rows if lb == label)
-        print(f"ptr_decode {label} H={H} on {card}: kernel {ev_ms:.4f} ms (CUDA events; device "
-              f"{dev_ms:.4f} ms; the wrapper's two "
-              f"C @ W_ref products alone {refs_ms:.4f} ms), plain {plain_ms:.3f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), max |err| logp/ent {err:.2e}", flush=True)
-        if label.startswith("bucket 1024"):
-            kernels.append({
-                "name": "ptr_decode", "route": "cuda",
+        b_ms, b_by = bound(*decode_work(graphs, k_out[0].cpu().numpy(), n, Hd, D))
+        print(f"ptr_decode {label} H={Hd} ({template}) on {card}: kernel {ev_ms:.4f} ms (CUDA "
+              f"events; device {dev_ms:.4f} ms; the wrapper's two C @ W_ref products alone "
+              f"{refs_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"orders equal greedy and sampled, max |err| logp/ent {err:.2e} "
+              f"(tolerance {TOL_LOGP})", flush=True)
+        return {"name": template, "route": "cuda",
                 "source": "src/repro_torch/kernels/ptr/csrc/ptr_decode.cu",
                 "replaces": "src/repro/kernels/ptr/decode.py:84",
-                "launches": launches["ptr_decode"], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                "launches": launches[template], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    # the release's width: the cluster template at both buckets
+    kernels.append(decode_case("bucket 1024, B=4", net, big, "ptr_decode_cluster"))
+    decode_case("bucket 32, B=64", net, synth, "ptr_decode_cluster")
+    # RespectScheduler.init's default width, 256: the block template
+    kernels.append(decode_case("bucket 32, B=64", wide.net, synth, "ptr_decode_block"))
 
     # single step at bucket 1024, B=4: a seeded half-dense mask
     batch, C, h0, c0, emb = encoded(big)
@@ -727,8 +773,22 @@ def run() -> dict:
     print(f"time split, Table-I batch on {card} (host clock, synchronized): "
           + ", ".join(f"{k} {v * 1e3:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items()),
           flush=True)
-    del sched, net
+    del net, wide
     kernels += zoo_phase(card)
+
+    # ---- which B1 template the respect-v1 path ran, by kernel name ----- #
+    # last: after a profile of a whole batch (the encoder's thousands of
+    # launches), the zoo's timing windows lost their first kernels
+    before = dict(ops.LAUNCHES)
+    names_run = kernel_names(lambda: sched.schedule_many(table1 + synth, STAGES, use_cache=False))
+    counted = {t: ops.LAUNCHES[t] - before[t] for t in TEMPLATES.values()}
+    ran = {t: sum(t in nm for nm in names_run) for t in TEMPLATES.values()}
+    print(f"respect-v1 path, {n_buckets} buckets: B1 kernels by profiler name {ran}, "
+          f"counted {counted}", flush=True)
+    check(ran == counted == {"ptr_decode_cluster": n_buckets, "ptr_decode_block": 0},
+          f"respect-v1 path ran B1 templates {ran} (counted {counted}), expected only "
+          f"{n_buckets} ptr_decode_cluster")
+    del sched
     return {"kernels": kernels, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "card": card}
 

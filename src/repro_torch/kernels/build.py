@@ -8,9 +8,13 @@ code.  A library's file name carries a hash of its sources and flags,
 so an edited source never reuses a stale build.  Builds go to
 ``build/repro_torch/`` at the repository root (listed in ``.gitignore``) at
 first use; :func:`build_kernels` starts one ``nvcc`` per missing library,
-all at once.
+all at once.  A script may load an instrumented variant of a library, built
+with extra ``-D`` defines beside the plain one (``load_function(...,
+defines=...)``).
 
-:data:`LAUNCHES` counts, per kernel, the launches its wrapper has made.
+:data:`LAUNCHES` counts, per kernel, the launches its wrapper has made; a
+library whose launcher picks one of several kernels (``ptr_decode``) counts
+each of them under its own name.
 """
 
 from __future__ import annotations
@@ -33,19 +37,21 @@ class KernelSource:
     subdir: str            # kernels/<subdir>/csrc
     source: str            # the .cu file
     headers: tuple = ()    # headers it includes from the same csrc/
+    counted: tuple = ()    # the kernels counted apart in LAUNCHES (default: the library's name)
 
 
 _PTR = ("ptr_common.cuh",)
 #: kernel name -> its sources
 KERNELS = {
     "ptr_step": KernelSource("ptr", "ptr_step.cu", _PTR),
-    "ptr_decode": KernelSource("ptr", "ptr_decode.cu", _PTR),
+    "ptr_decode": KernelSource("ptr", "ptr_decode.cu", _PTR,
+                               ("ptr_decode_cluster", "ptr_decode_block")),
     "flash_fwd": KernelSource("flash", "flash_fwd.cu"),
     "ssd_scan": KernelSource("ssd", "ssd_scan.cu"),
 }
 
 #: launches per kernel, bumped by each wrapper right after a successful launch
-LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: dict[str, int] = {k: 0 for name, src in KERNELS.items() for k in src.counted or (name,)}
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 # src/repro_torch/kernels/build.py -> repository root
@@ -72,21 +78,26 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
     k = KERNELS[name]
     h = hashlib.sha256()
     for f in (k.source,) + k.headers:
         h.update((_csrc(name) / f).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_kernels(names=None) -> float:
+def build_kernels(names=None, defines: tuple = ()) -> float:
     """Compile the named kernels (default: all) that have no current build,
-    one ``nvcc`` process each, all started together.  Returns the seconds
-    spent; raises with the compiler's output if a build fails."""
+    one ``nvcc`` process each, all started together, each with the extra
+    ``-D`` ``defines``.  Returns the seconds spent; raises with the
+    compiler's output if a build fails."""
     names = list(KERNELS) if names is None else list(names)
-    todo = [nm for nm in names if not library_path(nm).exists()]
+    todo = [nm for nm in names if not library_path(nm, defines).exists()]
     t0 = time.perf_counter()
     if not todo:
         return 0.0
@@ -94,9 +105,9 @@ def build_kernels(names=None) -> float:
     nvcc = _nvcc()
     procs = []
     for nm in todo:
-        final = library_path(nm)
+        final = library_path(nm, defines)
         tmp = final.with_name(f"{final.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_csrc(nm) / KERNELS[nm].source)]
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(_csrc(nm) / KERNELS[nm].source)]
         procs.append((nm, tmp, final, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures = []
@@ -112,18 +123,21 @@ def build_kernels(names=None) -> float:
     return time.perf_counter() - t0
 
 
-def load_function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C function ``symbol`` of kernel library ``name`` (built if
-    needed), with its argument types set; it returns an int error code."""
+def load_function(name: str, symbol: str, argtypes: list,
+                  defines: tuple = ()) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of kernel library ``name`` (built with the
+    extra ``-D`` ``defines`` if needed), with its argument types set; it
+    returns an int error code."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build_kernels([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            build_kernels([name], defines)
+            lib = ctypes.CDLL(str(library_path(name, defines)))
             err = lib.kernel_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[key] = lib
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -131,7 +145,8 @@ def load_function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
 
 
 def check(name: str, code: int) -> None:
-    """Raise if a launcher returned a CUDA error code."""
+    """Raise if a launcher of library ``name`` returned a CUDA error code."""
     if code != 0:
-        msg = _libs[name].kernel_error_string(code).decode()
+        lib = next(lib for (nm, _), lib in _libs.items() if nm == name)
+        msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")

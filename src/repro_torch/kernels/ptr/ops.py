@@ -3,14 +3,15 @@ kernels, their shape gates, the build helper and the launch counters.
 
 On CPU tensors every op runs its plain PyTorch version; on CUDA tensors it
 launches its kernel or raises.  The gates test the CUDA kernels' own limits
-— the 512-thread block and the 227 KB of shared memory a block may use —
-and nothing of the TPU's tiling.
+— the 512-thread block, the 227 KB of shared memory a block may use and,
+for the whole decode's cluster template, a hidden width that splits over
+four blocks — and nothing of the TPU's tiling.
 """
 
 from __future__ import annotations
 
 from ..build import BUILD_DIR, LAUNCHES, build_kernels
-from .decode import decode_kernel_supported
+from .decode import decode_kernel_supported, decode_template
 from .kernel import MAX_SMEM_BYTES, pointer_step_cuda, step_kernel_supported
 from .ref import precompute_refs, reference_pointer_step
 
@@ -20,6 +21,7 @@ __all__ = [
     "make_logits_fn",
     "step_kernel_supported",
     "decode_kernel_supported",
+    "decode_template",
     "build_kernels",
     "LAUNCHES",
     "BUILD_DIR",

@@ -9,9 +9,18 @@ reference's pure-jnp ops and to its Pallas kernels in interpret mode:
 * the whole decode, greedy and sampled (fed the reference's own per-step
   uniforms): orders equal, logp and entropy allclose at atol = 1e-4
   (float32 drift carried through n LSTM steps);
-* padded equals unpadded at 1x and 2x buckets with mixed ``n_valid``.
+* padded equals unpadded at 1x and 2x buckets with mixed ``n_valid``;
+* the whole-decode kernel's template choice by shape: the release's shapes
+  (hidden 128, buckets 8..2048) take the four-block cluster template, the
+  default width 256 the one-block template, and a shape neither takes
+  raises.
 
 The kernels themselves run only on the card: the ``cuda`` tests skip here.
+On the card, the cluster template is held to the plain decode at hidden 32
+and 128 and at bucket 1024 with drained steps, the block template at
+hidden 256: orders equal, logp and entropy within 1e-4 at bucket 32, within
+1e-3 (``chip_smoke.py``'s ``TOL_LOGP``) where float32 drift is carried
+through up to 1000 LSTM steps or a 256-wide cell.
 """
 
 import dataclasses
@@ -28,10 +37,11 @@ from repro.core.embedding import embed_dim, embed_graph
 from repro.kernels.ptr import decode as jdecode
 from repro.kernels.ptr.kernel import pointer_step_pallas
 from repro.kernels.ptr.ref import reference_pointer_step as jax_pointer_step
-from repro_torch.core.batching import bucket_for
+from repro_torch.core.batching import BucketedDecoder, bucket_for
 from repro_torch.core.ptrnet import params_from_numpy
 from repro_torch.kernels.ptr import ops
-from repro_torch.kernels.ptr.decode import decode_batch, decode_batch_reference
+from repro_torch.kernels.ptr.decode import (decode_batch, decode_batch_reference,
+                                            decode_smem_bytes, decode_template)
 from repro_torch.kernels.ptr.kernel import pointer_step_cuda
 from repro_torch.kernels.ptr.ref import reference_pointer_step
 
@@ -193,6 +203,47 @@ def test_kernel_gates_follow_cuda_limits():
     assert not ops.step_kernel_supported(65536, 128)
 
 
+@pytest.mark.parametrize("bucket_n", [8, 32, 256, 512, 1024, 2048])
+def test_release_shapes_take_the_cluster_template(bucket_n):
+    # the release's width: 8 H^2 = 128 KB of gate weights a block, plus the
+    # per-graph state (48 KB at bucket 1024), within 227 KB
+    assert decode_template(bucket_n, 128, MAX_DEG) == "ptr_decode_cluster"
+    smem = decode_smem_bytes(bucket_n, 128, MAX_DEG, "ptr_decode_cluster")
+    state = decode_smem_bytes(bucket_n, 128, MAX_DEG, "ptr_decode_block") - 4 * 10 * 128
+    assert smem == 8 * 128 * 128 + 4 * 4 * 128 + state <= ops.MAX_SMEM_BYTES
+    assert BucketedDecoder("cpu").resolve_decode_impl(bucket_n, 128) == "kernel"
+
+
+@pytest.mark.parametrize("bucket_n, hidden, want", [
+    (8, 32, "ptr_decode_cluster"), (1024, 32, "ptr_decode_cluster"),
+    (4096, 64, "ptr_decode_cluster"),
+    (4096, 128, "ptr_decode_block"),     # the cluster's state no longer fits
+    (32, 256, "ptr_decode_block"),       # RespectScheduler.init's default width
+    (1024, 256, "ptr_decode_block"),
+    (256, 512, "ptr_decode_block"),
+])
+def test_template_follows_shape(bucket_n, hidden, want):
+    assert decode_template(bucket_n, hidden, MAX_DEG) == want
+    assert decode_smem_bytes(bucket_n, hidden, MAX_DEG, want) <= ops.MAX_SMEM_BYTES
+    assert ops.decode_kernel_supported(bucket_n, hidden, MAX_DEG)
+
+
+@pytest.mark.parametrize("bucket_n, hidden, max_deg", [
+    (8192, 128, 6),      # n too large for either template
+    (1024, 128, 64),     # D too large: 256 KB of parent indices
+    (1024, 96, 6),       # 96 does not divide the 512-thread block
+    (64, 1024, 6),
+])
+def test_template_refuses_oversized_shapes(bucket_n, hidden, max_deg):
+    with pytest.raises(ValueError, match="cannot take"):
+        decode_template(bucket_n, hidden, max_deg)
+    assert not ops.decode_kernel_supported(bucket_n, hidden, max_deg)
+    assert BucketedDecoder("cpu", max_deg=max_deg).resolve_decode_impl(bucket_n, hidden) == "scan"
+    with pytest.raises(ValueError, match="cannot take"):
+        BucketedDecoder("cpu", max_deg=max_deg, decode_impl="kernel").resolve_decode_impl(
+            bucket_n, hidden)
+
+
 # ---------------------------------------------------------------------- #
 # on the card only
 # ---------------------------------------------------------------------- #
@@ -214,21 +265,59 @@ def test_step_kernel_matches_plain_on_cuda(n):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("sampled", [False, True])
-def test_decode_kernel_matches_plain_on_cuda(sampled):
-    _need_cuda()
-    graphs = [_dag_case(s) for s in range(30, 38)]
-    feats, pmat, nv = (torch.from_numpy(a).cuda() for a in _padded(graphs, 32))
-    net = _NET.to("cuda")
-    u = torch.rand(feats.shape[:2], device="cuda") if sampled else None
+_NETS = {HIDDEN: _NET}
+
+
+def _net(hidden):
+    """A pointer net of the given width from the reference's seeded init."""
+    if hidden not in _NETS:
+        jp = jptrnet.init_params(jax.random.PRNGKey(hidden), embed_dim(MAX_DEG), hidden)
+        _NETS[hidden] = params_from_numpy(jax.tree.map(np.asarray, jp))
+    return _NETS[hidden]
+
+
+def _kernel_vs_plain(net, graphs, pad_n, sampled, template, tol):
+    feats, pmat, nv = (torch.from_numpy(a).cuda() for a in _padded(graphs, pad_n))
+    net = net.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(pad_n)
+    u = torch.rand(feats.shape[:2], generator=gen, device="cuda") if sampled else None
     with torch.inference_mode():
         C, (h0, c0), emb = net.encode(feats, nv)
-        before = ops.LAUNCHES["ptr_decode"]
+        before = dict(ops.LAUNCHES)
         ko, kl, ke = decode_batch(net, C, emb, h0, c0, pmat, nv, u)
+        after = dict(ops.LAUNCHES)
         po, pl, pe = decode_batch_reference(net, C, emb, h0, c0, pmat, nv, u)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["ptr_decode"] == before + 1
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {template: 1}
     assert torch.equal(ko, po)
-    torch.testing.assert_close(kl, pl, atol=1e-4, rtol=0)
-    torch.testing.assert_close(ke, pe, atol=1e-4, rtol=0)
+    torch.testing.assert_close(kl, pl, atol=tol, rtol=0)
+    torch.testing.assert_close(ke, pe, atol=tol, rtol=0)
+    return ko, nv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("hidden", [HIDDEN, 128])
+def test_decode_kernel_matches_plain_on_cuda(hidden, sampled):
+    _need_cuda()
+    graphs = [_dag_case(s) for s in range(30, 38)]
+    _kernel_vs_plain(_net(hidden), graphs, 32, sampled, "ptr_decode_cluster", 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True])
+def test_cluster_template_drains_at_bucket_1024_on_cuda(sampled):
+    _need_cuda()
+    graphs = [sample_dag(np.random.default_rng(s), n=n, deg=3)
+              for s, n in ((40, 700), (41, 1000), (42, 513))]
+    order, nv = _kernel_vs_plain(_net(128), graphs, 1024, sampled, "ptr_decode_cluster", 1e-3)
+    for i, g in enumerate(graphs):   # drained pads: ascending after the real nodes
+        assert order[i, g.n:].tolist() == list(range(g.n, 1024))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True])
+def test_block_template_matches_plain_at_hidden_256_on_cuda(sampled):
+    _need_cuda()
+    graphs = [_dag_case(s) for s in range(50, 58)]
+    _kernel_vs_plain(_net(256), graphs, 32, sampled, "ptr_decode_block", 1e-3)
