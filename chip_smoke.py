@@ -14,13 +14,16 @@ Run from the repository root:  python3 chip_smoke.py
    the launch counters reset just before and read just after;
 4. checks the ten golden order/assignment digests
    (tests/golden/dnn_schedules.json) and holds the synthetic and
-   heterogeneous results to the plain PyTorch path on the CPU;
+   heterogeneous results to the plain PyTorch path on the CPU (at the
+   release's width, and with seeded schedulers at hidden 96 and 640, widths
+   the whole-decode kernel refuses, through the single-step kernel B2);
 5. holds each kernel (B1's two templates apart) to its plain PyTorch
    version on the card at the main path's shapes, times both with CUDA
    events (and, for each kernel, its device time from the profiler's kernel
    durations: a kernel under 0.2 ms is reported by that time, which leaves
    out the host's enqueue), computes each kernel's bound and the end-to-end
-   cold-miss rate;
+   cold-miss rate; B2 at a half-dense mask at bucket 1024 at hidden 128, 96
+   and 640;
 6. the LM zoo's serving path: the full zamba2-7b (81 layers, d_model 3584,
    bf16, seeded random weights) serves a batch of 2 x 2048-token prompts and
    a ragged 1 x 1000 one (prefill, then 16 greedy decode steps each), with
@@ -35,7 +38,13 @@ Run from the repository root:  python3 chip_smoke.py
    PyTorch's scaled_dot_product_attention as a yardstick, with their bounds;
 8. runs one full-width mmmmmA unit in float32 through the kernels and
    through the plain versions on the card, and compares the logits;
-9. checks from the profiler's kernel names that every B1 launch of the
+9. the heterogeneous batch's scan: records every step's (h, mask) of each
+   bucket, holds B2 to its plain version on each recorded step and times it
+   over them (device time a batch and a launch, bound over the same steps),
+   then a time split of the batch's cold miss (pack, encode, scan decode,
+   rho, repair) with B2's device time and the device's idle share in the
+   decode, checking by kernel name that every step ran ptr_step_cluster;
+10. checks from the profiler's kernel names that every B1 launch of the
    respect-v1 path (one a bucket) ran the cluster template.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
@@ -126,15 +135,34 @@ def device_ms(fn, name: str, iters: int, attempts: int = 3) -> float:
                        f"{2 * iters + 2} calls")
 
 
-def kernel_names(fn) -> list[str]:
-    """The names of the device kernels one profiled call of ``fn`` ran."""
+def profile_kernels(fn) -> list[tuple[str, float, float]]:
+    """(name, start, end), in microseconds and by start, of every device
+    kernel one profiled call of ``fn`` ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA), key=lambda k: k[1])
+
+
+def kernel_names(fn) -> list[str]:
+    """The names of the device kernels one profiled call of ``fn`` ran."""
+    return [name for name, _, _ in profile_kernels(fn)]
+
+
+def busy_window(spans) -> tuple[float, float]:
+    """(busy, window) of (start, end) spans: the length of their union, and
+    first start to last end."""
+    spans = sorted(spans)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for st, en in spans[1:]:
+        if st > cur_e:
+            busy, cur_s = busy + cur_e - cur_s, st
+        cur_e = max(cur_e, en)
+    return busy + cur_e - cur_s, max(en for _, en in spans) - spans[0][0]
 
 
 def reported_ms(event_ms: float, dev_ms: float) -> float:
@@ -181,12 +209,13 @@ def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S) -> 
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def first_divergence(net_cpu, graph, kernel_order, max_deg: int) -> str:
-    """First step where the card's order leaves the CPU plain decode, with
-    the CPU's top-2 logit margin there."""
+def first_divergence(net_cpu, graph, kernel_order, max_deg: int, system=None) -> str:
+    """First step where the card's order leaves the CPU plain decode (under
+    ``system``'s profile, if any), with the CPU's top-2 logit margin there."""
     import torch
     from repro_torch.core.batching import pack_padded
     batch = pack_padded([graph], max_deg=max_deg)
+    sys_feat = None if system is None else scan_profile(system, "cpu")[0]
     with torch.inference_mode():
         C, (h0, c0), emb = net_cpu.encode(batch.feats, batch.n_valid)
         plain = net_cpu.plain_logits_fn(C)
@@ -197,7 +226,7 @@ def first_divergence(net_cpu, graph, kernel_order, max_deg: int) -> str:
             return seen[-1]
 
         order, _, _ = net_cpu.decode(C, emb, (h0, c0), batch.parent_mat, n_valid=batch.n_valid,
-                                     logits_fn=recording)
+                                     logits_fn=recording, sys_feat=sys_feat)
     order = order[0, : graph.n].numpy()
     diff = [t for t in range(graph.n) if order[t] != kernel_order[t]]
     if not diff:
@@ -206,6 +235,190 @@ def first_divergence(net_cpu, graph, kernel_order, max_deg: int) -> str:
     top2 = torch.topk(seen[t][0], 2).values
     return (f"first diverging step {t}: card picked {kernel_order[t]}, CPU {order[t]}; "
             f"CPU top-2 logit margin {float(top2[0] - top2[1]):.3e}")
+
+
+# ---------------------------------------------------------------------- #
+# the single-step kernel B2 on the heterogeneous batch's scan decode
+# ---------------------------------------------------------------------- #
+def step_work(mask, H: int) -> tuple[float, float]:
+    """(bytes, flops) of one single-step launch over a (B, n) mask: the
+    selectable rows of C, CWg and CWp, h, the int32 mask, the query weights
+    and vectors read once, the logits written once; both query products of
+    every graph and, per selectable row, both heads' tanh-dots, its share of
+    the glimpse and of the softmax."""
+    B, n = mask.shape
+    m = int(mask.sum())
+    nbytes = 4 * (3 * m * H + B * n + B * H + 2 * H * H + 2 * H + B * n)
+    return nbytes, B * 2 * 2 * H * H + m * (3 * H * 2 + 2 * H + 8)
+
+
+def compare_logits(got, want, mask) -> tuple[bool, float, float]:
+    """(masked logits byte-equal, max |err| and max |err| / max(1, |want|)
+    over the selectable ones) of a single step's kernel and plain logits."""
+    same = bool((got[~mask] == want[~mask]).all())
+    if not bool(mask.any()):
+        return same, 0.0, 0.0
+    d = (got[mask] - want[mask]).abs()
+    return same, float(d.max()), float((d / want[mask].abs().clamp_min(1.0)).max())
+
+
+def scan_profile(system, device):
+    """(sys_feat, system with STAGES stages, capacities) as the scan of
+    ``BucketedDecoder.fused_schedules`` takes them."""
+    import torch
+    system = system.with_stages(STAGES)
+    profile = system.profile_features()
+    sys_feat = torch.from_numpy(profile).to(device) if profile.any() else None
+    return sys_feat, system, system.capacity_vector()
+
+
+def scan_split(net, graphs, system, max_deg: int, logits_factory, kname: str, expect: int,
+               attempts: int = 3) -> dict:
+    """A cold miss of ``graphs`` under ``system`` on the scan path, bucket by
+    bucket: the host clock around each stage (pack, encode, scan decode with
+    ``logits_factory(net, C)`` as the step, rho, repair), synchronized; then
+    one profiled pass of every bucket's scan decode: the device time of the
+    ``expect`` kernels named ``kname`` it launches, the names of all
+    single-step kernels it ran, and the device's busy time in the decode's
+    window (a pass whose profile shows fewer is profiled again, as in
+    device_ms)."""
+    import torch
+    from repro_torch.core.batching import bucketize, pack_padded
+    from repro_torch.core.segment import repair, rho_dp
+    sys_feat, system, caps = scan_profile(system, "cuda")
+    split = dict.fromkeys(("pack", "encode", "decode", "rho", "repair"), 0.0)
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[key] += time.perf_counter() - t0
+        return out
+
+    decodes = []
+    with torch.inference_mode():
+        for bucket_n, idxs in bucketize(graphs).items():
+            gs = [graphs[i] for i in idxs]
+            batch = timed("pack", lambda: pack_padded(gs, bucket_n, max_deg).to("cuda"))
+            C, (h0, c0), emb = timed("encode", lambda: net.encode(batch.feats, batch.n_valid))
+
+            def decode(C=C, emb=emb, h0=h0, c0=c0, batch=batch):
+                return net.decode(C, emb, (h0, c0), batch.parent_mat, n_valid=batch.n_valid,
+                                  logits_fn=logits_factory(net, C), sys_feat=sys_feat)[0]
+
+            order = timed("decode", decode)
+            assign = timed("rho", lambda: rho_dp(order, batch.flops, batch.param_bytes,
+                                                 batch.out_bytes, batch.parent_mat, STAGES,
+                                                 system, batch.n_valid).cpu().numpy())
+            timed("repair", lambda: [repair(g, assign[r, : g.n], STAGES, mem_capacity=caps)
+                                     for r, g in enumerate(gs)])
+            decodes.append(decode)
+        seen = []
+        for _ in range(attempts):   # a sleep (spin_kernel) first, as in replay_device_ms
+            kern = profile_kernels(lambda: [torch.cuda._sleep(20_000_000)]
+                                   + [d() for d in decodes])
+            b2 = [(st, en) for nm, st, en in kern if kname in nm]
+            if len(b2) == expect:
+                break
+            seen.append(len(b2))
+        else:
+            raise SmokeFailure(f"profiler saw {seen} {kname} kernels in {attempts} scan decodes "
+                               f"of {expect} steps")
+    busy, window = busy_window([(st, en) for nm, st, en in kern if "spin_kernel" not in nm])
+    return {"split": split, "b2_ms": sum(en - st for st, en in b2) / 1e3, "b2_count": expect,
+            "step_names": sorted({nm for nm, _, _ in kern if "ptr_step" in nm}),
+            "busy_ms": busy / 1e3, "window_ms": window / 1e3}
+
+
+def split_line(label: str, card: str, res: dict) -> str:
+    split = res["split"]
+    total = sum(split.values())
+    share = 100 * res["b2_ms"] / (split["decode"] * 1e3)
+    idle = 100 * (1 - res["busy_ms"] / res["window_ms"])
+    return (f"time split, {label} on {card} (host clock, synchronized): "
+            + ", ".join(f"{k} {v * 1e3:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
+            + f"; a profiled pass of the scan decode: B2 {res['b2_count']} launches, "
+            f"{res['b2_ms']:.3f} ms of device time ({share:.1f}% of the decode stage's host "
+            f"time), device busy {res['busy_ms']:.2f} ms of a {res['window_ms']:.2f} ms window "
+            f"(idle {idle:.1f}%)")
+
+
+def record_scan(net, graphs, system, max_deg: int) -> list[dict]:
+    """Per bucket of ``graphs``: the encoded contexts C, their hoisted
+    projections and every step's (h, mask) of the scan decode under
+    ``system``, recorded on the card around the path's own single-step
+    logits_fn."""
+    import torch
+    from repro_torch.core.batching import bucketize, pack_padded
+    from repro_torch.kernels.ptr import ops
+    sys_feat = scan_profile(system, "cuda")[0]
+    recs = []
+    with torch.inference_mode():
+        for bucket_n, idxs in bucketize(graphs).items():
+            batch = pack_padded([graphs[i] for i in idxs], bucket_n, max_deg).to("cuda")
+            C, (h0, c0), emb = net.encode(batch.feats, batch.n_valid)
+            step, steps = ops.make_logits_fn(net, C), []
+
+            def recording(h, mask, step=step, steps=steps):
+                steps.append((h.clone(), mask.clone()))
+                return step(h, mask)
+
+            net.decode(C, emb, (h0, c0), batch.parent_mat, n_valid=batch.n_valid,
+                       logits_fn=recording, sys_feat=sys_feat)
+            CWg, CWp = ops.precompute_refs(net, C)
+            recs.append({"bucket_n": bucket_n, "B": len(idxs), "C": C, "CWg": CWg, "CWp": CWp,
+                         "steps": steps})
+    return recs
+
+
+def replay(net, rec: dict, launch):
+    """Calls ``launch`` (a single-step function with the kernel's arguments)
+    on every recorded step of one bucket, back to back; returns the logits."""
+    g, p = net.glimpse, net.pointer
+    return [launch(rec["C"], rec["CWg"], rec["CWp"], h, g.w_q, g.v, p.w_q, p.v, mask)
+            for h, mask in rec["steps"]]
+
+
+def replay_device_ms(net, rec: dict, launch, kname: str, attempts: int = 3) -> list[float]:
+    """Device time (ms) of each launch of a replay of one bucket's recorded
+    steps, by the profiler's kernel durations.  The profiler may miss the
+    first kernels of a window (see device_ms; up to 32 of 40 in one run), so
+    a window opens with a 10 ms sleep on the device and eight launches of
+    the first step, and the last kernels are taken; a window that still
+    shows too few is profiled again."""
+    import torch
+    first = {**rec, "steps": rec["steps"][:1] * 8}
+
+    def window():
+        torch.cuda._sleep(20_000_000)   # cycles: about 10 ms
+        replay(net, first, launch)
+        replay(net, rec, launch)
+
+    n = len(rec["steps"])
+    with torch.inference_mode():
+        window()
+        seen = []
+        for _ in range(attempts):
+            kern = [(en - st) / 1e3 for nm, st, en in profile_kernels(window) if kname in nm]
+            if len(kern) >= n:
+                return kern[-n:]
+            seen.append(len(kern))
+    raise SmokeFailure(f"profiler saw {seen} {kname} kernels in {attempts} replays of "
+                       f"{len(rec['steps'])} steps")
+
+
+def steps_bound(net, rec: dict) -> tuple[float, str]:
+    """The sum over a bucket's recorded steps of each launch's bound (ms),
+    and what bounds most of it."""
+    H = net.hidden
+    t_b = t_f = total = 0.0
+    for _, mask in rec["steps"]:
+        nbytes, flops = step_work(mask, H)
+        total += max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+        t_b += nbytes / HBM_BYTES_PER_S
+        t_f += flops / F32_FLOPS_PER_S
+    return total * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
 # ---------------------------------------------------------------------- #
@@ -279,14 +492,7 @@ def device_split(label: str, card: str, fn) -> list[str]:
         split[key] += us
         if key == "other":
             other[name[:60]] = other.get(name[:60], 0.0) + us
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for st, en in spans[1:]:
-        if st > cur_e:
-            busy, cur_s = busy + cur_e - cur_s, st
-        cur_e = max(cur_e, en)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    busy, window = busy_window(spans)
     total = sum(split.values())
     top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
     print(f"{label} time split on {card} (torch.profiler, device time): "
@@ -547,7 +753,7 @@ def run() -> dict:
     from repro_torch.core.segment import repair, rho_dp
     from repro_torch.kernels.ptr import ops
     from repro_torch.kernels.ptr.decode import TEMPLATES, decode_batch, decode_batch_reference
-    from repro_torch.kernels.ptr.kernel import pointer_step_cuda
+    from repro_torch.kernels.ptr.kernel import pointer_step_cuda, step_cluster_size
     from repro_torch.kernels.ptr.ref import reference_pointer_step
 
     card = card_line()
@@ -601,7 +807,10 @@ def run() -> dict:
           f"width-256 batch: B1 launches {wide_launches}, expected one ptr_decode_block")
     check(all(r["assignment"].shape == (g.n,) and validate_monotone(g, r["assignment"], STAGES)
               for g, r in zip(synth, res_w)), "width-256 batch: invalid schedule")
-    check(launches["ptr_step"] > 0, "heterogeneous batch never launched ptr_step")
+    hetero_steps = sum(bucketize(hetero_graphs))   # one B2 launch a step of each bucket
+    check(launches["ptr_step"] == hetero_steps,
+          f"heterogeneous batch: {launches['ptr_step']} ptr_step launches, expected "
+          f"{hetero_steps} (the sum of its buckets' n)")
 
     # ---- outputs: golden digests and the CPU plain path --------------- #
     cpu = RespectScheduler.from_release(device="cpu")
@@ -621,17 +830,38 @@ def run() -> dict:
         check(np.array_equal(r["order"], rc["order"])
               and np.array_equal(r["assignment"], rc["assignment"]),
               "synthetic batch: card and CPU plain path disagree")
-    res_hc = cpu.schedule_many(hetero_graphs, STAGES, hsys, use_cache=False)
-    for r, rc in zip(res_h, res_hc):
-        check(np.array_equal(r["order"], rc["order"])
-              and np.array_equal(r["assignment"], rc["assignment"]),
-              "heterogeneous batch: card and CPU plain path disagree")
+
+    def same_as_cpu(label, got, cpu_sched):
+        want = cpu_sched.schedule_many(hetero_graphs, STAGES, hsys, use_cache=False)
+        bad = [f"{i}: {first_divergence(cpu_sched.net, g, r['order'], D, hsys)}"
+               for i, (g, r, rc) in enumerate(zip(hetero_graphs, got, want))
+               if not (np.array_equal(r["order"], rc["order"])
+                       and np.array_equal(r["assignment"], rc["assignment"]))]
+        check(not bad, f"{label}: card and CPU plain path disagree:\n  " + "\n  ".join(bad))
+
+    D = sched.max_deg
+    same_as_cpu("heterogeneous batch", res_h, cpu)
     print(f"outputs: {len(synth)} synthetic and {len(hetero_graphs)} heterogeneous schedules "
           "equal the CPU plain path", flush=True)
 
+    # widths the whole-decode kernel refuses: the heterogeneous batch at
+    # hidden 96 and 640 runs the scan, B2 at every step, as on the CPU
+    widths = {}
+    for Hw in (96, 640):
+        widths[Hw] = RespectScheduler.init(seed=0, hidden=Hw)
+        before = ops.LAUNCHES["ptr_step"]
+        got = widths[Hw].schedule_many(hetero_graphs, STAGES, hsys, use_cache=False)
+        torch.cuda.synchronize()
+        ran = ops.LAUNCHES["ptr_step"] - before
+        check(ran == hetero_steps,
+              f"hidden {Hw}: {ran} ptr_step launches, expected {hetero_steps}")
+        same_as_cpu(f"heterogeneous batch at hidden {Hw}", got,
+                    RespectScheduler.init(seed=0, hidden=Hw, device="cpu"))
+        print(f"hidden {Hw}: the heterogeneous batch ran {ran} ptr_step launches and its "
+              f"{len(hetero_graphs)} schedules equal the CPU plain path", flush=True)
+
     # ---- kernels against their plain versions, at the path's shapes --- #
     net = sched.net
-    H, D = net.hidden, sched.max_deg
     by_bucket = bucketize(table1)
     big = [table1[i] for i in by_bucket[1024]][-4:]
     kernels = []
@@ -694,41 +924,48 @@ def run() -> dict:
     # RespectScheduler.init's default width, 256: the block template
     kernels.append(decode_case("bucket 32, B=64", wide.net, synth, "ptr_decode_block"))
 
-    # single step at bucket 1024, B=4: a seeded half-dense mask
-    batch, C, h0, c0, emb = encoded(big)
-    B, n = C.shape[:2]
-    with torch.inference_mode():
-        CWg, CWp = ops.precompute_refs(net, C)
-        valid = torch.arange(n, device="cuda")[None, :] < batch.n_valid[:, None].long()
-        mask = (torch.rand((B, n), generator=gen, device="cuda") < 0.5) & valid
-        g, p = net.glimpse, net.pointer
-        step_args = (C, CWg, CWp, h0, g.w_q, g.v, p.w_q, p.v, mask)
-        k_log = pointer_step_cuda(*step_args)
-        p_log = reference_pointer_step(*step_args)
-        torch.cuda.synchronize()
-        sel = mask
-        check(torch.equal(k_log[~sel], p_log[~sel]), "ptr_step: masked logits differ")
-        err = float((k_log[sel] - p_log[sel]).abs().max())
-        rel = float(((k_log[sel] - p_log[sel]).abs() / p_log[sel].abs().clamp_min(1.0)).max())
-        check(rel <= TOL_LOGITS, f"ptr_step: logits error {err:.3e}")
-        ev_ms = cuda_ms(lambda: pointer_step_cuda(*step_args), iters=50, warmup=3)
-        dev_ms = device_ms(lambda: pointer_step_cuda(*step_args), "ptr_step", iters=50)
-        ms = reported_ms(ev_ms, dev_ms)
-        plain_ms = cuda_ms(lambda: reference_pointer_step(*step_args), iters=50, warmup=3)
-    m_rows = int(sel.sum())
-    nbytes = 4 * (3 * m_rows * H + B * n + B * H + 2 * H * H + 2 * H + B * n)
-    flops = B * 2 * 2 * H * H + m_rows * (3 * H * 2 + 2 * H + 8)
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"ptr_step bucket 1024, B=4, {m_rows} selectable rows, H={H} on {card}: kernel "
-          f"{ev_ms:.4f} ms (CUDA events around 50 calls, the host's enqueue included), device "
-          f"{dev_ms:.5f} ms (profiler), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-          f"max |err| {err:.2e}", flush=True)
-    kernels.append({
+    # single step at bucket 1024, B=4, a seeded half-dense mask: the release's
+    # width, then the same graphs and mask at hidden 96 and 640
+    packed = pack_padded(big, max_deg=D)
+    B, n = packed.batch, packed.bucket_n
+    valid = torch.arange(n, device="cuda")[None, :] < packed.n_valid.to("cuda")[:, None].long()
+    mask = (torch.rand((B, n), generator=gen, device="cuda") < 0.5) & valid
+
+    def half_dense(dnet):
+        """Holds B2 to its plain version at the half-dense mask and times
+        both; returns (max |err|, ms, plain ms, bound ms, bound by)."""
+        _, C, h0, _, _ = encoded(big, dnet)
+        Hd = dnet.hidden
+        with torch.inference_mode():
+            CWg, CWp = ops.precompute_refs(dnet, C)
+            g, p = dnet.glimpse, dnet.pointer
+            step_args = (C, CWg, CWp, h0, g.w_q, g.v, p.w_q, p.v, mask)
+            same, err, rel = compare_logits(pointer_step_cuda(*step_args),
+                                            reference_pointer_step(*step_args), mask)
+            check(same and rel <= TOL_LOGITS, f"ptr_step bucket 1024, B=4, H={Hd}: masked logits "
+                  f"equal: {same}; logits error {err:.3e}, relative {rel:.3e}")
+            ev_ms = cuda_ms(lambda: pointer_step_cuda(*step_args), iters=50, warmup=3)
+            dev_ms = device_ms(lambda: pointer_step_cuda(*step_args), "ptr_step", iters=50)
+            plain_ms = cuda_ms(lambda: reference_pointer_step(*step_args), iters=50, warmup=3)
+        b_ms, b_by = bound(*step_work(mask, Hd))
+        print(f"ptr_step bucket 1024, B=4, {int(mask.sum())} selectable rows, H={Hd}, clusters of "
+              f"{step_cluster_size(n)} blocks on {card}: kernel {ev_ms:.4f} ms (CUDA events around "
+              f"50 calls, the host's enqueue included), device {dev_ms:.5f} ms (profiler), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), max |err| {err:.2e}, relative "
+              f"{rel:.2e} (tolerance {TOL_LOGITS}), masked logits equal", flush=True)
+        return err, reported_ms(ev_ms, dev_ms), plain_ms, b_ms, b_by
+
+    err, ms, plain_ms, b_ms, b_by = half_dense(net)
+    step_row = {
         "name": "ptr_step", "route": "cuda",
         "source": "src/repro_torch/kernels/ptr/csrc/ptr_step.cu",
         "replaces": "src/repro/kernels/ptr/kernel.py:42",
         "launches": launches["ptr_step"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    kernels.append(step_row)
+    for Hw in (96, 640):
+        half_dense(widths[Hw].net)
+    del widths
 
     # ---- end to end: cold-miss rate and where a Table-I batch's time goes #
     def rate(graphs, system=None):
@@ -775,6 +1012,48 @@ def run() -> dict:
           flush=True)
     del net, wide
     kernels += zoo_phase(card)
+
+    # ---- the heterogeneous batch: B2 at the path's own masks, time split  #
+    # after the zoo, with the other profiles of whole batches (see below)
+    net = sched.net
+    recs = record_scan(net, hetero_graphs, hsys, D)
+    check(sum(len(rec["steps"]) for rec in recs) == hetero_steps,
+          f"recorded {[len(rec['steps']) for rec in recs]} steps, expected {hetero_steps}")
+    dev_total = bound_total = 0.0
+    for rec in recs:
+        bn = rec["bucket_n"]
+        with torch.inference_mode():
+            got = replay(net, rec, pointer_step_cuda)
+            want = replay(net, rec, reference_pointer_step)
+        torch.cuda.synchronize()
+        err = rel = 0.0
+        for t, ((_, m_t), k_log, p_log) in enumerate(zip(rec["steps"], got, want)):
+            same, e, rl = compare_logits(k_log, p_log, m_t)
+            check(same and rl <= TOL_LOGITS, f"ptr_step heterogeneous bucket {bn}, step {t}: "
+                  f"masked logits equal: {same}; logits error {e:.3e}, relative {rl:.3e}")
+            err, rel = max(err, e), max(rel, rl)
+        step_row["max_abs_err"] = max(step_row["max_abs_err"], err)
+        dev = replay_device_ms(net, rec, pointer_step_cuda, "ptr_step")
+        with torch.inference_mode():
+            plain_ms = cuda_ms(lambda: replay(net, rec, reference_pointer_step), iters=1)
+        b_ms, b_by = steps_bound(net, rec)
+        dev_total, bound_total = dev_total + sum(dev), bound_total + b_ms
+        sizes = [int(m_t.sum()) for _, m_t in rec["steps"]]
+        print(f"ptr_step heterogeneous batch, bucket {bn} (B={rec['B']}, {len(dev)} launches, "
+              f"clusters of {step_cluster_size(bn)} blocks; selectable rows a launch "
+              f"{min(sizes)}-{max(sizes)}, median {statistics.median(sizes)}) on {card}: device "
+              f"{sum(dev):.4f} ms a batch, {statistics.median(dev):.5f} ms a launch (median), "
+              f"plain {plain_ms:.3f} ms a batch, bound {b_ms:.5f} ms a batch ({b_by}); every step "
+              f"held to the plain version: masked logits equal, max |err| {err:.2e}, relative "
+              f"{rel:.2e} (tolerance {TOL_LOGITS})", flush=True)
+    print(f"ptr_step heterogeneous batch on {card}: {hetero_steps} launches, device "
+          f"{dev_total:.4f} ms, bound {bound_total:.5f} ms", flush=True)
+    res = scan_split(net, hetero_graphs, hsys, D, ops.make_logits_fn, "ptr_step", hetero_steps)
+    print(split_line(f"heterogeneous batch ({len(hetero_graphs)} graphs, scan + B2)", card, res),
+          flush=True)
+    check(res["step_names"] == ["ptr_step_cluster"],
+          f"heterogeneous scan ran single-step kernels {res['step_names']}, expected only "
+          "ptr_step_cluster")
 
     # ---- which B1 template the respect-v1 path ran, by kernel name ----- #
     # last: after a profile of a whole batch (the encoder's thousands of

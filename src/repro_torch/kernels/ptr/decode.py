@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from .. import build
-from .kernel import MAX_SMEM_BYTES, THREADS, _WARPS, hidden_ok
+from .kernel import MAX_SMEM_BYTES, THREADS, _WARPS
 from .ref import precompute_refs
 
 __all__ = ["decode_batch", "decode_batch_reference", "decode_kernel_supported",
@@ -31,6 +31,12 @@ __all__ = ["decode_batch", "decode_batch_reference", "decode_kernel_supported",
 CLUSTER = 4
 #: the kernel's templates, by the value its launcher reports
 TEMPLATES = {1: "ptr_decode_cluster", 0: "ptr_decode_block"}
+
+
+def hidden_ok(hidden: int) -> bool:
+    """The block's thread groups split the hidden width evenly (both
+    templates' matrix-vector products assume it)."""
+    return 0 < hidden <= THREADS and THREADS % hidden == 0
 
 
 def decode_smem_bytes(n: int, hidden: int, max_deg: int, template: str) -> int:

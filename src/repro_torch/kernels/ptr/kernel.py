@@ -1,8 +1,10 @@
 """Wrapper of the single-step pointer/glimpse CUDA kernel (``csrc/ptr_step.cu``).
 
 The counterpart of the reference's ``pointer_step_pallas``: one fused
-glimpse + pointer step per graph of a batch.  On CUDA tensors it launches
-the kernel on PyTorch's current stream; it takes nothing else.
+glimpse + pointer step per graph of a batch, each graph on a cluster of
+:func:`step_cluster_size` blocks that split its rows and its query columns.
+On CUDA tensors it launches the kernel on PyTorch's current stream; it takes
+nothing else.
 """
 
 from __future__ import annotations
@@ -13,31 +15,41 @@ import torch
 
 from .. import build
 
-__all__ = ["pointer_step_cuda", "step_kernel_supported", "THREADS", "MAX_SMEM_BYTES"]
+__all__ = ["pointer_step_cuda", "step_kernel_supported", "step_cluster_size", "step_smem_bytes",
+           "THREADS", "MAX_SMEM_BYTES"]
 
 THREADS = 512      # PTR_THREADS in csrc/ptr_common.cuh
 _WARPS = THREADS // 32
 #: dynamic shared memory one block may use on Hopper (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
+#: PTR_STEP_MAX_CLUSTER and PTR_STEP_ROWS_PER_BLOCK in csrc/ptr_step.cu
+MAX_CLUSTER = 8
+ROWS_PER_BLOCK = 128
+
+
+def step_cluster_size(n: int) -> int:
+    """Blocks a graph of ``n`` rows runs on (mirrors ``ptr_step_cluster_size``):
+    one per 128 rows, at most 8, the largest portable cluster."""
+    return min(MAX_CLUSTER, max(1, -(-n // ROWS_PER_BLOCK)))
 
 
 def step_smem_bytes(n: int, hidden: int) -> int:
-    """Dynamic shared memory of one block (mirrors ``ptr_step_smem_bytes``)."""
-    return 4 * (6 * hidden + THREADS + _WARPS + n) + 4 * (n + _WARPS)
-
-
-def hidden_ok(hidden: int) -> bool:
-    """The block's thread groups split the hidden width evenly."""
-    return 0 < hidden <= THREADS and THREADS % hidden == 0
+    """Dynamic shared memory of one block (mirrors ``ptr_step_smem_bytes``):
+    six hidden-wide vectors, the block-reduction scratch, K exchange slots
+    of hidden + 2 floats, and a score and a list entry per owned row."""
+    k = step_cluster_size(n)
+    rows = -(-n // k)
+    return 4 * (6 * hidden + THREADS + _WARPS + k * (hidden + 2) + rows) + 4 * (rows + _WARPS)
 
 
 def step_kernel_supported(n: int, hidden: int) -> bool:
-    """True when the single-step kernel takes a (n, hidden) block."""
-    return hidden_ok(hidden) and step_smem_bytes(n, hidden) <= MAX_SMEM_BYTES
+    """True when the single-step kernel takes a (n, hidden) graph: any width
+    and any n whose block fits the 227 KB of shared memory."""
+    return n > 0 and hidden > 0 and step_smem_bytes(n, hidden) <= MAX_SMEM_BYTES
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 10 + [_I] * 4 + [_P]
+_ARGTYPES = [_P] * 10 + [_I] * 4 + [_P, ctypes.POINTER(ctypes.c_int)]
 
 
 def _f32(x: torch.Tensor, name: str, shape: tuple) -> torch.Tensor:
@@ -67,8 +79,12 @@ def pointer_step_cuda(C, CWg, CWp, h, w_q_g, v_g, w_q_p, v_p, mask) -> torch.Ten
     out = torch.empty((B, n), dtype=torch.float32, device=C.device)
     fn = build.load_function("ptr_step", "ptr_step_launch", _ARGTYPES)
     stream = torch.cuda.current_stream(C.device).cuda_stream
+    launched = ctypes.c_int(0)
     rc = fn(*(a.data_ptr() for a in args), mask_i.data_ptr(), out.data_ptr(),
-            B, n, H, C.device.index or 0, stream)
+            B, n, H, C.device.index or 0, stream, ctypes.byref(launched))
     build.check("ptr_step", rc)
+    if launched.value != step_cluster_size(n):
+        raise RuntimeError(f"ptr_step launched clusters of {launched.value} blocks, "
+                           f"expected {step_cluster_size(n)}")
     build.LAUNCHES["ptr_step"] += 1
     return out

@@ -3,16 +3,18 @@ kernels, their shape gates, the build helper and the launch counters.
 
 On CPU tensors every op runs its plain PyTorch version; on CUDA tensors it
 launches its kernel or raises.  The gates test the CUDA kernels' own limits
-— the 512-thread block, the 227 KB of shared memory a block may use and,
-for the whole decode's cluster template, a hidden width that splits over
-four blocks — and nothing of the TPU's tiling.
+and nothing of the TPU's tiling: the single step takes any hidden width
+whose block fits the 227 KB of shared memory a block may use; the whole
+decode also needs a width that divides its 512-thread block and, for its
+cluster template, splits over four blocks.
 """
 
 from __future__ import annotations
 
 from ..build import BUILD_DIR, LAUNCHES, build_kernels
 from .decode import decode_kernel_supported, decode_template
-from .kernel import MAX_SMEM_BYTES, pointer_step_cuda, step_kernel_supported
+from .kernel import (MAX_SMEM_BYTES, pointer_step_cuda, step_cluster_size,
+                     step_kernel_supported)
 from .ref import precompute_refs, reference_pointer_step
 
 __all__ = [
@@ -20,6 +22,7 @@ __all__ = [
     "pointer_step",
     "make_logits_fn",
     "step_kernel_supported",
+    "step_cluster_size",
     "decode_kernel_supported",
     "decode_template",
     "build_kernels",

@@ -13,10 +13,16 @@ reference's pure-jnp ops and to its Pallas kernels in interpret mode:
 * the whole-decode kernel's template choice by shape: the release's shapes
   (hidden 128, buckets 8..2048) take the four-block cluster template, the
   default width 256 the one-block template, and a shape neither takes
-  raises.
+  raises;
+* the single-step kernel's gate: any hidden width whose block fits the
+  shared memory (96, 192, 384, 640 among them, which the whole decode
+  refuses), and its cluster size, one block per 128 rows up to 8.
 
 The kernels themselves run only on the card: the ``cuda`` tests skip here.
-On the card, the cluster template is held to the plain decode at hidden 32
+On the card, the single-step kernel is held to its plain version at hidden
+96, 128, 256 and 640, n from 8 to 4096, at five masks each (masked logits
+byte-equal, the rest within 1e-4 relative); the cluster template is held
+to the plain decode at hidden 32
 and 128 and at bucket 1024 with drained steps, the block template at
 hidden 256: orders equal, logp and entropy within 1e-4 at bucket 32, within
 1e-3 (``chip_smoke.py``'s ``TOL_LOGP``) where float32 drift is carried
@@ -42,7 +48,7 @@ from repro_torch.core.ptrnet import params_from_numpy
 from repro_torch.kernels.ptr import ops
 from repro_torch.kernels.ptr.decode import (decode_batch, decode_batch_reference,
                                             decode_smem_bytes, decode_template)
-from repro_torch.kernels.ptr.kernel import pointer_step_cuda
+from repro_torch.kernels.ptr.kernel import pointer_step_cuda, step_smem_bytes
 from repro_torch.kernels.ptr.ref import reference_pointer_step
 
 # one intra-op thread: the suite runs in several worker processes at once,
@@ -80,6 +86,24 @@ def test_plain_pointer_step_matches_reference_and_pallas(n, H, B):
     want_pallas = np.asarray(pointer_step_pallas(*jargs, interpret=True))
     np.testing.assert_allclose(got, want_ref, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got, want_pallas, atol=1e-5, rtol=1e-5)
+    assert (got[~args[-1]] == -1e9).all()
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("H", [96, 640])
+@pytest.mark.parametrize("n", [8, 64])
+def test_plain_pointer_step_matches_reference_and_pallas_at_any_width(n, H, B):
+    # widths that do not divide a 512-thread block, which the single-step
+    # kernel takes as the reference does.  Its float32 sums run over H terms
+    # of logits that grow as sqrt(H) (about 25 at H = 640), so the tolerance
+    # of the 32- and 128-wide cases scales with H / 128
+    args = _step_inputs(B, n, H, seed=n * 1000 + H + B)
+    got = reference_pointer_step(*map(torch.from_numpy, args)).numpy()
+    jargs = tuple(map(jnp.asarray, args))
+    tol = 1e-5 * max(1.0, H / 128)
+    np.testing.assert_allclose(got, np.asarray(_jax_step(*jargs)), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, np.asarray(pointer_step_pallas(*jargs, interpret=True)),
+                               atol=tol, rtol=tol)
     assert (got[~args[-1]] == -1e9).all()
 
 
@@ -195,12 +219,33 @@ def test_kernel_gates_follow_cuda_limits():
     # hidden must divide the 512-thread block
     assert ops.decode_kernel_supported(1024, 128)
     assert not ops.decode_kernel_supported(1024, 96)
-    assert not ops.step_kernel_supported(64, 640)
+    assert ops.step_kernel_supported(64, 8205) and not ops.step_kernel_supported(64, 8206)
     # shared memory: 227 KB a block
     assert ops.decode_kernel_supported(4096, 128)
     assert not ops.decode_kernel_supported(8192, 128)
     assert ops.step_kernel_supported(16384, 128)
-    assert not ops.step_kernel_supported(65536, 128)
+    assert not ops.step_kernel_supported(262144, 128)
+
+
+@pytest.mark.parametrize("hidden", [96, 192, 384, 640])
+def test_step_gate_takes_widths_the_whole_decode_refuses(hidden):
+    # the single step loops its thread groups over any width; the whole
+    # decode still needs one that divides its 512-thread block
+    for n in (8, 32, 1024, 4096):
+        assert ops.step_kernel_supported(n, hidden)
+        assert step_smem_bytes(n, hidden) <= ops.MAX_SMEM_BYTES
+    assert not ops.decode_kernel_supported(1024, hidden)
+    assert BucketedDecoder("cpu").resolve_decode_impl(1024, hidden) == "scan"
+
+
+@pytest.mark.parametrize("n, k", [(1, 1), (8, 1), (32, 1), (128, 1), (129, 2), (256, 2),
+                                  (600, 5), (1024, 8), (4096, 8)])
+def test_step_cluster_size_follows_n(n, k):
+    # one block per 128 rows, at most 8 (the largest portable cluster); a
+    # block's shared memory holds a score and a list entry per owned row
+    assert ops.step_cluster_size(n) == k
+    rows = -(-n // k)
+    assert step_smem_bytes(n, 128) == 4 * (6 * 128 + 512 + 16 + k * 130 + rows) + 4 * (rows + 16)
 
 
 @pytest.mark.parametrize("bucket_n", [8, 32, 256, 512, 1024, 2048])
@@ -263,6 +308,66 @@ def test_step_kernel_matches_plain_on_cuda(n):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["ptr_step"] == before + 1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _net_step_inputs(B, n, H, seed):
+    """Single-step inputs (all but the mask) at the network's scale: C and h
+    in (-1, 1) as an LSTM's outputs, CWg and CWp their projections, and the
+    query weights and vectors of the reference's seeded init at width H.
+    (``_step_inputs``' unit-normal rows and vectors give logits of tens at
+    H = 640, where float32 rounding of the glimpse scores, amplified by the
+    softmax, reaches the 1e-4 tolerance.)"""
+    net = _net(H)
+    rng = np.random.default_rng(seed)
+    C = torch.from_numpy(np.tanh(rng.standard_normal((B, n, H))).astype(np.float32))
+    h = torch.from_numpy(np.tanh(rng.standard_normal((B, H))).astype(np.float32))
+    g, p = net.glimpse, net.pointer
+    return [C, *ops.precompute_refs(net, C), h, g.w_q, g.v, p.w_q, p.v]
+
+
+def _b2_masks(B, n, seed):
+    """The masks B2 is held to on the card, by name: ``_step_inputs``'s,
+    selectable rows inside one block's range only, one selectable row in the
+    last block, every row masked, and a drained tail (the unvisited padded
+    slots once every real node is visited)."""
+    k = ops.step_cluster_size(n)
+    rng = np.random.default_rng(seed)
+    lo, hi = (k // 2) * n // k, (k // 2 + 1) * n // k
+    one_block = np.zeros((B, n), bool)
+    one_block[:, lo:hi] = rng.random((B, hi - lo)) < 0.5
+    one_block[:, lo] = True
+    last = np.zeros((B, n), bool)
+    last[np.arange(B), [n - 1, (k - 1) * n // k, n - 1][:B]] = True
+    drained = np.zeros((B, n), bool)
+    for b in range(B):
+        drained[b, n - 1 - (b * n) // (2 * B):] = True
+    return {"step_inputs": _step_inputs(B, n, 8, seed)[-1], "one block": one_block,
+            "last block, one row": last, "all masked": np.zeros((B, n), bool),
+            "drained tail": drained}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 32, 256, 1024, 4096])
+@pytest.mark.parametrize("H", [96, 128, 256, 640])
+def test_step_kernel_any_width_and_mask_on_cuda(H, n):
+    # masked logits byte-equal to the plain version's (-1e9), selectable ones
+    # within 1e-4 of it relative to max(1, |logit|) (chip_smoke.py's
+    # TOL_LOGITS): float32 sums in another order, the glimpse softmax
+    # combined over the cluster's blocks.  The inputs are at the network's
+    # scale (see _net_step_inputs)
+    _need_cuda()
+    args = [a.cuda() for a in _net_step_inputs(3, n, H, seed=n + H)]
+    for name, m in _b2_masks(3, n, seed=n * H).items():
+        mask = torch.from_numpy(m).cuda()
+        before = ops.LAUNCHES["ptr_step"]
+        got = pointer_step_cuda(*args, mask)
+        want = reference_pointer_step(*args, mask)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["ptr_step"] == before + 1
+        assert torch.equal(got[~mask], want[~mask]), name
+        assert (got[~mask] == -1e9).all(), name
+        err = (got[mask] - want[mask]).abs() / want[mask].abs().clamp_min(1.0)
+        assert not mask.any() or float(err.max()) <= 1e-4, (name, float(err.max()))
 
 
 _NETS = {HIDDEN: _NET}

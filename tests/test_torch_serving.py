@@ -6,14 +6,22 @@
 * on 32 mixed-size synthetic graphs it equals the reference's
   ``RespectScheduler.from_release().schedule_many`` integer for integer,
   for a uniform, a heterogeneous and a memory-capped system;
+* at hidden 96, a width the whole-decode kernel refuses, a scheduler built
+  from the reference's seeded ``init_params`` equals the reference's
+  ``RespectScheduler`` with those parameters, uniform and heterogeneous;
 * cache hits return copies; without CUDA, entry points raise unless given
   ``device="cpu"``.
+
+On the card (``cuda`` tests, skipped here): ``schedule_many`` at hidden 96
+and 640 runs the scan with the single-step kernel at every step and equals
+the CPU plain path.
 """
 
 import hashlib
 import json
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -21,6 +29,7 @@ import torch
 import repro.core as jcore
 import repro_torch.core as tcore
 from repro_torch.core import batching
+from repro_torch.core.ptrnet import params_from_numpy
 from repro_torch.core.graph import validate_monotone
 
 # one intra-op thread: the suite runs in several worker processes at once,
@@ -79,6 +88,45 @@ def test_schedule_many_matches_jax(sched, jax_sched, kind):
         assert np.array_equal(a["order"], b["order"]), f"graph {i}: order"
         assert np.array_equal(a["assignment"], b["assignment"]), f"graph {i}: assignment"
         assert validate_monotone(g, a["assignment"], STAGES)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hetero"])
+def test_hidden_96_matches_jax(kind):
+    jsched = jcore.RespectScheduler.init(seed=0, hidden=96)
+    net = params_from_numpy(jax.tree.map(np.asarray, jsched.params))
+    tsched = tcore.RespectScheduler(net, device="cpu")
+    seed = {"uniform": 3, "hetero": 4}[kind]
+    jgraphs = jcore.sample_batch(np.random.default_rng(seed), 8, n=(9, 30))
+    tgraphs = tcore.sample_batch(np.random.default_rng(seed), 8, n=(9, 30))
+    want = jsched.schedule_many(jgraphs, STAGES, jcore.PipelineSystem(**SYSTEMS[kind]),
+                                use_cache=False)
+    got = tsched.schedule_many(tgraphs, STAGES, tcore.PipelineSystem(**SYSTEMS[kind]),
+                               use_cache=False)
+    assert tsched.hidden == 96
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert np.array_equal(a["order"], b["order"]), f"graph {i}: order"
+        assert np.array_equal(a["assignment"], b["assignment"]), f"graph {i}: assignment"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [96, 640])
+def test_schedule_many_any_width_on_cuda(hidden):
+    # buckets 32 to 1024: clusters of 1 to 8 blocks a graph
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.ptr import ops
+    graphs = tcore.sample_batch(np.random.default_rng(hidden), 6, n=(20, 700))
+    system = tcore.PipelineSystem(**SYSTEMS["hetero"])
+    card = tcore.RespectScheduler.init(seed=0, hidden=hidden)
+    cpu = tcore.RespectScheduler.init(seed=0, hidden=hidden, device="cpu")
+    before = ops.LAUNCHES["ptr_step"]
+    got = card.schedule_many(graphs, STAGES, system, use_cache=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ptr_step"] - before == sum(batching.bucketize(graphs))
+    want = cpu.schedule_many(graphs, STAGES, system, use_cache=False)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert np.array_equal(a["order"], b["order"]), f"graph {i}: order"
+        assert np.array_equal(a["assignment"], b["assignment"]), f"graph {i}: assignment"
 
 
 def test_cache_hits_return_copies(sched):
