@@ -45,7 +45,22 @@ Run from the repository root:  python3 chip_smoke.py
    rho, repair) with B2's device time and the device's idle share in the
    decode, checking by kernel name that every step ran ptr_step_cluster;
 10. checks from the profiler's kernel names that every B1 launch of the
-   respect-v1 path (one a bucket) ran the cluster template.
+   respect-v1 path (one a bucket) ran the cluster template;
+11. (between 4 and 5) the seeded and sampled path, with the launch counters
+   reset just before and read just after: seeded weights drawn on the host
+   for seed 0 at hidden 256, 128 and 96, their leaves (read back from the
+   card) against tests/golden/torch_seeded_schedules.json, then those
+   schedulers on the 64 synthetic graphs (B1 block template, B1 cluster
+   template, the scan with B2) and on the heterogeneous batch (the scan with
+   B2, a start token conditioned through w_sys), digests against the golden
+   file (hidden 256 on the synthetic graphs and hidden 96 on the
+   heterogeneous ones are the main path's runs of 1 and 3, held to the file
+   there); B1's sampled decode of respect-v1 (graph i keyed
+   fold_in(PRNGKey(1), i)) on the synthetic and Table-I graphs, orders
+   against the golden file, logp and entropy against the plain version, and
+   B1's device time sampled against greedy; fallback_schedule_many on
+   respect-v1 (digests, served_by, the cache untouched); a save/load round
+   trip of the hidden-256 scheduler.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -63,6 +78,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "dnn_schedules.json"
+SEEDED_GOLDEN = ROOT / "tests" / "golden" / "torch_seeded_schedules.json"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
@@ -422,6 +438,193 @@ def steps_bound(net, rec: dict) -> tuple[float, str]:
 
 
 # ---------------------------------------------------------------------- #
+# the seeded and sampled path: threefry weights and uniforms, the fallback
+# rung, save/load
+# ---------------------------------------------------------------------- #
+SEEDED_ROUTES = {256: "ptr_decode_block", 128: "ptr_decode_cluster", 96: "ptr_step"}
+
+
+def schedule_digests(results) -> dict:
+    return {"order_sha256": [digest(r["order"]) for r in results],
+            "assign_sha256": [digest(r["assignment"]) for r in results]}
+
+
+def digest_misses(got: dict, want: dict) -> list[int]:
+    return [i for i, pair in enumerate(zip(got["order_sha256"], got["assign_sha256"],
+                                           want["order_sha256"], want["assign_sha256"]))
+            if pair[:2] != pair[2:]]
+
+
+def seeded_phase(card: str, sched, seeded: dict, table1, names, synth, hetero_graphs,
+                 hsys) -> None:
+    """The seeded and sampled path on the card (docstring item 11); raises
+    SmokeFailure on any difference from the golden file.  ``seeded`` holds
+    the main path's seeded schedulers at hidden 256 and 96."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import flatten_leaves
+    from repro_torch.core import RespectScheduler, prng, ptrnet
+    from repro_torch.core.batching import bucketize, pack_padded, sample_order
+    from repro_torch.kernels.ptr import ops
+    from repro_torch.kernels.ptr.decode import decode_batch, decode_batch_reference, step_uniforms
+
+    gold = json.loads(SEEDED_GOLDEN.read_text())
+    check(gold["meta"]["table1"] == names, "seeded golden: Table-I graphs differ")
+    D = sched.max_deg
+    synth_steps = sum(bucketize(synth))
+    hetero_steps = sum(bucketize(hetero_graphs))
+    t_phase = time.perf_counter()
+
+    def delta(before):
+        torch.cuda.synchronize()
+        return {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+
+    def expect(label, ran, **want):
+        full = {k: want.get(k, 0) for k in ran}
+        check(ran == full, f"{label}: launches {ran}, expected {full}")
+
+    def leaf_digests(net) -> dict:
+        return {n: hashlib.sha256(np.ascontiguousarray(a, "<f4").tobytes()).hexdigest()
+                for n, a in flatten_leaves(ptrnet.params_to_numpy(net))}
+
+    # ---- the path, counted ------------------------------------------- #
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    seeded = {**seeded, 128: RespectScheduler.init(seed=0, hidden=128)}  # on the host; cuda
+    t_init = time.perf_counter() - t0
+    batches = {"synthetic": (synth, None), "hetero": (hetero_graphs, hsys)}
+    # what the main path has not run: it ran hidden 256 on the synthetic
+    # batch and hidden 96 on the heterogeneous one
+    todo = {256: ("hetero",), 128: ("synthetic", "hetero"), 96: ("synthetic",)}
+    for H, route in SEEDED_ROUTES.items():
+        check(leaf_digests(seeded[H].net) == gold["leaves"][str(H)],
+              f"hidden {H}: the seeded leaves on the card differ from the golden file")
+        for label in todo[H]:
+            graphs, system = batches[label]
+            before = dict(ops.LAUNCHES)
+            got = schedule_digests(seeded[H].schedule_many(graphs, STAGES, system,
+                                                           use_cache=False))
+            if label == "hetero":
+                expect(f"seeded hidden {H}, {label}", delta(before), ptr_step=hetero_steps)
+            else:
+                expect(f"seeded hidden {H}, {label}", delta(before),
+                       **{route: synth_steps if route == "ptr_step" else 1})
+            bad = digest_misses(got, gold["seeded"][str(H)][label])
+            check(not bad, f"seeded hidden {H}, {label}: graphs {bad} differ from the golden "
+                  "file")
+        print(f"seeded init hidden {H}: 16 leaves equal to the golden file on the card; "
+              f"{len(synth)} synthetic graphs ({route}) and {len(hetero_graphs)} heterogeneous "
+              "ones (scan + B2, w_sys-conditioned start token): order and assignment digests "
+              f"equal the golden file (here: {', '.join(todo[H])}; the rest on the main path)",
+              flush=True)
+    print(f"seeded init hidden 128: drawn on the host in {t_init:.2f} s", flush=True)
+
+    sampled = {}                 # bucket_n -> (graphs, keys) of the sampled batches
+    root = prng.PRNGKey(gold["meta"]["sample_seed"])
+    for label, graphs in (("synthetic", synth), ("table1", table1)):
+        keys = prng.fold_in(root, np.arange(len(graphs)))
+        want = gold["sample_order"][label]
+        want = [want[nm] for nm in names] if label == "table1" else want
+        for bucket_n, idxs in bucketize(graphs).items():
+            batch = pack_padded([graphs[i] for i in idxs], bucket_n, D)
+            before = dict(ops.LAUNCHES)
+            order, logp, ent = sample_order(sched.net, batch.feats, batch.parent_mat,
+                                            keys[idxs], n_valid=batch.n_valid, decode="kernel")
+            expect(f"sampled {label}, bucket {bucket_n}", delta(before), ptr_decode_cluster=1)
+            order = order.cpu().numpy()
+            bad = [i for r, i in enumerate(idxs)
+                   if digest(order[r, : graphs[i].n]) != want[i]]
+            check(not bad, f"sampled {label}: graphs {bad} differ from JAX's sample_order")
+            sampled[(label, bucket_n)] = ([graphs[i] for i in idxs], keys[idxs], logp, ent)
+    print(f"sampled decode (respect-v1, B1 cluster template): {len(synth)} synthetic and "
+          f"{len(table1)} Table-I orders equal JAX's sample_order digests", flush=True)
+
+    sched.clear_cache()
+    sched.schedule_many(synth[:3], STAGES)
+    stats = sched.cache_stats()
+    before = dict(ops.LAUNCHES)
+    fb = sched.fallback_schedule_many(table1 + synth, STAGES,
+                                      fallback_seed=gold["meta"]["fallback_seed"])
+    expect("fallback", delta(before), ptr_decode_cluster=len(bucketize(table1 + synth)))
+    check(all(r["served_by"] == "fallback" and not r["cache_hit"] for r in fb),
+          "fallback results are not stamped served_by='fallback'")
+    check(sched.cache_stats() == stats, f"fallback touched the cache: {stats} -> "
+          f"{sched.cache_stats()}")
+    got = schedule_digests(fb)
+    want = {k: [gold["fallback"]["table1"][nm][k] for nm in names]
+            + gold["fallback"]["synthetic"][k] for k in ("order_sha256", "assign_sha256")}
+    bad = digest_misses(got, want)
+    check(not bad, f"fallback: graphs {bad} differ from the golden file")
+    print(f"fallback: {len(fb)} schedules (Table-I and synthetic) equal the golden file, all "
+          f"served_by='fallback', cache {stats} unchanged", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seeded[256].save(Path(tmp) / "seeded-256")
+        back = RespectScheduler.load(Path(tmp) / "seeded-256")
+        check(leaf_digests(back.net) == gold["leaves"]["256"], "save/load: leaves differ")
+        before = dict(ops.LAUNCHES)
+        got = schedule_digests(back.schedule_many(synth, STAGES, use_cache=False))
+        expect("save/load", delta(before), ptr_decode_block=1)
+    bad = digest_misses(got, gold["seeded"]["256"]["synthetic"])
+    check(not bad, f"save/load: graphs {bad} differ from the golden file")
+    ran = delta(dict.fromkeys(ops.LAUNCHES, 0))
+    print(f"save/load round trip of the hidden-256 scheduler: digests equal; the seeded path "
+          f"launched {ran} in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(all(ran[k] > 0 for k in ("ptr_decode_block", "ptr_decode_cluster", "ptr_step")),
+          f"the seeded path left a kernel unlaunched: {ran}")
+
+    # ---- B1 sampled against its plain version, and against greedy ----- #
+    err = 0.0
+    for (label, bucket_n), (graphs, keys, logp, ent) in sampled.items():
+        batch = pack_padded(graphs, bucket_n, D).to("cuda")
+        with torch.inference_mode():
+            C, (h0, c0), emb = sched.net.encode(batch.feats, batch.n_valid)
+            args = (sched.net, C, emb, h0, c0, batch.parent_mat, batch.n_valid,
+                    step_uniforms(keys, bucket_n).cuda())
+            po, pl_, pe = decode_batch_reference(*args)
+            ko, kl, ke = decode_batch(*args)
+        valid = torch.arange(bucket_n, device="cuda")[None, :] < batch.n_valid[:, None].long()
+        check(torch.equal(torch.where(valid, ko, -1), torch.where(valid, po, -1)),
+              f"sampled {label} bucket {bucket_n}: kernel and plain orders differ")
+        e = max(float((kl - pl_).abs().max()), float((ke - pe).abs().max()),
+                float((logp - pl_).abs().max()), float((ent - pe).abs().max()))
+        check(e <= TOL_LOGP, f"sampled {label} bucket {bucket_n}: logp/entropy error {e:.3e}")
+        err = max(err, e)
+    print(f"sampled decode against the plain version on the card: orders equal, max |err| "
+          f"logp/entropy {err:.2e} (tolerance {TOL_LOGP})", flush=True)
+
+    big = [i for i in bucketize(table1)[1024]][-4:]
+    for label, graphs, keys in (
+            ("bucket 32, B=64", synth, prng.fold_in(root, np.arange(len(synth)))),
+            ("bucket 1024, B=4", [table1[i] for i in big], prng.fold_in(root, np.array(big)))):
+        batch = pack_padded(graphs, max_deg=D).to("cuda")
+        with torch.inference_mode():
+            C, (h0, c0), emb = sched.net.encode(batch.feats, batch.n_valid)
+            args = (sched.net, C, emb, h0, c0, batch.parent_mat, batch.n_valid)
+            unif = step_uniforms(keys, batch.bucket_n).cuda()
+            t = {"greedy": [], "sampled": []}
+            for mode in ("greedy", "sampled", "sampled", "greedy"):
+                extra = (unif,) if mode == "sampled" else ()
+                t[mode].append(device_ms(lambda: decode_batch(*args, *extra),
+                                         "ptr_decode_cluster", iters=5))
+            # the rows a step reads depend on the order, so the two modes'
+            # work differs by their orders' frontiers as well as by the pick
+            rows = [sum(sum(frontier_sizes(gr, o)) for gr, o in zip(graphs, out[0].cpu().numpy()))
+                    for out in (decode_batch(*args), decode_batch(*args, unif))]
+        g, smp = t["greedy"], t["sampled"]
+        print(f"ptr_decode_cluster {label} on {card}, device time (profiler, greedy, sampled, "
+              f"sampled, greedy): greedy {min(g):.4f} - {max(g):.4f} ms, sampled "
+              f"{min(smp):.4f} - {max(smp):.4f} ms (sampled / greedy "
+              f"{statistics.mean(smp) / statistics.mean(g):.3f}); selectable rows summed over "
+              f"the real steps: greedy {rows[0]}, sampled {rows[1]}", flush=True)
+    del seeded
+
+
+# ---------------------------------------------------------------------- #
 # the LM zoo's serving path: zamba2-7b, kernels B3 (flash) and B4 (SSD)
 # ---------------------------------------------------------------------- #
 ZOO_ARCH = "zamba2-7b"
@@ -765,6 +968,7 @@ def run() -> dict:
     print(f"build: all four kernels in {t_build:.2f} s (nvcc, sm_90a, in parallel)", flush=True)
 
     golden = json.loads(GOLDEN.read_text())
+    seeded_gold = json.loads(SEEDED_GOLDEN.read_text())["seeded"]
     names = list(golden["models"])
     table1 = [build_model_graph(nm) for nm in names]
     synth = sample_batch(np.random.default_rng(0), 64, n=30)
@@ -807,6 +1011,8 @@ def run() -> dict:
           f"width-256 batch: B1 launches {wide_launches}, expected one ptr_decode_block")
     check(all(r["assignment"].shape == (g.n,) and validate_monotone(g, r["assignment"], STAGES)
               for g, r in zip(synth, res_w)), "width-256 batch: invalid schedule")
+    bad = digest_misses(schedule_digests(res_w), seeded_gold["256"]["synthetic"])
+    check(not bad, f"width-256 batch: graphs {bad} differ from the seeded golden file")
     hetero_steps = sum(bucketize(hetero_graphs))   # one B2 launch a step of each bucket
     check(launches["ptr_step"] == hetero_steps,
           f"heterogeneous batch: {launches['ptr_step']} ptr_step launches, expected "
@@ -857,8 +1063,15 @@ def run() -> dict:
               f"hidden {Hw}: {ran} ptr_step launches, expected {hetero_steps}")
         same_as_cpu(f"heterogeneous batch at hidden {Hw}", got,
                     RespectScheduler.init(seed=0, hidden=Hw, device="cpu"))
+        if str(Hw) in seeded_gold:
+            bad = digest_misses(schedule_digests(got), seeded_gold[str(Hw)]["hetero"])
+            check(not bad, f"hidden {Hw}: graphs {bad} differ from the seeded golden file")
         print(f"hidden {Hw}: the heterogeneous batch ran {ran} ptr_step launches and its "
               f"{len(hetero_graphs)} schedules equal the CPU plain path", flush=True)
+
+    # ---- the seeded and sampled path (its own counted run) ------------ #
+    seeded_phase(card, sched, {256: wide, 96: widths[96]}, table1, names, synth,
+                 hetero_graphs, hsys)
 
     # ---- kernels against their plain versions, at the path's shapes --- #
     net = sched.net
@@ -1082,7 +1295,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
               file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.exists():
+    if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
+            and SEEDED_GOLDEN.exists()):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))

@@ -1,4 +1,4 @@
-from .manager import is_checkpoint_dir, load_pytree_dict, read_leaves
+from .manager import is_checkpoint_dir, load_pytree_dict, read_leaves, save_pytree
 from .release import (
     ReleaseError,
     find_release,

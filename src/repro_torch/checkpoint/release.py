@@ -20,9 +20,8 @@ import warnings
 from pathlib import Path
 
 import numpy as np
-import torch
 
-from .manager import is_checkpoint_dir, load_pytree_dict
+from .manager import flatten_leaves, is_checkpoint_dir, load_pytree_dict
 
 __all__ = [
     "ReleaseError",
@@ -45,25 +44,12 @@ class ReleaseError(RuntimeError):
     """A release checkpoint failed schema or integrity verification."""
 
 
-def _flatten(tree: dict, prefix: str = "") -> list[tuple[str, np.ndarray]]:
-    items = []
-    for key, val in tree.items():
-        name = f"{prefix}{key}"
-        if isinstance(val, dict):
-            items.extend(_flatten(val, name + "/"))
-        elif isinstance(val, torch.Tensor):
-            items.append((name, val.detach().cpu().numpy()))
-        else:
-            items.append((name, np.asarray(val)))
-    return items
-
-
 def params_sha256(params: dict) -> str:
     """sha256 over the leaves sorted by slash-joined name: per leaf the name,
     ``str(dtype)`` and ``repr(shape)`` (numpy spellings) and the raw bytes.
     Leaves may be torch tensors (on any device) or numpy arrays."""
     h = hashlib.sha256()
-    for name, arr in sorted(_flatten(params), key=lambda kv: kv[0]):
+    for name, arr in sorted(flatten_leaves(params), key=lambda kv: kv[0]):
         h.update(name.encode())
         h.update(str(arr.dtype).encode())
         h.update(repr(tuple(arr.shape)).encode())

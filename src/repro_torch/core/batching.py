@@ -14,6 +14,10 @@ fixed-shape batches and runs the cache-miss pipeline on each:
   segmentation DP run batched on the device; the repair runs per graph on
   the host (:func:`repro_torch.core.segment.repair`).
 
+:func:`greedy_order` and :func:`sample_order` are the functional twins of
+the reference's (``repro.core.ptrnet``): one graph or a padded batch through
+the same decode choice, without the DP, the repair or the cache.
+
 Unlike the reference there is no cache of compiled programs and the batch
 dimension is not padded: eager PyTorch compiles nothing per shape, so a
 bucket runs exactly the graphs it holds.
@@ -27,14 +31,14 @@ import numpy as np
 import torch
 
 from ..kernels.ptr import ops as ptr_ops
-from ..kernels.ptr.decode import decode_batch
+from ..kernels.ptr.decode import decode_batch, step_uniforms
 from . import segment
 from .costmodel import PipelineSystem
 from .embedding import embed_graph
 from .graph import CompGraph
 
 __all__ = ["bucket_for", "bucketize", "PaddedGraphBatch", "pack_padded",
-           "BucketedDecoder", "DECODE_IMPLS"]
+           "BucketedDecoder", "DECODE_IMPLS", "greedy_order", "sample_order"]
 
 MIN_BUCKET = 8
 
@@ -129,6 +133,16 @@ def pack_padded(graphs: list[CompGraph], bucket_n: int | None = None, max_deg: i
                             n_valid=t(n_valid))
 
 
+def _profile_input(sys_feat, device) -> torch.Tensor | None:
+    """A hardware profile as the decoder's start-token input: None for no
+    profile or an all-zero one (a uniform system), which leaves ``dec0``
+    as it is and which the whole-decode kernel can take."""
+    if sys_feat is None:
+        return None
+    sys_feat = torch.as_tensor(sys_feat, dtype=torch.float32)
+    return sys_feat.to(device) if bool(sys_feat.any()) else None
+
+
 class BucketedDecoder:
     """Runs many graphs through per-bucket batched decodes on ``device``.
 
@@ -159,16 +173,15 @@ class BucketedDecoder:
             raise ValueError(f"decode_impl='kernel': the whole-decode kernel cannot take {why}")
         return self.decode_impl
 
-    def _decode(self, net, batch: PaddedGraphBatch, impl: str, sys_feat=None) -> torch.Tensor:
-        C, (h0, c0), emb = net.encode(batch.feats, batch.n_valid)
+    @staticmethod
+    def _decode(net, feats, parent_mat, n_valid, impl: str, sys_feat=None, uniforms=None):
+        """Encode and decode one padded batch on ``impl``: order, logp and
+        entropy, each (B, n); ``uniforms`` (B, n) for a sampled decode."""
+        C, (h0, c0), emb = net.encode(feats, n_valid)
         if impl == "kernel":
-            order, _, _ = decode_batch(net, C, emb, h0, c0, batch.parent_mat, batch.n_valid)
-        else:
-            order, _, _ = net.decode(C, emb, (h0, c0), batch.parent_mat,
-                                     n_valid=batch.n_valid,
-                                     logits_fn=ptr_ops.make_logits_fn(net, C),
-                                     sys_feat=sys_feat)
-        return order
+            return decode_batch(net, C, emb, h0, c0, parent_mat, n_valid, uniforms)
+        return net.decode(C, emb, (h0, c0), parent_mat, n_valid=n_valid, uniforms=uniforms,
+                          logits_fn=ptr_ops.make_logits_fn(net, C), sys_feat=sys_feat)
 
     def _packed_buckets(self, graphs: list[CompGraph]):
         for bucket_n, idxs in bucketize(graphs, self.min_bucket).items():
@@ -181,7 +194,8 @@ class BucketedDecoder:
         orders: list[np.ndarray | None] = [None] * len(graphs)
         for idxs, batch in self._packed_buckets(graphs):
             impl = self.resolve_decode_impl(batch.bucket_n, net.hidden)
-            out = self._decode(net, batch, impl).cpu().numpy()
+            out = self._decode(net, batch.feats, batch.parent_mat, batch.n_valid,
+                               impl)[0].cpu().numpy()
             for row, i in enumerate(idxs):
                 orders[i] = out[row, : graphs[i].n].astype(np.int64)
         return orders
@@ -192,14 +206,13 @@ class BucketedDecoder:
         """Decode, segment and repair every graph; per-graph ``(order,
         assignment)`` pairs aligned with ``graphs``."""
         system = system.with_stages(n_stages)
-        profile = system.profile_features()
-        conditioned = bool(profile.any())
-        sys_feat = torch.from_numpy(profile).to(self.device) if conditioned else None
+        sys_feat = _profile_input(system.profile_features(), self.device)
         caps = system.capacity_vector()
         results: list[tuple[np.ndarray, np.ndarray] | None] = [None] * len(graphs)
         for idxs, batch in self._packed_buckets(graphs):
-            impl = self.resolve_decode_impl(batch.bucket_n, net.hidden, conditioned)
-            orders = self._decode(net, batch, impl, sys_feat)
+            impl = self.resolve_decode_impl(batch.bucket_n, net.hidden, sys_feat is not None)
+            orders = self._decode(net, batch.feats, batch.parent_mat, batch.n_valid, impl,
+                                  sys_feat)[0]
             assigns = segment.rho_dp(orders, batch.flops, batch.param_bytes, batch.out_bytes,
                                      batch.parent_mat, n_stages, system, batch.n_valid)
             orders = orders.cpu().numpy()
@@ -210,3 +223,46 @@ class BucketedDecoder:
                               segment.repair(g, assigns[row, : g.n], n_stages,
                                              mem_capacity=caps))
         return results
+
+
+@torch.inference_mode()
+def _order(net, feats, parent_mat, keys, n_valid, sys_feat, decode):
+    """One graph ``(n, F)`` or a padded batch ``(B, n, F)`` through
+    :class:`BucketedDecoder`'s decode on the net's device."""
+    dev = net.dec0.device
+    feats = torch.as_tensor(feats, dtype=torch.float32)
+    pm = torch.as_tensor(parent_mat)
+    single = feats.dim() == 2
+    if single:
+        feats, pm = feats[None], pm[None]
+    B, n, _ = feats.shape
+    nv = torch.full((B,), n) if n_valid is None else torch.as_tensor(n_valid).reshape(B)
+    sys_feat = _profile_input(sys_feat, dev)
+    decoder = BucketedDecoder(dev, max_deg=pm.shape[-1], decode_impl=decode)
+    impl = decoder.resolve_decode_impl(n, net.hidden, sys_feat is not None)
+    uniforms = None if keys is None else step_uniforms(np.asarray(keys).reshape(B, 2), n).to(dev)
+    out = decoder._decode(net, feats.to(dev), pm.to(device=dev, dtype=torch.int32),
+                          nv.to(device=dev, dtype=torch.int32), impl, sys_feat, uniforms)
+    return tuple(o[0] for o in out) if single else out
+
+
+def greedy_order(net, feats, parent_mat, n_valid=None, sys_feat=None,
+                 decode: str | None = None):
+    """Greedy decode of one graph or of a padded batch, on the net's device.
+
+    feats: (n, F) or (B, n, F) embedding rows; parent_mat: (n, D) or
+    (B, n, D), -1 padded; n_valid: real node count(s), None for all;
+    sys_feat: a hardware profile (a non-zero one conditions the start token
+    and takes the scan); decode: one of :data:`DECODE_IMPLS`, chosen as in
+    :class:`BucketedDecoder`; on CPU tensors each runs its plain PyTorch
+    version.  Returns order (int64), logp and entropy, each (n,) or (B, n)."""
+    return _order(net, feats, parent_mat, None, n_valid, sys_feat, decode)
+
+
+def sample_order(net, feats, parent_mat, key, n_valid=None, sys_feat=None,
+                 decode: str | None = None):
+    """Sampled decode as :func:`greedy_order`, graph ``b`` drawing step
+    ``i``'s uniform from ``fold_in(key[b], i)`` — the reference's stream, so
+    orders equal its ``sample_order``'s, padded or not.  key: a (2,) uint32
+    key for one graph, (B, 2) for a batch."""
+    return _order(net, feats, parent_mat, key, n_valid, sys_feat, decode)

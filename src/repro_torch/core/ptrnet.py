@@ -20,7 +20,12 @@ Everything is batched over a leading graph dimension and pad-aware through
   parameters carry ``w_sys``.
 
 Sampled decode takes its per-step uniforms ``(B, n)`` as an input and picks
-by inverse CDF, so any uniform stream can be fed to it.
+by inverse CDF; :func:`repro_torch.core.batching.sample_order` feeds it the
+reference's own stream, step ``i`` of a graph drawing
+``uniform(fold_in(key, i))``
+(:func:`repro_torch.kernels.ptr.decode.step_uniforms`).  Seeded weights
+come from :func:`init_params`, the reference's key schedule and draws bit
+for bit (:mod:`repro_torch.core.prng`).
 
 The step-invariant products are hoisted: ``C @ W_ref`` of both heads (as
 the reference does) and ``emb @ dec.wx`` — every decoder input after step 0
@@ -31,15 +36,50 @@ different order; orders are held equal to the reference in the tests.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 from torch import nn
 
+from . import prng
 from .costmodel import SYS_FEAT_DIM
 
-__all__ = ["PointerNet", "params_from_numpy", "lstm_gates_to_state"]
+__all__ = ["PointerNet", "init_params", "params_from_numpy", "params_to_numpy",
+           "lstm_gates_to_state"]
+
+
+def _glorot(key, shape) -> np.ndarray:
+    # the scale is a float32 square root, as jnp.sqrt takes a Python float
+    scale = np.sqrt(np.float32(6.0 / (shape[0] + shape[-1])))
+    return prng.uniform(key, shape, -scale, scale)
+
+
+def init_params(key, feat_dim: int, hidden: int = 256,
+                sys_feat_dim: int = SYS_FEAT_DIM) -> dict:
+    """The reference's ``init_params`` tree (numpy float32), bit for bit:
+    Glorot-uniform matrices from ``split(key, 12)`` (each LSTM splits its
+    key once more), zero biases, ``dec0 = 0.1 * normal`` from ``ks[9]`` and
+    ``w_sys`` from ``ks[10]``."""
+    ks = prng.split(key, 12)
+
+    def lstm(k):
+        k1, k2 = prng.split(k)
+        return {"wx": _glorot(k1, (hidden, 4 * hidden)), "wh": _glorot(k2, (hidden, 4 * hidden)),
+                "b": np.zeros(4 * hidden, np.float32)}
+
+    def head(kr, kq, kv):
+        return {"w_ref": _glorot(kr, (hidden, hidden)), "w_q": _glorot(kq, (hidden, hidden)),
+                "v": _glorot(kv, (hidden, 1))[:, 0]}
+
+    return {
+        "w_in": _glorot(ks[0], (feat_dim, hidden)),
+        "b_in": np.zeros(hidden, np.float32),
+        "enc": lstm(ks[1]),
+        "dec": lstm(ks[2]),
+        "glimpse": head(ks[3], ks[4], ks[5]),
+        "pointer": head(ks[6], ks[7], ks[8]),
+        "dec0": prng.normal(ks[9], (hidden,)) * np.float32(0.1),
+        "w_sys": _glorot(ks[10], (sys_feat_dim, hidden)),
+    }
 
 
 def _param(x) -> nn.Parameter:
@@ -88,28 +128,12 @@ class PointerNet(nn.Module):
         self.w_sys = _param(tree["w_sys"]) if "w_sys" in tree else None
 
     @classmethod
-    def init(cls, feat_dim: int, hidden: int = 256, *, generator: torch.Generator,
+    def init(cls, feat_dim: int, hidden: int = 256, *, key,
              sys_feat_dim: int = SYS_FEAT_DIM) -> "PointerNet":
-        """Seeded Glorot-uniform init from an explicit ``torch.Generator``.
-        Draws differ from the reference's ``jax.random`` init."""
-        def glorot(*shape):
-            scale = math.sqrt(6.0 / (shape[0] + shape[-1]))
-            return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * scale
-
-        def lstm():
-            return {"wx": glorot(hidden, 4 * hidden), "wh": glorot(hidden, 4 * hidden),
-                    "b": torch.zeros(4 * hidden)}
-
-        def head():
-            return {"w_ref": glorot(hidden, hidden), "w_q": glorot(hidden, hidden),
-                    "v": glorot(hidden, 1)[:, 0]}
-
-        return cls({
-            "w_in": glorot(feat_dim, hidden), "b_in": torch.zeros(hidden),
-            "enc": lstm(), "dec": lstm(), "glimpse": head(), "pointer": head(),
-            "dec0": torch.randn(hidden, generator=generator) * 0.1,
-            "w_sys": glorot(sys_feat_dim, hidden),
-        })
+        """Seeded Glorot-uniform init from a JAX-format ``key``
+        (:func:`repro_torch.core.prng.PRNGKey`): the reference's
+        ``init_params(key, ...)`` weights bit for bit."""
+        return cls(init_params(key, feat_dim, hidden, sys_feat_dim))
 
     @property
     def hidden(self) -> int:
@@ -229,3 +253,21 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> Pointer
         return np.asarray(x)
 
     return PointerNet(to_np(tree)).to(device)
+
+
+def params_to_numpy(net: PointerNet) -> dict:
+    """The reference's parameter tree (nested dicts of float32 numpy
+    copies) of ``net``; the inverse of :func:`params_from_numpy`."""
+    def leaf(p):
+        return p.detach().cpu().numpy().copy()
+
+    tree = {"w_in": leaf(net.w_in), "b_in": leaf(net.b_in), "dec0": leaf(net.dec0)}
+    for name in ("enc", "dec"):
+        m = getattr(net, name)
+        tree[name] = {k: leaf(getattr(m, k)) for k in ("wx", "wh", "b")}
+    for name in ("glimpse", "pointer"):
+        m = getattr(net, name)
+        tree[name] = {k: leaf(getattr(m, k)) for k in ("w_ref", "w_q", "v")}
+    if net.w_sys is not None:
+        tree["w_sys"] = leaf(net.w_sys)
+    return tree

@@ -5,7 +5,10 @@ grouped into power-of-two size buckets and each bucket runs embed ->
 pointer-network decode -> segmentation DP on the device and repair on the
 host (:mod:`repro_torch.core.batching`).  A lock-guarded content-hash LRU
 serves repeated graphs; every result holds copies, never the cache's
-arrays.
+arrays.  :meth:`RespectScheduler.fallback_schedule_many` runs the same
+engine with seeded weights, the serving ladder's middle rung, and never
+touches the cache.  Checkpoints use the reference's directory format
+(:func:`repro_torch.checkpoint.save_pytree`); legacy ``.npz`` dumps load.
 
 Entry points run on CUDA unless given ``device``; without CUDA they raise
 unless the caller passes ``device="cpu"``.
@@ -19,14 +22,14 @@ from collections import OrderedDict
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from ..device import resolve_device
 from .batching import BucketedDecoder
 from .costmodel import PipelineSystem
 from .embedding import embed_dim
 from .graph import CompGraph
-from .ptrnet import PointerNet, params_from_numpy
+from .prng import PRNGKey
+from .ptrnet import PointerNet, params_from_numpy, params_to_numpy
 
 __all__ = ["RespectScheduler", "ScheduleResult"]
 
@@ -54,15 +57,41 @@ class RespectScheduler:
         self._cache_lock = threading.Lock()
         self.cache_hits = 0
         self.cache_misses = 0
+        # seeded weights of the degraded rung (fallback_schedule_many), built
+        # on first use and kept; never mixed with self.net
+        self._fallback_net: PointerNet | None = None
 
     @classmethod
     def init(cls, seed: int = 0, hidden: int = 256, max_deg: int = 6, *, device=None,
              **kw) -> "RespectScheduler":
-        """Seeded untrained agent (``torch.Generator`` draws, not the
-        reference's ``jax.random`` ones)."""
-        gen = torch.Generator().manual_seed(seed)
-        net = PointerNet.init(embed_dim(max_deg), hidden, generator=gen)
+        """Seeded untrained agent: the reference's ``init_params(PRNGKey(seed))``
+        weights bit for bit, so its schedules are the reference's."""
+        net = PointerNet.init(embed_dim(max_deg), hidden, key=PRNGKey(seed))
         return cls(net, device=device, max_deg=max_deg, **kw)
+
+    def save(self, path: str | Path) -> None:
+        """Write the weights in the checkpoint directory format (manifest +
+        raw leaf buffers, atomic), readable by the reference's loaders."""
+        from ..checkpoint import save_pytree
+        save_pytree(params_to_numpy(self.net), path)
+
+    @classmethod
+    def load(cls, path: str | Path, *, device=None, **kw) -> "RespectScheduler":
+        """Load a checkpoint directory, or a legacy flat ``.npz`` whose keys
+        are ``["enc"]["wx"]``-style paths."""
+        from ..checkpoint import is_checkpoint_dir, load_pytree_dict
+        path = Path(path)
+        if is_checkpoint_dir(path):
+            return cls(params_from_numpy(load_pytree_dict(path)), device=device, **kw)
+        params: dict = {}
+        with np.load(path) as data:
+            for key in data.files:
+                parts = [p.strip("'\"") for p in key.strip("[]").split("][")]
+                d = params
+                for p in parts[:-1]:
+                    d = d.setdefault(p, {})
+                d[parts[-1]] = data[key]
+        return cls(params_from_numpy(params), device=device, **kw)
 
     @classmethod
     def from_release(cls, path: str | Path | None = None, fallback_seed: int = 0, *,
@@ -89,6 +118,28 @@ class RespectScheduler:
     @property
     def hidden(self) -> int:
         return self.net.hidden
+
+    def fallback_schedule_many(self, graphs: list[CompGraph], n_stages: int,
+                               system: PipelineSystem | None = None,
+                               fallback_seed: int = 0) -> list[ScheduleResult]:
+        """Schedule with seeded weights at the loaded policy's width instead
+        of the loaded ones, through the same engine: the serving ladder's
+        middle rung.  The weights are built on the first call and kept, so
+        that call's ``fallback_seed`` sticks (as in the reference).  Results
+        are stamped ``served_by="fallback"`` and never touch the cache or
+        its counters."""
+        system = (system or PipelineSystem(n_stages)).with_stages(n_stages)
+        if self._fallback_net is None:
+            self._fallback_net = PointerNet.init(embed_dim(self.max_deg), self.hidden,
+                                                 key=PRNGKey(fallback_seed)).to(self.device)
+        fused = self._decoder.fused_schedules(self._fallback_net, graphs, n_stages, system)
+        out = []
+        for g, (order, assignment) in zip(graphs, fused):
+            res = self._result_from({"assignment": assignment, "order": order}, n_stages,
+                                    g.model_name, False)
+            res["served_by"] = "fallback"
+            out.append(res)
+        return out
 
     def order(self, graph: CompGraph) -> np.ndarray:
         """Raw greedy decode of one graph (no rho/repair, no cache)."""

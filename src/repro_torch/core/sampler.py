@@ -4,15 +4,20 @@ A dominant backbone chain, skip and branch edges that create merge nodes up
 to the requested max in-degree, and lognormal byte attributes shaped like
 CNN profiles.  From the same ``numpy`` generator state the draws — and so
 the graphs — are those of the reference's ``repro.core.sampler``.
+:class:`DagSampler` is its reproducible (seed, counter) stream, and
+:func:`prefetch` moves any iterator onto a background thread.
 """
 
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 
 from .graph import CompGraph
 
-__all__ = ["sample_dag", "sample_batch"]
+__all__ = ["sample_dag", "sample_batch", "DagSampler", "prefetch"]
 
 
 def sample_dag(rng: np.random.Generator, n: int = 30, deg: int = 2,
@@ -83,3 +88,65 @@ def _draw_n(rng: np.random.Generator, n) -> int:
     if isinstance(n, (tuple, list)):
         return int(rng.integers(int(n[0]), int(n[1]) + 1))
     return int(n)
+
+
+class DagSampler:
+    """Stateful sampler with a deterministic stream: draw ``c`` comes from
+    ``default_rng((seed, c))``, so a restored :meth:`state` resumes the same
+    graphs.  ``n`` is an int or an inclusive ``(lo, hi)`` size range."""
+
+    def __init__(self, seed: int = 0, n=30, degs=(2, 3, 4, 5, 6)):
+        self.seed = seed
+        self.n = tuple(n) if isinstance(n, (tuple, list)) else n
+        self.degs = tuple(degs)
+        self._count = 0
+
+    def next_batch(self, batch: int) -> list[CompGraph]:
+        rng = np.random.default_rng((self.seed, self._count))
+        self._count += 1
+        return sample_batch(rng, batch, n=self.n, degs=self.degs)
+
+    def state(self) -> dict:
+        return {"seed": self.seed, "count": self._count}
+
+    def restore(self, state: dict) -> None:
+        self.seed = int(state["seed"])
+        self._count = int(state["count"])
+
+
+class _Prefetcher:
+    """Pulls from ``it`` on a daemon thread into a bounded queue; an
+    exception in the producer is raised on the consumer's side."""
+
+    _DONE = object()
+
+    def __init__(self, it, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._err: BaseException | None = None
+        self._thread = threading.Thread(target=self._pull, args=(it,), daemon=True)
+        self._thread.start()
+
+    def _pull(self, it):
+        try:
+            for item in it:
+                self._q.put(item)
+        except BaseException as e:   # re-raised on the consumer side
+            self._err = e
+        finally:
+            self._q.put(self._DONE)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._DONE:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+
+def prefetch(it, depth: int = 2):
+    """Wrap an iterator with background prefetch (``depth`` items ahead)."""
+    return _Prefetcher(it, depth)

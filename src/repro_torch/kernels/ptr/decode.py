@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import build
@@ -25,7 +26,8 @@ from .kernel import MAX_SMEM_BYTES, THREADS, _WARPS
 from .ref import precompute_refs
 
 __all__ = ["decode_batch", "decode_batch_reference", "decode_kernel_supported",
-           "decode_smem_bytes", "decode_template", "launch", "TEMPLATES", "ARGTYPES"]
+           "decode_smem_bytes", "decode_template", "launch", "step_uniforms", "TEMPLATES",
+           "ARGTYPES"]
 
 #: blocks a graph of the cluster template runs on (PTR_CLUSTER in ptr_decode.cu)
 CLUSTER = 4
@@ -79,6 +81,17 @@ def decode_kernel_supported(bucket_n: int, hidden: int, max_deg: int = 6) -> boo
     except ValueError:
         return False
     return True
+
+
+def step_uniforms(key, n: int) -> torch.Tensor:
+    """The per-step uniforms of a sampled decode of ``n`` steps, float32 on
+    the CPU: step ``i`` draws ``uniform(fold_in(key, i), ())``, the
+    reference's stream (``repro.kernels.ptr.decode.step_uniforms``), so it
+    does not depend on the padded length.  ``key`` is one (2,) uint32 key,
+    giving (n,), or a batch of keys (B, 2), giving (B, n)."""
+    from ...core import prng     # here: the core package imports this module
+    key = np.asarray(key)
+    return torch.from_numpy(prng.uniform(prng.fold_in(key[..., None, :], np.arange(n)), ()))
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -6,7 +6,12 @@
   ``ReleaseError``;
 * ``params_from_numpy`` of the reference's ``ptrnet.init_params`` gives a
   module whose encode (allclose 1e-5) and greedy decode (equal orders,
-  logp/entropy allclose 1e-4) match the reference's.
+  logp/entropy allclose 1e-4) match the reference's;
+* the write side: ``RespectScheduler.save`` is read by the reference's
+  ``load_pytree_dict`` and ``RespectScheduler.load`` with identical leaves
+  and the reference's manifest (names, order, keys); the reference's
+  ``save`` and a legacy flat ``.npz`` load into the port; a stale ``.tmp``
+  directory is replaced; a round trip keeps the schedules.
 """
 
 import json
@@ -17,6 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core as jcore
+from repro.checkpoint import load_pytree_dict as jax_load_pytree_dict
+from repro.checkpoint import save_pytree as jax_save_pytree
 from repro.checkpoint.release import params_sha256 as jax_params_sha256
 from repro.checkpoint.release import verify_release as jax_verify_release
 from repro.core import ptrnet as jptrnet
@@ -24,9 +32,10 @@ from repro.core import sample_dag
 from repro.core.costmodel import PipelineSystem as JSystem
 from repro.core.embedding import embed_dim, embed_graph
 from repro_torch.checkpoint import (ReleaseError, find_release, load_pytree_dict,
-                                    params_sha256, verify_release)
+                                    params_sha256, save_pytree, verify_release)
 from repro_torch.core import RespectScheduler
-from repro_torch.core.ptrnet import params_from_numpy
+from repro_torch.core import sample_batch as tsample_batch
+from repro_torch.core.ptrnet import params_from_numpy, params_to_numpy
 
 # one intra-op thread: the suite runs in several worker processes at once,
 # and per-process thread pools would oversubscribe the cores
@@ -154,3 +163,64 @@ def test_params_from_numpy_matches_jax_encode_and_decode(with_profile):
     assert np.array_equal(o[0].numpy(), np.asarray(jo))
     np.testing.assert_allclose(lp[0].numpy(), np.asarray(jl), atol=1e-4)
     np.testing.assert_allclose(e[0].numpy(), np.asarray(je), atol=1e-4)
+
+
+def _leaves_equal(a: dict, b: dict) -> bool:
+    fa = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, a))[0]
+    fb = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, b))[0]
+    return ([jax.tree_util.keystr(p) for p, _ in fa] == [jax.tree_util.keystr(p) for p, _ in fb]
+            and all(x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+                    for (_, x), (_, y) in zip(fa, fb)))
+
+
+def test_port_save_is_read_by_the_reference(tmp_path):
+    sched = RespectScheduler.init(seed=2, hidden=32, device="cpu")
+    sched.save(tmp_path / "port")
+    tree = params_to_numpy(sched.net)
+    assert _leaves_equal(jax_load_pytree_dict(tmp_path / "port"), tree)
+    assert _leaves_equal(jcore.RespectScheduler.load(tmp_path / "port").params, tree)
+    # the same manifest as the reference writes for the same tree
+    jax_save_pytree(tree, tmp_path / "ref")
+    port = json.loads((tmp_path / "port" / "manifest.json").read_text())
+    ref = json.loads((tmp_path / "ref" / "manifest.json").read_text())
+    assert port == ref
+    assert [e["name"] for e in port["leaves"]][:6] == ["b_in", "dec/b", "dec/wh", "dec/wx",
+                                                        "dec0", "enc/b"]
+    for e in port["leaves"]:
+        assert (tmp_path / "port" / e["file"]).read_bytes() == \
+            (tmp_path / "ref" / e["file"]).read_bytes()
+
+
+def test_reference_save_and_legacy_npz_load_into_the_port(tmp_path):
+    jsched = jcore.RespectScheduler.init(seed=6, hidden=32)
+    jsched.save(tmp_path / "ref")
+    want = jax.tree.map(np.asarray, jsched.params)
+    assert _leaves_equal(params_to_numpy(RespectScheduler.load(tmp_path / "ref", device="cpu").net),
+                         want)
+    # the legacy flat dump: keystr paths as keys
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    np.savez(tmp_path / "legacy.npz", **{jax.tree_util.keystr(p): v for p, v in flat})
+    assert "['enc']['wx']" in np.load(tmp_path / "legacy.npz").files
+    port = RespectScheduler.load(tmp_path / "legacy.npz", device="cpu")
+    assert _leaves_equal(params_to_numpy(port.net), want)
+    assert _leaves_equal(jcore.RespectScheduler.load(tmp_path / "legacy.npz").params, want)
+
+
+def test_save_replaces_a_stale_tmp_and_round_trips(tmp_path):
+    target = tmp_path / "ckpt"
+    stale = target.with_suffix(".tmp")
+    stale.mkdir()
+    (stale / "junk.bin").write_bytes(b"partial write")
+    sched = RespectScheduler.init(seed=1, hidden=32, device="cpu")
+    sched.save(target)
+    assert not stale.exists()
+    assert sorted(p.name for p in target.iterdir())[-1] == "manifest.json"
+    save_pytree({"a": np.arange(3, dtype=np.float32)}, target)      # over an existing one
+    assert load_pytree_dict(target)["a"].tolist() == [0.0, 1.0, 2.0]
+    sched.save(target)
+    back = RespectScheduler.load(target, device="cpu")
+    graphs = tsample_batch(np.random.default_rng(2), 6, n=(9, 30))
+    for a, b in zip(back.schedule_many(graphs, 4, use_cache=False),
+                    sched.schedule_many(graphs, 4, use_cache=False)):
+        assert np.array_equal(a["order"], b["order"])
+        assert np.array_equal(a["assignment"], b["assignment"])
