@@ -60,7 +60,20 @@ Run from the repository root:  python3 chip_smoke.py
    against the golden file, logp and entropy against the plain version, and
    B1's device time sampled against greedy; fallback_schedule_many on
    respect-v1 (digests, served_by, the cache untouched); a save/load round
-   trip of the hidden-256 scheduler.
+   trip of the hidden-256 scheduler;
+12. (after 11) the serving front end, repro_torch.serving.SchedulerService,
+   over a fresh RespectScheduler.from_release() on the card: warmup
+   (synthetic n = 30 at batch 1 and 16, the Table-I graphs, one
+   heterogeneous graph), after which live traffic builds and loads no kernel
+   library; clean traffic from eight submitter threads (the Table-I,
+   synthetic and heterogeneous graphs at k = 4 and 16 synthetic ones at
+   k = 3, each twice), with the launch counters reset just before and read
+   just after, held to schedule_many and the golden digests with nothing
+   degraded, failed, retried or restarted ("service clean traffic":
+   requests/s, p50/p99); the seeded fault replay of tests/test_faults.py's
+   soak over the same traffic, every rung's results held to the clean
+   phase, the seeded golden file and the host heuristic, and the fallback
+   rung's first call timed apart from the later ones; the deadline checks.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -73,6 +86,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -625,6 +639,274 @@ def seeded_phase(card: str, sched, seeded: dict, table1, names, synth, hetero_gr
 
 
 # ---------------------------------------------------------------------- #
+# the serving front end: SchedulerService over respect-v1 on the card
+# ---------------------------------------------------------------------- #
+SERVICE_THREADS = 8     # submitter threads
+SERVICE_WINDOW = 8      # requests each submitter keeps in flight
+K3_GRAPHS = 16          # synthetic graphs also requested at k = 3
+SOAK = dict(seed=0, n_calls=40, p_crash=0.08, p_error=0.15, p_slow=0.05, p_corrupt=0.08,
+            slow_s=0.005, rungs=("policy", "fallback"))   # tests/test_faults.py's soak
+
+
+class FallbackTimer:
+    """Delegates to a scheduler, recording each ``fallback_schedule_many``
+    call's wall time, arguments and kernel launches (only the service's
+    worker calls it, so each launch delta is that call's own)."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.calls: list[tuple[float, tuple, dict]] = []
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def fallback_schedule_many(self, graphs, *args, **kw):
+        from repro_torch.kernels.build import LAUNCHES
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        out = self._inner.fallback_schedule_many(graphs, *args, **kw)
+        self.calls.append((time.perf_counter() - t0, (graphs, *args),
+                           {k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
+        return out
+
+
+def drive(svc, requests) -> tuple[list, float]:
+    """Sends ``(key, graph, k, system)`` requests from SERVICE_THREADS
+    threads, each keeping SERVICE_WINDOW in flight; returns ``(key,
+    result)`` pairs and the wall time from the first submit to the last
+    result."""
+    out: list[list] = [[] for _ in range(SERVICE_THREADS)]
+    errors: list[BaseException] = []
+
+    def submitter(tid):
+        try:
+            mine = requests[tid::SERVICE_THREADS]
+            for i in range(0, len(mine), SERVICE_WINDOW):
+                futs = [(key, svc.submit(g, k, system))
+                        for key, g, k, system in mine[i:i + SERVICE_WINDOW]]
+                out[tid] += [(key, f.result(timeout=300)) for key, f in futs]
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=submitter, args=(t,)) for t in range(SERVICE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a submitter thread did not finish")
+    check(not errors, f"submitters raised: {errors[:3]}")
+    return [kr for rs in out for kr in rs], wall
+
+
+def drained(st) -> bool:
+    return (st.completed + st.failed == st.requests
+            and st.cache_hits + st.cache_misses + st.dedup_hits + st.degraded + st.failed
+            == st.requests and st.queue_depth == 0 and st.inflight_keys == 0)
+
+
+def service_phase(card: str, golden: dict, names, table1, synth, hetero_graphs, hsys,
+                  res_uniform, res_hetero, cpu) -> None:
+    """SchedulerService over a fresh ``from_release()`` on the card: warmup,
+    clean traffic from eight threads, the seeded fault replay and the
+    deadline checks; raises SmokeFailure on any difference.
+    ``res_uniform``/``res_hetero`` are the main path's ``schedule_many``
+    results of ``table1 + synth`` and of the heterogeneous batch; ``cpu`` is
+    the release on the CPU, whose plain path witnesses the fallback rung
+    where the seeded golden file has no digests."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RespectScheduler, heuristic_schedule_many, validate_monotone
+    from repro_torch.kernels import build
+    from repro_torch.serving import DegradeConfig, FaultPlan, FaultyScheduler, SchedulerService
+
+    t_phase = time.perf_counter()
+    sched = RespectScheduler.from_release()            # device: cuda, fresh caches
+    fb_gold = json.loads(SEEDED_GOLDEN.read_text())["fallback"]
+    groups = {"table1": (table1, STAGES, None), "synth": (synth, STAGES, None),
+              "hetero": (hetero_graphs, STAGES, hsys), "k3": (synth[:K3_GRAPHS], 3, None)}
+    graph_of = {(label, i): g for label, (gs, _, _) in groups.items() for i, g in enumerate(gs)}
+    setting = {label: (k, system) for label, (_, k, system) in groups.items()}
+    requests = [(key, g, *setting[key[0]]) for key, g in graph_of.items()] * 2
+    requests = [requests[i] for i in np.random.default_rng(0).permutation(len(requests))]
+
+    def same(r, order, assign) -> bool:
+        return np.array_equal(r["order"], order) and np.array_equal(r["assignment"], assign)
+
+    def numpy_only(r) -> bool:
+        return (isinstance(r["order"], np.ndarray) and isinstance(r["assignment"], np.ndarray)
+                and not any(isinstance(v, torch.Tensor) for v in r.values()))
+
+    # ---- 1. warmup: then live traffic builds and loads nothing --------- #
+    svc = SchedulerService(sched)
+    t0 = time.perf_counter()
+    keys = svc.warmup([(30, 1), (30, 16), *table1], n_stages=STAGES)
+    keys += svc.warmup([hetero_graphs[0]], n_stages=STAGES, system=hsys)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    libs = set(build._libs)
+    check(sched.cache_stats() == {"hits": 0, "misses": 0, "size": 0},
+          f"warmup filled the schedule cache: {sched.cache_stats()}")
+    check({("ptr_decode", ()), ("ptr_step", ())} <= libs, f"warmup left {libs} loaded")
+    print(f"service warmup on {card}: {t_warm:.3f} s for {len(keys)} (bucket_n, bucket_b, impl) "
+          f"keys {[(k[0], k[1], k[-1]) for k in keys]} (the kernels were built at the start of "
+          "the script); schedule cache empty", flush=True)
+
+    # ---- 2. clean traffic, counted ------------------------------------ #
+    want = {("table1", i): r for i, r in enumerate(res_uniform[:len(table1)])}
+    want.update({("synth", i): r for i, r in enumerate(res_uniform[len(table1):])})
+    want.update({("hetero", i): r for i, r in enumerate(res_hetero)})
+    for k in build.LAUNCHES:
+        build.LAUNCHES[k] = 0
+    got, wall = drive(svc, requests)
+    check(svc.close(timeout=300), "the clean service did not drain")
+    torch.cuda.synchronize()
+    ran = dict(build.LAUNCHES)
+    st = svc.stats()
+    check(build.build_kernels(["ptr_decode", "ptr_step"]) == 0.0 and set(build._libs) == libs,
+          f"live traffic built or loaded a kernel library: {set(build._libs) - libs}")
+    want.update({("k3", i): r for i, r in enumerate(
+        sched.schedule_many(groups["k3"][0], 3, use_cache=False))})
+    check(len(got) == len(requests) and st.requests == len(requests) and drained(st),
+          f"clean traffic: {len(got)} results of {len(requests)}, stats {st.as_dict()}")
+    check(st.degraded == st.failed == st.retries == st.worker_restarts == 0
+          and all(r["served_by"] == "policy" for _, r in got),
+          f"clean traffic left the policy rung: degraded {st.degraded}, failed {st.failed}, "
+          f"retries {st.retries}, worker restarts {st.worker_restarts}")
+    check(ran["ptr_decode_cluster"] > 0 and ran["ptr_step"] > 0 and ran["ptr_decode_block"] == 0,
+          f"clean traffic launched {ran}: expected ptr_decode_cluster (uniform requests) and "
+          "ptr_step (heterogeneous ones) and no ptr_decode_block")
+    check(st.dedup_hits > 0 and st.cache_hits > 0,
+          f"clean traffic: dedup hits {st.dedup_hits}, cache hits {st.cache_hits}")
+    bad = [key for key, r in got if not (numpy_only(r) and same(r, want[key]["order"],
+                                                                 want[key]["assignment"]))]
+    check(not bad, f"clean traffic: results {bad[:5]} differ from schedule_many's")
+    bad = [names[i] for (label, i), r in got if label == "table1"
+           and (digest(r["order"]), digest(r["assignment"]))
+           != tuple(golden["models"][names[i]][h] for h in ("order_sha256", "assign_sha256"))]
+    check(not bad, f"clean traffic: Table-I results {bad} differ from the golden digests")
+    clean = {key: r for key, r in got}
+    print(f"service clean traffic on {card}: {len(requests)} requests ({len(graph_of)} distinct, "
+          f"each twice; {SERVICE_THREADS} threads, {SERVICE_WINDOW} in flight each, max_batch 16, "
+          f"max_wait_ms 2) in {wall:.3f} s: {len(requests) / wall:.2f} requests/s, p50 "
+          f"{st.p50_ms:.2f} ms, p99 {st.p99_ms:.2f} ms, mean {st.mean_ms:.2f} ms; {st.batches} "
+          f"batches (full {st.flush_full}, max_wait {st.flush_deadline}, drain {st.flush_drain}, "
+          f"largest {st.max_batch_observed}); misses {st.cache_misses}, hits {st.cache_hits}, "
+          f"dedups {st.dedup_hits}; all served by the policy rung, 0 degraded / failed / retried "
+          f"/ restarted; results equal schedule_many's and the ten golden digests; launches "
+          f"{ran}; no kernel built or loaded after warmup", flush=True)
+
+    # ---- 3. the seeded fault replay ------------------------------------ #
+    sched.clear_cache()
+    timer = FallbackTimer(sched)
+    faulty = FaultyScheduler(timer, FaultPlan.random(**SOAK))
+    cfg = DegradeConfig(retry_attempts=1, retry_backoff_s=0.001, retry_backoff_max_s=0.002,
+                        restart_backoff_s=0.01, restart_backoff_max_s=0.05)
+    svc = SchedulerService(faulty, max_batch=4, max_wait_ms=1, degrade=cfg)
+    got, wall = drive(svc, requests)
+    check(svc.close(timeout=300), "the fault replay did not drain")
+    st = svc.stats()
+    check(len(got) == len(requests) and st.requests == len(requests) and drained(st)
+          and st.failed == 0, f"fault replay: {len(got)} results of {len(requests)}, "
+          f"stats {st.as_dict()}")
+    check(len(faulty.fired) > 0, "fault replay: no fault fired")
+    by_rung: dict = {}
+    for key, r in got:
+        by_rung.setdefault(r["served_by"], []).append((key, r))
+    check(set(by_rung) <= {"policy", "fallback", "heuristic"}, f"rungs {set(by_rung)}")
+    bad = [key for key, r in got if not (numpy_only(r) and validate_monotone(
+        graph_of[key], r["assignment"], setting[key[0]][0]))]
+    check(not bad, f"fault replay: results {bad[:5]} are not valid monotone schedules")
+    bad = [key for key, r in by_rung.get("policy", [])
+           if not same(r, clean[key]["order"], clean[key]["assignment"])]
+    check(not bad, f"fault replay: policy results {bad[:5]} differ from the clean phase's")
+    fb_want = {}
+    for key, _ in by_rung.get("fallback", []):
+        label, i = key
+        if label == "table1":
+            fb_want[key] = tuple(fb_gold["table1"][names[i]][h]
+                                 for h in ("order_sha256", "assign_sha256"))
+        elif label == "synth":
+            fb_want[key] = tuple(fb_gold["synthetic"][h][i]
+                                 for h in ("order_sha256", "assign_sha256"))
+    # no golden digests for the heterogeneous and k = 3 requests: the CPU
+    # plain path's fallback rung, once per group that reached the rung
+    for label in {key[0] for key, _ in by_rung.get("fallback", [])} - {"table1", "synth"}:
+        gs, k, system = groups[label]
+        for i, r in enumerate(cpu.fallback_schedule_many(gs, k, system)):
+            fb_want[(label, i)] = (digest(r["order"]), digest(r["assignment"]))
+    bad = [key for key, r in by_rung.get("fallback", [])
+           if (digest(r["order"]), digest(r["assignment"])) != fb_want[key]]
+    check(not bad, f"fault replay: fallback results {bad[:5]} differ from the seeded golden "
+          "file or the CPU plain path's fallback rung")
+    fb_cpu = sorted({key[0] for key, _ in by_rung.get("fallback", [])} - {"table1", "synth"})
+    bad = [key for key, r in by_rung.get("heuristic", [])
+           if not same(r, *heuristic_schedule_many([graph_of[key]], *setting[key[0]])[0])]
+    check(not bad, f"fault replay: heuristic results {bad[:5]} differ from "
+          "heuristic_schedule_many on the host")
+    fb_launches = {k: sum(c[2][k] for c in timer.calls) for k in build.LAUNCHES}
+    check(timer.calls and fb_launches["ptr_decode_cluster"] > 0,
+          f"fault replay: the fallback rung ran {len(timer.calls)} calls launching {fb_launches}; "
+          "expected B1 (ptr_decode_cluster) on the card")
+    kinds = {kind: sum(f[2] == kind for f in faulty.fired) for kind in ("crash", "error", "slow",
+                                                                         "corrupt")}
+    (t_first, first_args, _), later = timer.calls[0], timer.calls[1:]
+    n_first = len(first_args[0])
+    t0 = time.perf_counter()
+    sched.fallback_schedule_many(*first_args)          # the same call, weights drawn
+    t_again = time.perf_counter() - t0
+    later_pg = [t / len(args[0]) for t, args, _ in later]
+    est = svc._estimator.snapshot()
+    print(f"service fault replay on {card} (FaultPlan.random(seed=0, n_calls=40, p_crash 0.08, "
+          f"p_error 0.15, p_slow 0.05, p_corrupt 0.08), max_batch 4, max_wait_ms 1): "
+          f"{len(requests)} requests in {wall:.3f} s, 100% completed, {len(faulty.fired)} faults "
+          f"fired {kinds}; served policy {len(by_rung.get('policy', []))}, fallback "
+          f"{len(by_rung.get('fallback', []))}, heuristic {len(by_rung.get('heuristic', []))}; "
+          f"retries {st.retries}, worker restarts {st.worker_restarts}, degraded for error "
+          f"{st.degrade_error}, crash {st.degrade_crash}; policy results equal the clean "
+          "phase's, fallback results the seeded golden file (Table-I, synthetic) or the CPU "
+          f"plain path's fallback rung ({', '.join(fb_cpu) or 'none reached it'}), heuristic "
+          "results the host's; the fallback rung launched "
+          f"{fb_launches}", flush=True)
+    print(f"fallback rung on {card}: first call {t_first:.4f} s for {n_first} graphs of "
+          f"{sorted(g.n for g in first_args[0])} nodes ({t_first / n_first:.4f} s a graph; it "
+          f"draws the seeded weights on the host), the same call again {t_again:.4f} s; the "
+          f"{len(later)} later calls "
+          + (f"{min(later_pg):.4f} - {max(later_pg):.4f} s a graph (median "
+             f"{statistics.median(later_pg):.4f})" if later else "none")
+          + f"; cost estimator after the replay (s a graph): "
+          + ", ".join(f"{k} {v:.5f}" for k, v in sorted(est.items())), flush=True)
+
+    # ---- 4. deadlines -------------------------------------------------- #
+    sched.clear_cache()
+    svc = SchedulerService(sched)
+    roomy = table1 + synth[:16]
+    res_roomy = [f.result(timeout=300)
+                 for f in [svc.submit(g, STAGES, deadline_ms=60_000.0) for g in roomy]]
+    late = synth[16:24]
+    res_late = [f.result(timeout=300)
+                for f in [svc.submit(g, STAGES, deadline_ms=0.001) for g in late]]
+    check(svc.close(timeout=300), "the deadline service did not drain")
+    st = svc.stats()
+    wants = res_uniform[:len(table1)] + res_uniform[len(table1):len(table1) + 16]
+    check(all(r["served_by"] == "policy" and r["deadline_met"] and same(r, w["order"],
+                                                                        w["assignment"])
+              for r, w in zip(res_roomy, wants)),
+          "a generous deadline left the policy rung or changed a result")
+    check(all(r["served_by"] == "heuristic" and not r["deadline_met"] for r in res_late)
+          and st.degrade_deadline == len(late) == st.deadline_missed and drained(st),
+          f"expired budgets: rungs {[r['served_by'] for r in res_late]}, stats {st.as_dict()}")
+    print(f"service deadlines on {card}: {len(roomy)} requests with a 60 s budget stayed on the "
+          f"policy rung, results unchanged; {len(late)} with an expired one went to the "
+          f"heuristic floor (degrade_deadline {st.degrade_deadline}, deadline_missed "
+          f"{st.deadline_missed}); the service phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del sched
+
+
+# ---------------------------------------------------------------------- #
 # the LM zoo's serving path: zamba2-7b, kernels B3 (flash) and B4 (SSD)
 # ---------------------------------------------------------------------- #
 ZOO_ARCH = "zamba2-7b"
@@ -1073,6 +1355,9 @@ def run() -> dict:
     seeded_phase(card, sched, {256: wide, 96: widths[96]}, table1, names, synth,
                  hetero_graphs, hsys)
 
+    # ---- the serving front end (its own counted runs) ----------------- #
+    service_phase(card, golden, names, table1, synth, hetero_graphs, hsys, res, res_h, cpu)
+
     # ---- kernels against their plain versions, at the path's shapes --- #
     net = sched.net
     by_bucket = bucketize(table1)
@@ -1300,11 +1585,13 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t0 = time.perf_counter()
     try:
         out = run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": out["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": out["device"],
                                              "count": out["count"]}}))

@@ -83,8 +83,8 @@ def heuristic_schedule_many(
     """Last-rung serving entry point: ``(order, assignment)`` per graph via
     :func:`list_schedule` on the node order itself.
 
-    This is the degradation ladder's floor (the reference's
-    ``repro.serving.degrade``): pure host numpy, no device dispatch, no
+    This is the degradation ladder's floor
+    (:mod:`repro_torch.serving.degrade`): pure host numpy, no device dispatch, no
     compile, no shared mutable state — it cannot time out, cannot be hit
     by the fault-injection seam (which wraps the *scheduler*), and its
     per-graph loop gives per-request isolation for free.  Output is

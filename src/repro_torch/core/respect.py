@@ -155,6 +155,13 @@ class RespectScheduler:
             res["t_total_s"] = time.perf_counter() - t0
         return res
 
+    def load_kernels(self) -> None:
+        """On a CUDA scheduler, build and load the kernels the miss path
+        launches, so that no request pays for ``nvcc``; a no-op on the CPU."""
+        if self.device.type == "cuda":
+            from ..kernels.ptr.ops import load_kernels
+            load_kernels()
+
     def _cache_key(self, graph: CompGraph, n_stages: int, system: PipelineSystem) -> tuple:
         return (graph.content_hash(), n_stages, system)
 

@@ -29,7 +29,14 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "KERNELS", "BUILD_DIR", "build_kernels", "load_function", "check"]
+__all__ = ["LAUNCHES", "KERNELS", "BUILD_DIR", "KernelError", "build_kernels",
+           "load_function", "check"]
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched.  Running the same
+    work again, on the same card, fails the same way, so callers let it
+    propagate rather than retry or move the work elsewhere."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +81,7 @@ def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     path = Path(cuda_home) / "bin" / "nvcc"
     if not path.exists():
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+        raise KernelError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
     return str(path)
 
 
@@ -119,7 +126,7 @@ def build_kernels(names=None, defines: tuple = ()) -> float:
         else:
             os.replace(tmp, final)   # atomic: readers never see a partial file
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise KernelError("kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
 
 
@@ -133,7 +140,10 @@ def load_function(name: str, symbol: str, argtypes: list,
         lib = _libs.get(key)
         if lib is None:
             build_kernels([name], defines)
-            lib = ctypes.CDLL(str(library_path(name, defines)))
+            try:
+                lib = ctypes.CDLL(str(library_path(name, defines)))
+            except OSError as exc:
+                raise KernelError(f"{name}: cannot load its library: {exc}") from exc
             err = lib.kernel_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
@@ -149,4 +159,4 @@ def check(name: str, code: int) -> None:
     if code != 0:
         lib = next(lib for (nm, _), lib in _libs.items() if nm == name)
         msg = lib.kernel_error_string(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
+        raise KernelError(f"{name} kernel launch failed: CUDA error {code} ({msg})")

@@ -105,6 +105,12 @@ def decode_batch_reference(net, C, emb, h0, c0, parent_mat, n_valid, uniforms=No
     return net.decode(C, emb, (h0, c0), parent_mat, n_valid=n_valid, uniforms=uniforms)
 
 
+def load_launcher():
+    """``ptr_decode_launch`` of the kernel's library, built and loaded at the
+    first call."""
+    return build.load_function("ptr_decode", "ptr_decode_launch", ARGTYPES)
+
+
 def decode_batch(net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None):
     """Whole decode over a padded batch of encoded graphs.
 
@@ -117,7 +123,7 @@ def decode_batch(net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None):
     """
     if not C.is_cuda:
         return decode_batch_reference(net, C, emb, h0, c0, parent_mat, n_valid, uniforms)
-    fn = build.load_function("ptr_decode", "ptr_decode_launch", ARGTYPES)
+    fn = load_launcher()
     *out, template = launch(fn, net, C, emb, h0, c0, parent_mat, n_valid, uniforms)
     build.LAUNCHES[template] += 1
     return tuple(out)

@@ -58,6 +58,12 @@ def _f32(x: torch.Tensor, name: str, shape: tuple) -> torch.Tensor:
     return x.contiguous()
 
 
+def load_launcher():
+    """``ptr_step_launch`` of the kernel's library, built and loaded at the
+    first call."""
+    return build.load_function("ptr_step", "ptr_step_launch", _ARGTYPES)
+
+
 def pointer_step_cuda(C, CWg, CWp, h, w_q_g, v_g, w_q_p, v_p, mask) -> torch.Tensor:
     """C, CWg, CWp: (B, n, H) float32; h: (B, H); w_q_*: (H, H); v_*: (H,);
     mask: (B, n) bool, True = selectable.  Returns logits (B, n) float32,
@@ -77,14 +83,14 @@ def pointer_step_cuda(C, CWg, CWp, h, w_q_g, v_g, w_q_p, v_p, mask) -> torch.Ten
             raise ValueError("all operands must be on one device")
     mask_i = mask.to(device=C.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, n), dtype=torch.float32, device=C.device)
-    fn = build.load_function("ptr_step", "ptr_step_launch", _ARGTYPES)
+    fn = load_launcher()
     stream = torch.cuda.current_stream(C.device).cuda_stream
     launched = ctypes.c_int(0)
     rc = fn(*(a.data_ptr() for a in args), mask_i.data_ptr(), out.data_ptr(),
             B, n, H, C.device.index or 0, stream, ctypes.byref(launched))
     build.check("ptr_step", rc)
     if launched.value != step_cluster_size(n):
-        raise RuntimeError(f"ptr_step launched clusters of {launched.value} blocks, "
-                           f"expected {step_cluster_size(n)}")
+        raise build.KernelError(f"ptr_step launched clusters of {launched.value} blocks, "
+                                f"expected {step_cluster_size(n)}")
     build.LAUNCHES["ptr_step"] += 1
     return out

@@ -12,6 +12,7 @@ cluster template, splits over four blocks.
 from __future__ import annotations
 
 from ..build import BUILD_DIR, LAUNCHES, build_kernels
+from . import decode, kernel
 from .decode import decode_kernel_supported, decode_template
 from .kernel import (MAX_SMEM_BYTES, pointer_step_cuda, step_cluster_size,
                      step_kernel_supported)
@@ -26,6 +27,7 @@ __all__ = [
     "decode_kernel_supported",
     "decode_template",
     "build_kernels",
+    "load_kernels",
     "LAUNCHES",
     "BUILD_DIR",
     "MAX_SMEM_BYTES",
@@ -47,3 +49,12 @@ def make_logits_fn(net, C):
     every decode step."""
     CWg, CWp = precompute_refs(net, C)
     return lambda h, mask: pointer_step(net, C, CWg, CWp, h, mask)
+
+
+def load_kernels() -> None:
+    """Build the whole-decode and single-step kernels where no current build
+    exists (one ``nvcc`` each, in parallel) and load both libraries, so that
+    neither kernel's first launch pays for it."""
+    build_kernels(["ptr_decode", "ptr_step"])
+    decode.load_launcher()
+    kernel.load_launcher()

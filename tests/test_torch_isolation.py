@@ -54,6 +54,11 @@ def test_port_runs_with_jax_unimportable():
         g = sample_dag(np.random.default_rng(0), n=20, deg=3)
         res = sched.schedule_many([g, g], 4)
         assert res[0]["assignment"].shape == (20,) and res[1]["cache_hit"]
+        import repro_torch.serving
+        with repro_torch.serving.SchedulerService(sched) as svc:
+            served = svc.submit(g, 4).result(timeout=60)
+        assert served["served_by"] == "policy" and served["cache_hit"]
+        assert (served["assignment"] == res[0]["assignment"]).all()
         import torch
         from repro_torch.configs import get_smoke_config
         from repro_torch.models.model import build_model
