@@ -73,7 +73,25 @@ Run from the repository root:  python3 chip_smoke.py
    requests/s, p50/p99); the seeded fault replay of tests/test_faults.py's
    soak over the same traffic, every rung's results held to the clean
    phase, the seeded golden file and the host heuristic, and the fallback
-   rung's first call timed apart from the later ones; the deadline checks.
+   rung's first call timed apart from the later ones; the deadline checks;
+13. (after 12) the RL training engine, repro_torch.core.rl.RLTrainer, on
+   the card at respect-v1's training configuration (hidden 128, lr 3e-4,
+   stage counts 2, 3, 4, 6, 8) with the launch counters reset just before
+   and read just after: the labelled packs of DagSampler(seed=0, n=(5,
+   50)).packed_stream(64, 4) for three draws (buckets 8-64), the first three
+   steps held to tests/golden/torch_train_steps.json (labels, sampled and
+   baseline orders, assignments and per-graph rewards equal; metrics and
+   parameters within the TOL_TRAIN_* tolerances) and B1's sampled rollout
+   to the same orders; one B1 launch a step in the greedy baseline; one
+   draw at each other stage count; a heterogeneous step (B2 in the
+   baseline's scan, w_sys moves) held to the same step from a CPU copy of
+   the trainer's state (metrics and every parameter within the TOL_TRAIN_*
+   tolerances); a step at the paper's scale (hidden 256,
+   batch 128, |V| = 30); a held-out eval of 128 graphs per stage count
+   (B1, equal to the CPU plain path); a save/restore round trip, bit for
+   bit; ms a step and training graphs/s per bucket and, from one profiled
+   bucket-64 step, its split over the trainer's rl.* profiler ranges, the
+   device's idle share and B1's device time.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -81,8 +99,10 @@ the repository.  The last line is the JSON device record.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -907,6 +927,341 @@ def service_phase(card: str, golden: dict, names, table1, synth, hetero_graphs, 
 
 
 # ---------------------------------------------------------------------- #
+# the RL training engine: respect-v1's training configuration on the card
+# ---------------------------------------------------------------------- #
+TRAIN_GOLDEN = ROOT / "tests" / "golden" / "torch_train_steps.json"
+TOL_TRAIN_REWARD = 1e-6   # reward means: exact per graph, summed over graphs in another order
+TOL_TRAIN_REL = 1e-5      # loss, entropy, advantage, grad_norm, leaf norms: float32 sums
+TOL_TRAIN_PARAM = 1e-5    # parameter entries: float32 gradient sums through Adam's lr / eps
+TRAIN_DRAWS = 3           # uniform draws at k = 4 (the golden steps are the first draw's)
+PAPER = dict(hidden=256, batch=128, n=30)   # the paper's scale
+
+
+def int_digest(a) -> str:
+    import numpy as np
+    return hashlib.sha256(np.asarray(a, dtype=np.int64).tobytes()).hexdigest()
+
+
+def f32_digest(a) -> str:
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(a, dtype="<f4").tobytes()).hexdigest()
+
+
+def golden_errors(want: dict, got: dict, after: dict) -> dict:
+    """Checks one training step against its golden record (integers and
+    per-graph rewards equal, floats within the TOL_TRAIN_* tolerances);
+    returns the largest error of each kind."""
+    import numpy as np
+    for k, v in want.items():
+        if k.endswith("sha256") or k in ("bucket_n", "batch"):
+            check(got[k] == v, f"train golden: {k} differs")
+    err = {"reward": 0.0, "rel": 0.0, "param": 0.0, "norm": 0.0}
+    for k, v in want["metrics"].items():
+        d = abs(got["metrics"][k] - v)
+        if k.startswith("reward"):
+            err["reward"] = max(err["reward"], d)
+        else:
+            err["rel"] = max(err["rel"], d / max(1.0, abs(v)))
+    for k, v in want["leaf_norms"].items():
+        err["norm"] = max(err["norm"], abs(np.linalg.norm(after[k].astype(np.float64)) - v) / v)
+    for e in want["entries"]:
+        err["param"] = max(err["param"], abs(float(after[e["leaf"]].reshape(-1)[e["index"]])
+                                             - e["value"]))
+    check(err["reward"] <= TOL_TRAIN_REWARD and err["rel"] <= TOL_TRAIN_REL
+          and err["norm"] <= TOL_TRAIN_REL and err["param"] <= TOL_TRAIN_PARAM,
+          f"train golden: errors {err} beyond rewards {TOL_TRAIN_REWARD}, metrics and norms "
+          f"{TOL_TRAIN_REL} (relative), parameters {TOL_TRAIN_PARAM}")
+    return err
+
+
+def profile_ranges(fn, prefix: str):
+    """One profiled call of ``fn``: its device kernels as (name, start, end)
+    and its host ranges whose name starts with ``prefix`` (the trainer's
+    ``record_function`` ranges) as (name, start, end), microseconds, by
+    start.  The ranges' device-side annotations are not kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, ranges = [], []
+    for e in prof.events():
+        span = (e.name, e.time_range.start, e.time_range.end)
+        if e.name.startswith(prefix):
+            if e.device_type == DeviceType.CPU:
+                ranges.append(span)
+        elif e.device_type == DeviceType.CUDA:
+            kernels.append(span)
+    return sorted(kernels, key=lambda k: k[1]), sorted(ranges, key=lambda k: k[1])
+
+
+def same_step(got: dict, want: dict, got_net, want_net) -> dict:
+    """The largest error of one train step's metrics and parameters against
+    another run of it, checked at the TOL_TRAIN_* tolerances."""
+    import numpy as np
+    from repro_torch.checkpoint.manager import flatten_leaves
+    from repro_torch.core.ptrnet import param_tree
+    err = {"reward": 0.0, "rel": 0.0, "param": 0.0}
+    for k, v in want.items():
+        d = abs(got[k] - v)
+        if k.startswith("reward"):
+            err["reward"] = max(err["reward"], d)
+        else:
+            err["rel"] = max(err["rel"], d / max(1.0, abs(v)))
+    a, b = flatten_leaves(param_tree(got_net)), flatten_leaves(param_tree(want_net))
+    check([n for n, _ in a] == [n for n, _ in b], "parameter trees differ")
+    for (_, x), (_, y) in zip(a, b):
+        err["param"] = max(err["param"], float(np.abs(x - y).max()))
+    return err
+
+
+def train_phase(card: str) -> None:
+    """Drives the port's RLTrainer on the card at respect-v1's training
+    configuration (see the module docstring, item 13) with the launch
+    counters reset just before and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import DagSampler, PipelineSystem, prng
+    from repro_torch.core import rl
+    from repro_torch.checkpoint.manager import flatten_leaves
+    from repro_torch.core.batching import bucketize
+    from repro_torch.core.ptrnet import param_tree
+    from repro_torch.kernels.ptr import ops
+    from repro_torch.kernels.ptr.decode import decode_template
+
+    gold = json.loads(TRAIN_GOLDEN.read_text())
+    c = gold["meta"]["config"]
+    system = PipelineSystem(c["n_stages"])
+    hsys = PipelineSystem(**HETERO)
+    root = prng.PRNGKey(c["key_seed"])
+    t_phase = time.perf_counter()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    tt = rl.RLTrainer(system=system, hidden=c["hidden"], lr=c["lr"], seed=c["seed"],
+                      stage_counts=tuple(c["stage_counts"]))
+    check(tt.device.type == "cuda" and tt.params.dec0.is_cuda, "trainer is not on the card")
+    sampler = DagSampler(seed=c["seed"], n=tuple(c["n"]))
+    stream = sampler.packed_stream(c["batch"], c["n_stages"], system=system,
+                                   batches_per_epoch=TRAIN_DRAWS, epochs=1)
+
+    # ---- the uniform feed: the golden steps, then the rest of the draws #
+    errs = {"reward": 0.0, "rel": 0.0, "param": 0.0, "norm": 0.0}
+    by_bucket: dict[int, list[tuple[float, float]]] = {}
+    step = 0
+    for pack in stream:
+        key = prng.fold_in(root, step)
+        if step < len(gold["steps"]):
+            want = gold["steps"][step]
+            got = {"bucket_n": pack.bucket_n, "batch": pack.batch,
+                   "n_valid_sha256": int_digest(pack.n_valid),
+                   "label_assign_sha256": int_digest(pack.label_assign)}
+            keys = rl._split(key, pack.batch)
+            with torch.no_grad():
+                sampled = rl._policy_rewards(tt.params, pack, keys, c["n_stages"], system, True)
+                impl = rl._resolve(tt.baseline_params, pack.to("cuda"), False)
+                base = rl._policy_rewards(tt.baseline_params, pack, keys, c["n_stages"], system,
+                                          False, impl)
+                b1_sampled = rl.make_rollout_fn(c["n_stages"], system, sample=True,
+                                                decode_impl="kernel")(tt.params, pack, key)
+            valid = pack.valid_mask().to("cuda")
+            for prefix, (r, _, _, o, a) in (("sample", sampled), ("baseline", base)):
+                got[f"{prefix}_order_sha256"] = int_digest(torch.where(valid, o, -1).cpu())
+                got[f"{prefix}_assign_sha256"] = int_digest(a.cpu())
+                got[f"{prefix}_rewards_sha256"] = f32_digest(r.cpu())
+            check(int_digest(torch.where(valid, b1_sampled[3], -1).cpu())
+                  == want["sample_order_sha256"],
+                  f"train golden step {step}: B1's sampled rollout differs from the scan's orders")
+        before = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tt.train_step(pack, key, n_stages=c["n_stages"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ran = {t: ops.LAUNCHES[t] - before[t] for t in ops.LAUNCHES}
+        check(ran["ptr_decode_cluster"] == 1 and ran["ptr_step"] == 0,
+              f"train step {step} (bucket {pack.bucket_n}): launches {ran}, expected one "
+              "ptr_decode_cluster in the baseline pass")
+        by_bucket.setdefault(pack.bucket_n, []).append((dt, m["n_graphs"]))
+        if step < len(gold["steps"]):
+            got["metrics"] = m
+            after = dict(flatten_leaves(param_tree(tt.params)))
+            e = golden_errors(gold["steps"][step], got, after)
+            errs = {k2: max(errs[k2], e[k2]) for k2 in errs}
+        step += 1
+    check(step > len(gold["steps"]), "the uniform feed ran no step past the golden ones")
+    print(f"train golden on {card}: the first {len(gold['steps'])} steps of respect-v1's training "
+          f"configuration (hidden {c['hidden']}, batch {c['batch']}, lr {c['lr']}, |V| "
+          f"{c['n'][0]}-{c['n'][1]}) equal tests/golden/torch_train_steps.json: labels, sampled "
+          "and baseline orders, assignments and per-graph rewards; B1's sampled rollout equals "
+          f"the scan's orders; max error reward means {errs['reward']:.2e} (tolerance "
+          f"{TOL_TRAIN_REWARD}), loss/entropy/advantage/grad_norm {errs['rel']:.2e} relative "
+          f"({TOL_TRAIN_REL}), leaf norms {errs['norm']:.2e} relative ({TOL_TRAIN_REL}), "
+          f"parameter entries {errs['param']:.2e} ({TOL_TRAIN_PARAM})", flush=True)
+    for bn in sorted(by_bucket):
+        ts = [dt for dt, _ in by_bucket[bn]]
+        gps = [g / dt for dt, g in by_bucket[bn]]
+        print(f"train steps bucket {bn} on {card}: {len(ts)} steps, "
+              f"{statistics.median(ts) * 1e3:.2f} ms a step (median; min {min(ts) * 1e3:.2f}, "
+              f"max {max(ts) * 1e3:.2f}), {statistics.median(gps):.1f} training graphs/s "
+              "(median, real graphs only)", flush=True)
+
+    # ---- one draw at each other stage count ---------------------------- #
+    for i, k in enumerate(kk for kk in c["stage_counts"] if kk != c["n_stages"]):
+        other = DagSampler(seed=c["seed"], n=tuple(c["n"]))
+        other.restore({"seed": c["seed"], "count": TRAIN_DRAWS + i})
+        for pack in other.packed_stream(c["batch"], k, system=system, batches_per_epoch=1,
+                                        epochs=1):
+            m = tt.train_step(pack, prng.fold_in(root, step), n_stages=k)
+            check(all(np.isfinite(v) for v in m.values()), f"k = {k}: metrics {m}")
+            step += 1
+    print(f"train stage counts on {card}: one draw at each of k = "
+          f"{[kk for kk in c['stage_counts'] if kk != c['n_stages']]} ({step} steps in all), "
+          "metrics finite", flush=True)
+
+    # ---- a heterogeneous step: B2 in the baseline, w_sys learns ------- #
+    # the same step from a CPU copy of the trainer's state (the plain path)
+    # holds the card's B2 baseline, advantage, gradient and update
+    hpack = DagSampler(seed=7, n=tuple(c["n"])).next_packed_batch(c["batch"], c["n_stages"],
+                                                                  system=hsys)
+    w_sys = tt.params.w_sys.detach().clone()
+    o = tt.state.opt_state
+    cpu = lambda t: None if t is None else t.cpu()
+    cpu_state = (copy.deepcopy(tt.params).to("cpu"), rl._frozen_copy(tt.baseline_params).to("cpu"),
+                 optim.OptState(step=o.step.cpu(), mu=optim.tree_map(cpu, o.mu),
+                                nu=optim.tree_map(cpu, o.nu),
+                                master=None if o.master is None else optim.tree_map(cpu, o.master)))
+    hkey = prng.fold_in(root, step)
+    before = dict(ops.LAUNCHES)
+    hstep = rl.make_train_step(c["n_stages"], hsys, tt.optimizer)
+    _, tt.state.opt_state, hm = hstep(tt.params, tt.baseline_params, tt.state.opt_state, hpack,
+                                      hkey)
+    torch.cuda.synchronize()
+    ran = {t: ops.LAUNCHES[t] - before[t] for t in ops.LAUNCHES}
+    check(ran["ptr_step"] == hpack.bucket_n and ran["ptr_decode_cluster"] == 0,
+          f"heterogeneous train step: launches {ran}, expected {hpack.bucket_n} ptr_step (one a "
+          "step of the baseline's scan) and no B1")
+    moved = float((tt.params.w_sys.detach() - w_sys).abs().max())
+    check(moved > 0, "heterogeneous train step: w_sys did not move")
+    hm = {k: float(v) for k, v in hm.items()}
+    cpu_net = cpu_state[0]
+    _, _, cm = hstep(*cpu_state, hpack, hkey)
+    herr = same_step(hm, {k: float(v) for k, v in cm.items()}, tt.params, cpu_net)
+    check(herr["reward"] <= TOL_TRAIN_REWARD and herr["rel"] <= TOL_TRAIN_REL
+          and herr["param"] <= TOL_TRAIN_PARAM,
+          f"heterogeneous train step: card against the CPU plain path, errors {herr} beyond "
+          f"rewards {TOL_TRAIN_REWARD}, metrics {TOL_TRAIN_REL} (relative), parameters "
+          f"{TOL_TRAIN_PARAM}; card {hm}, CPU {cm}")
+    print(f"train heterogeneous step on {card}: bucket {hpack.bucket_n}, B={hpack.batch}, "
+          f"{ran['ptr_step']} ptr_step launches in the baseline's scan, reward sample "
+          f"{hm['reward_sample']:.4f} baseline {hm['reward_baseline']:.4f}, advantage "
+          f"{hm['advantage']:.4f}, w_sys moved by up to {moved:.3e}; held to the same step from "
+          f"a CPU copy of the state (plain path): reward means {herr['reward']:.2e} "
+          f"({TOL_TRAIN_REWARD}), loss/entropy/advantage/grad_norm {herr['rel']:.2e} relative "
+          f"({TOL_TRAIN_REL}), every parameter {herr['param']:.2e} ({TOL_TRAIN_PARAM})",
+          flush=True)
+    del cpu_state, cpu_net
+
+    # ---- the paper's scale: hidden 256, batch 128, |V| = 30 ------------ #
+    wide = rl.RLTrainer(system=system, hidden=PAPER["hidden"], lr=c["lr"], seed=c["seed"])
+    ppack = DagSampler(seed=c["seed"], n=PAPER["n"]).next_packed_batch(PAPER["batch"],
+                                                                       c["n_stages"])
+    impl = rl._resolve(wide.baseline_params, ppack.to("cuda"), False)
+    tmpl = decode_template(ppack.bucket_n, PAPER["hidden"]) if impl == "kernel" else "ptr_step"
+    before = dict(ops.LAUNCHES)
+    times = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pm = wide.train_step(ppack, prng.fold_in(root, 1000 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ran = {t: ops.LAUNCHES[t] - before[t] for t in ops.LAUNCHES}
+    check(ran[tmpl] == (2 if impl == "kernel" else 2 * ppack.bucket_n),
+          f"paper-scale step: launches {ran}, expected {tmpl}")
+    print(f"train paper scale on {card}: hidden {PAPER['hidden']}, B={ppack.batch}, |V| = "
+          f"{PAPER['n']} (bucket {ppack.bucket_n}, dense {ppack.dense}): baseline decode {impl} "
+          f"({tmpl}); {times[0] * 1e3:.2f} ms the first step, {times[1] * 1e3:.2f} ms the second "
+          f"({ppack.batch / times[1]:.1f} training graphs/s), loss {pm['loss']:.4f}", flush=True)
+    del wide
+
+    # ---- held-out eval: 128 graphs per stage count, against the CPU ---- #
+    cpu_net = rl._frozen_copy(tt.params).to("cpu")
+    evals = []
+    for k in c["stage_counts"]:
+        epack = DagSampler(seed=c["seed"] + 1, n=tuple(c["n"])).next_packed_batch(128, k)
+        before = ops.LAUNCHES["ptr_decode_cluster"]
+        got = tt.evaluate(epack, n_stages=k)
+        check(ops.LAUNCHES["ptr_decode_cluster"] - before == 1, f"eval k = {k}: no B1 launch")
+        want = rl.make_eval_fn(k, system)(cpu_net, epack)
+        check(got["exact_match"] == float(want["exact_match"])
+              and abs(got["reward_greedy"] - float(want["reward_greedy"])) <= TOL_TRAIN_REWARD,
+              f"eval k = {k}: card {got}, CPU plain path {want}")
+        evals.append(f"k={k} reward {got['reward_greedy']:.4f} exact-match "
+                     f"{got['exact_match']:.4f}")
+    print(f"train held-out eval on {card} (128 graphs a stage count, bucket {epack.bucket_n}, B1; "
+          f"equal to the CPU plain path): " + "; ".join(evals), flush=True)
+
+    # ---- save and restore: bit for bit --------------------------------- #
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tt.consider_baseline(0.5)
+    tt.save(ckpt)
+    back = rl.RLTrainer(system=system, hidden=c["hidden"], lr=c["lr"], seed=c["seed"] + 1,
+                        stage_counts=tuple(c["stage_counts"]))
+    check(back.restore(ckpt) == tt.step_count, "restore returned another step")
+    a, b = flatten_leaves(tt.state.tree()), flatten_leaves(back.state.tree())
+    same = all(x.dtype == y.dtype and x.tobytes() == y.tobytes() for (_, x), (_, y) in zip(a, b))
+    check(len(a) == 67 and [n for n, _ in a] == [n for n, _ in b] and same,
+          "save/restore: the restored trainer state differs")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"train save/restore on {card}: {len(a)} leaves (the reference's names) bit-equal after "
+          f"a round trip at step {tt.step_count}", flush=True)
+    launches = dict(ops.LAUNCHES)
+    t_phase = time.perf_counter() - t_phase
+    print(f"train phase launches: {launches}", flush=True)
+
+    # ---- where a bucket-64 step's time goes; the device's idle share --- #
+    # one profiled pack and train_step: the trainer's rl.* ranges on the
+    # host clock (not synchronized: a range that waits on the device holds
+    # the wait), the step's kernels on the device
+    graphs = DagSampler(seed=c["seed"], n=tuple(c["n"])).next_batch(c["batch"])
+    big = [graphs[i] for i in bucketize(graphs)[64]]
+
+    def pack_and_step():
+        spack = rl.pack_graphs(big, c["n_stages"], system).to("cuda")
+        tt.train_step(spack, prng.fold_in(root, 2001), n_stages=c["n_stages"])
+
+    kernels, ranges = profile_ranges(pack_and_step, "rl.")
+    step_ranges = [r for r in ranges if r[0] == "rl.train_step"]
+    names = {r[0][3:] for r in ranges}
+    check(len(step_ranges) == 1 and names <= set(rl.SPANS),
+          f"profiled train step: ranges {sorted(names)} (expected one train_step, of {rl.SPANS})")
+    _, s0, s1 = step_ranges[0]
+    kernels = [k for k in kernels if k[1] >= s0]
+    split: dict[str, float] = {}
+    for name, st, en in ranges:
+        if name != "rl.train_step":
+            split[name[3:]] = split.get(name[3:], 0.0) + (en - st) / 1e3
+    total = (s1 - s0) / 1e3
+    label = split.pop("label")
+    split["other"] = total - sum(split.values())
+    busy, window = busy_window([(st, en) for _, st, en in kernels])
+    b1_ms = sum(en - st for nm, st, en in kernels if "ptr_decode" in nm) / 1e3
+    check(any("ptr_decode_cluster" in nm for nm, _, _ in kernels),
+          "profiled train step ran no ptr_decode_cluster kernel")
+    print(f"train step split, bucket 64 (B={len(big)}, hidden {c['hidden']}) on {card}, from one "
+          f"profiled train_step (the trainer's rl.* ranges, host clock): step {total:.2f} ms = "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
+          + f"; label (pack_graphs, before the step) {label:.2f} ms; device: {len(kernels)} "
+          f"kernels, busy {busy / 1e3:.2f} ms of a {window / 1e3:.2f} ms window (idle "
+          f"{100 * (1 - busy / window):.1f}%), B1 (baseline) {b1_ms:.4f} ms of device time",
+          flush=True)
+    print(f"train phase on {card}: {t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------- #
 # the LM zoo's serving path: zamba2-7b, kernels B3 (flash) and B4 (SSD)
 # ---------------------------------------------------------------------- #
 ZOO_ARCH = "zamba2-7b"
@@ -1358,6 +1713,9 @@ def run() -> dict:
     # ---- the serving front end (its own counted runs) ----------------- #
     service_phase(card, golden, names, table1, synth, hetero_graphs, hsys, res, res_h, cpu)
 
+    # ---- the RL training engine (its own counted run) ----------------- #
+    train_phase(card)
+
     # ---- kernels against their plain versions, at the path's shapes --- #
     net = sched.net
     by_bucket = bucketize(table1)
@@ -1581,7 +1939,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
-            and SEEDED_GOLDEN.exists()):
+            and SEEDED_GOLDEN.exists() and TRAIN_GOLDEN.exists()):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))

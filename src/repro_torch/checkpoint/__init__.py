@@ -1,4 +1,5 @@
-from .manager import is_checkpoint_dir, load_pytree_dict, read_leaves, save_pytree
+from .manager import (CheckpointManager, is_checkpoint_dir, load_pytree, load_pytree_dict,
+                      read_leaves, save_pytree)
 from .release import (
     ReleaseError,
     find_release,
@@ -6,4 +7,5 @@ from .release import (
     params_sha256,
     verify_release,
     warn_no_release,
+    write_release,
 )

@@ -1,4 +1,5 @@
-"""The checkpoint directory format, both sides.
+"""The checkpoint directory format, both sides, and the trainer's
+:class:`CheckpointManager`.
 
     <dir>/manifest.json     # {"leaves": [{"name", "file", "shape", "dtype"}, ...],
                             #  "treedef": "PyTreeDef({...})"}
@@ -8,20 +9,33 @@ Leaf names are dict keys joined by slashes, in sorted key order (JAX's
 ``tree_flatten_with_path`` order), so a tree of nested dicts rebuilds from
 the manifest alone and the reference's readers (``repro.checkpoint``) read
 what :func:`save_pytree` writes, and the other way round.  ``treedef`` is
-written for the same manifest keys; no reader uses it.
+written for the same manifest keys; no reader uses it.  A None leaf is an
+empty subtree, as in JAX (an optimizer state without master copies).
+
+    <ckpt>/step_00000123.tmp/   # CheckpointManager: written first
+    <ckpt>/step_00000123/       # renamed when complete
+    <ckpt>/LATEST               # name of the newest complete step
+
+:class:`CheckpointManager` keeps that layout, the reference's: the rename
+is the commit (restore ignores ``.tmp`` directories), ``save(...,
+blocking=False)`` copies the tree to the host at once and writes it on a
+thread, and the ``keep`` newest steps are retained.  A trainer state saved
+by either package restores in the other (the leaf names are the
+reference's ``tree_flatten_with_path`` names).
 """
 
 from __future__ import annotations
 
 import json
 import shutil
+import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
-__all__ = ["flatten_leaves", "is_checkpoint_dir", "load_pytree_dict", "read_leaves",
-           "save_pytree"]
+__all__ = ["CheckpointManager", "flatten_leaves", "is_checkpoint_dir", "load_pytree",
+           "load_pytree_dict", "read_leaves", "save_pytree"]
 
 
 def flatten_leaves(tree: dict, prefix: str = "") -> list[tuple[str, np.ndarray]]:
@@ -30,6 +44,8 @@ def flatten_leaves(tree: dict, prefix: str = "") -> list[tuple[str, np.ndarray]]
     out = []
     for k in sorted(tree):
         v = tree[k]
+        if v is None:
+            continue
         if isinstance(v, dict):
             out += flatten_leaves(v, f"{prefix}{k}/")
         elif isinstance(v, torch.Tensor):
@@ -42,7 +58,7 @@ def flatten_leaves(tree: dict, prefix: str = "") -> list[tuple[str, np.ndarray]]
 def _treedef(tree: dict) -> str:
     def rec(t):
         return "{" + ", ".join(f"{k!r}: {rec(t[k]) if isinstance(t[k], dict) else '*'}"
-                               for k in sorted(t)) + "}"
+                               for k in sorted(t) if t[k] is not None) + "}"
     return f"PyTreeDef({rec(tree)})"
 
 
@@ -57,7 +73,7 @@ def save_pytree(tree: dict, directory: str | Path) -> None:
     tmp.mkdir(parents=True)
     manifest = {"leaves": [], "treedef": _treedef(tree)}
     for i, (name, leaf) in enumerate(flatten_leaves(tree)):
-        arr = np.ascontiguousarray(leaf)
+        arr = np.asarray(leaf, order="C")   # keeps 0-d leaves 0-d
         fname = f"arr_{i:04d}.bin"
         (tmp / fname).write_bytes(arr.tobytes())
         manifest["leaves"].append({"name": name, "file": fname, "shape": list(arr.shape),
@@ -95,3 +111,117 @@ def load_pytree_dict(directory: str | Path) -> dict:
             d = d.setdefault(p, {})
         d[parts[-1]] = torch.from_numpy(arr.copy())
     return out
+
+
+def load_pytree(directory: str | Path, target: dict) -> dict:
+    """Restore into the structure of ``target`` (nested dicts of tensors;
+    their values are ignored): each leaf read by its slash-joined name,
+    cast to the target leaf's dtype and put on its device.  A missing leaf
+    or a shape that differs raises."""
+    stored = read_leaves(directory)
+
+    def rec(t, prefix):
+        out = {}
+        for k in sorted(t):
+            v = t[k]
+            if v is None:
+                out[k] = None
+            elif isinstance(v, dict):
+                out[k] = rec(v, f"{prefix}{k}/")
+            else:
+                name = prefix + str(k)
+                if name not in stored:
+                    raise KeyError(f"checkpoint missing leaf {name!r}")
+                arr = stored[name]
+                if tuple(arr.shape) != tuple(v.shape):
+                    raise ValueError(f"shape mismatch for {name}: checkpoint {arr.shape} "
+                                     f"vs {tuple(v.shape)}")
+                out[k] = torch.from_numpy(arr.copy()).to(device=v.device, dtype=v.dtype)
+        return out
+
+    return rec(target, "")
+
+
+def _host_copy(tree):
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    return None if tree is None else np.array(tree)
+
+
+class CheckpointManager:
+    """Step directories under ``directory`` with ``LATEST``, retention of
+    the ``keep`` newest, and saves on a background thread."""
+
+    def __init__(self, directory: str | Path, keep: int = 3):
+        self.directory = Path(directory)
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def _step_dir(self, step: int) -> Path:
+        return self.directory / f"step_{step:08d}"
+
+    def save(self, step: int, tree: dict, blocking: bool = True) -> None:
+        """Write ``tree`` as step ``step``.  The tree is copied to the host
+        before this returns; with ``blocking=False`` the files are written
+        on a thread (one save in flight: a second one waits)."""
+        self.wait()
+        host_tree = _host_copy(tree)
+
+        def write():
+            save_pytree(host_tree, self._step_dir(step))
+            (self.directory / "LATEST").write_text(self._step_dir(step).name)
+            self._gc()
+
+        if blocking:
+            write()
+            return
+
+        def run():
+            try:
+                write()
+            except BaseException as e:     # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Block until the save in flight is written; re-raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[: max(len(steps) - self.keep, 0)]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+    def all_steps(self) -> list[int]:
+        """Steps with a complete directory, ascending (``.tmp`` ignored)."""
+        out = []
+        for p in self.directory.glob("step_*"):
+            if p.suffix == ".tmp" or not is_checkpoint_dir(p):
+                continue
+            out.append(int(p.name.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, target: dict) -> dict:
+        return load_pytree(self._step_dir(step), target)
+
+    def restore_latest(self, target: dict):
+        """(step, tree) of the newest complete step, or (None, None)."""
+        step = self.latest_step()
+        if step is None:
+            return None, None
+        return step, self.restore(step, target)

@@ -1,4 +1,4 @@
-"""Versioned release checkpoints of the trained RESPECT agent (read side).
+"""Versioned release checkpoints of the trained RESPECT agent.
 
     checkpoints/respect-v1/
         release.json        # version, config, provenance, params_sha256
@@ -7,7 +7,9 @@
 :func:`verify_release` recomputes the parameter digest from the stored
 buffers — the same sha256 as the reference's ``repro.checkpoint.release``
 — and rejects a missing, ill-formed, truncated or edited release with
-:class:`ReleaseError`.
+:class:`ReleaseError`.  :func:`write_release` stages a release beside its
+target and publishes it with one rename, as the reference's does; a release
+written by either package verifies in both.
 """
 
 from __future__ import annotations
@@ -16,12 +18,13 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import warnings
 from pathlib import Path
 
 import numpy as np
 
-from .manager import flatten_leaves, is_checkpoint_dir, load_pytree_dict
+from .manager import flatten_leaves, is_checkpoint_dir, load_pytree_dict, save_pytree
 
 __all__ = [
     "ReleaseError",
@@ -30,6 +33,7 @@ __all__ = [
     "find_release",
     "load_release_params",
     "warn_no_release",
+    "write_release",
     "RELEASE_MANIFEST",
     "REQUIRED_MANIFEST_KEYS",
 ]
@@ -85,6 +89,56 @@ def verify_release(directory: str | Path) -> tuple[dict, dict]:
             f"{manifest['params_sha256'][:16]}..., stored buffers hash to "
             f"{digest[:16]}... — the checkpoint is corrupt or was edited")
     return params, manifest
+
+
+def _fsync_path(path: Path) -> None:
+    """fsync one file or directory by descriptor."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def write_release(params: dict, directory: str | Path, meta: dict) -> dict:
+    """Write a release: ``params`` (a tree of tensors or numpy arrays, e.g.
+    :func:`repro_torch.core.ptrnet.param_tree` of a trained net) under
+    ``params/`` and ``release.json`` with the digest stamped in.  ``meta``
+    carries ``version``, ``config`` and ``train``; returns the manifest.
+
+    Everything is staged in ``<name>.tmp`` (each file and directory
+    fsynced), then published with ``os.replace`` and an fsync of the
+    parent, so a crash leaves the previous release or none, never a half
+    written one that :func:`find_release` could discover."""
+    directory = Path(directory)
+    directory.parent.mkdir(parents=True, exist_ok=True)
+    manifest = dict(meta)
+    manifest.setdefault("schema_version", 1)
+    manifest["params_sha256"] = params_sha256(params)
+    missing = [k for k in REQUIRED_MANIFEST_KEYS if k not in manifest]
+    if missing:
+        raise ReleaseError(f"release meta missing keys: {missing}")
+    stage = directory.with_name(directory.name + ".tmp")
+    if stage.exists():
+        shutil.rmtree(stage)
+    stage.mkdir(parents=True)
+    try:
+        save_pytree(params, stage / PARAMS_SUBDIR)
+        with open(stage / RELEASE_MANIFEST, "w") as f:
+            f.write(json.dumps(manifest, indent=1, sort_keys=True) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        for p in sorted(stage.rglob("*")):
+            _fsync_path(p)
+        _fsync_path(stage)
+        if directory.exists():
+            shutil.rmtree(directory)
+        os.replace(stage, directory)
+        _fsync_path(directory.parent)
+    except BaseException:
+        shutil.rmtree(stage, ignore_errors=True)
+        raise
+    return manifest
 
 
 def _default_root() -> Path:

@@ -66,7 +66,18 @@ def bucketize(graphs: list[CompGraph], min_bucket: int = MIN_BUCKET) -> dict[int
 
 @dataclasses.dataclass
 class PaddedGraphBatch:
-    """B graphs padded to a common node count, as tensors on one device."""
+    """B graphs padded to a common node count, as tensors on one device.
+
+    The optional ``label_assign``/``label_order`` fields carry the exact
+    solver's supervision (zero past ``n_valid``): a labelled pack is a
+    training pack (:func:`repro_torch.core.rl.pack_graphs`), the same
+    representation serving runs on.  ``exact_assign``/``exact_bottleneck``
+    carry a batched exact-DP solution of the pack
+    (:func:`repro_torch.core.segment.exact_dp_batch`).  ``dense`` is True
+    when every graph fills ``bucket_n``.  ``label_stages`` is the stage
+    count the labels were solved for (None: not recorded); a train step,
+    rollout or eval at another count refuses the pack.
+    """
 
     feats: torch.Tensor        # (B, bucket_n, F) float32 embedding rows, zero padded
     parent_mat: torch.Tensor   # (B, bucket_n, D) int32, -1 padded
@@ -74,6 +85,12 @@ class PaddedGraphBatch:
     param_bytes: torch.Tensor  # (B, bucket_n) float32, zero padded
     out_bytes: torch.Tensor    # (B, bucket_n) float32, zero padded
     n_valid: torch.Tensor      # (B,) int32 real node count per graph
+    label_assign: torch.Tensor | None = None      # (B, bucket_n) int32, 0 padded
+    label_order: torch.Tensor | None = None       # (B, bucket_n) int32, 0 padded
+    exact_assign: torch.Tensor | None = None      # (B, bucket_n) int32, 0 padded
+    exact_bottleneck: torch.Tensor | None = None  # (B,) float32 DP objective
+    dense: bool = False        # every graph fills bucket_n exactly
+    label_stages: int | None = None               # the labels' stage count
 
     @property
     def batch(self) -> int:
@@ -83,30 +100,56 @@ class PaddedGraphBatch:
     def bucket_n(self) -> int:
         return self.feats.shape[1]
 
+    @property
+    def has_labels(self) -> bool:
+        return self.label_assign is not None
+
+    def valid_mask(self) -> torch.Tensor:
+        """(B, bucket_n) bool: True on real-node slots."""
+        ar = torch.arange(self.bucket_n, device=self.n_valid.device)
+        return ar[None, :] < self.n_valid[:, None]
+
+    def _tensors(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if f.name not in ("dense", "label_stages")}
+
     def to(self, device) -> "PaddedGraphBatch":
-        return PaddedGraphBatch(**{f.name: getattr(self, f.name).to(device)
-                                   for f in dataclasses.fields(self)})
+        return PaddedGraphBatch(**{k: None if v is None else v.to(device)
+                                   for k, v in self._tensors().items()}, dense=self.dense,
+                                label_stages=self.label_stages)
 
     def pad_batch(self, bucket_b: int) -> "PaddedGraphBatch":
-        """Pad the batch dimension with inert ``n_valid = 0`` rows."""
+        """Pad the batch dimension with inert ``n_valid = 0`` rows (zero
+        labels, -1 parents, zero everything else)."""
         pad = bucket_b - self.batch
         if pad < 0:
             raise ValueError(f"batch {self.batch} exceeds bucket {bucket_b}")
         if pad == 0:
             return self
 
-        def cat(a, fill):
+        def cat(name, a):
+            if a is None:
+                return None
+            fill = -1 if name == "parent_mat" else 0
             return torch.cat([a, a.new_full((pad,) + tuple(a.shape[1:]), fill)])
 
-        return PaddedGraphBatch(
-            feats=cat(self.feats, 0), parent_mat=cat(self.parent_mat, -1),
-            flops=cat(self.flops, 0), param_bytes=cat(self.param_bytes, 0),
-            out_bytes=cat(self.out_bytes, 0), n_valid=cat(self.n_valid, 0))
+        return PaddedGraphBatch(**{k: cat(k, v) for k, v in self._tensors().items()},
+                                dense=False, label_stages=self.label_stages)
 
 
 def pack_padded(graphs: list[CompGraph], bucket_n: int | None = None, max_deg: int = 6,
-                min_bucket: int = MIN_BUCKET) -> PaddedGraphBatch:
-    """Embed and pad a list of graphs to a common ``bucket_n`` (CPU tensors)."""
+                min_bucket: int = MIN_BUCKET,
+                labels: tuple[list, list] | None = None,
+                label_stages: int | None = None) -> PaddedGraphBatch:
+    """Embed and pad a list of graphs to a common ``bucket_n`` (CPU tensors).
+
+    ``labels`` is the ``(assigns, orders)`` pair of
+    :func:`repro_torch.core.rl.label_graphs` (arrays of length ``g.n``),
+    zero padded into ``label_assign``/``label_order``; ``label_stages`` the
+    stage count they were solved for.  The pack always
+    holds only what the decode and the DP read, as the reference's
+    ``decode_only=True`` pack does: the port's repair runs on the host from
+    the graphs."""
     if not graphs:
         raise ValueError("empty graph list")
     n_max = max(g.n for g in graphs)
@@ -119,6 +162,7 @@ def pack_padded(graphs: list[CompGraph], bucket_n: int | None = None, max_deg: i
     pmat = np.full((B, bucket_n, max_deg), -1, dtype=np.int32)
     attrs = np.zeros((3, B, bucket_n), dtype=np.float32)
     n_valid = np.zeros(B, dtype=np.int32)
+    lab = None if labels is None else np.zeros((2, B, bucket_n), dtype=np.int32)
     for i, g in enumerate(graphs):
         f = embed_graph(g, max_deg)
         if feats is None:
@@ -127,10 +171,16 @@ def pack_padded(graphs: list[CompGraph], bucket_n: int | None = None, max_deg: i
         pmat[i, : g.n] = g.parent_matrix(max_deg)
         attrs[:, i, : g.n] = (g.flops, g.param_bytes, g.out_bytes)
         n_valid[i] = g.n
+        if lab is not None:
+            lab[:, i, : g.n] = (labels[0][i], labels[1][i])
     t = torch.from_numpy
     return PaddedGraphBatch(feats=t(feats), parent_mat=t(pmat), flops=t(attrs[0]),
                             param_bytes=t(attrs[1]), out_bytes=t(attrs[2]),
-                            n_valid=t(n_valid))
+                            n_valid=t(n_valid),
+                            label_assign=None if lab is None else t(lab[0]),
+                            label_order=None if lab is None else t(lab[1]),
+                            dense=all(g.n == bucket_n for g in graphs),
+                            label_stages=None if lab is None else label_stages)
 
 
 def _profile_input(sys_feat, device) -> torch.Tensor | None:

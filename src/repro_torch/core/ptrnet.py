@@ -43,7 +43,7 @@ from torch import nn
 from . import prng
 from .costmodel import SYS_FEAT_DIM
 
-__all__ = ["PointerNet", "init_params", "params_from_numpy", "params_to_numpy",
+__all__ = ["PointerNet", "init_params", "param_tree", "params_from_numpy", "params_to_numpy",
            "lstm_gates_to_state"]
 
 
@@ -186,6 +186,13 @@ class PointerNet(nn.Module):
         greedy; logits_fn(h, mask) overrides the glimpse + pointer step
         (the single-step kernel).  Returns order (B, n) int64 and per-step
         logp, entropy (B, n) float32.
+
+        Differentiable when the parameters require grad (see
+        :func:`param_tree`) and ``logits_fn`` is the plain one: REINFORCE
+        differentiates logp and entropy (masked logits are -1e9, so their
+        probabilities are exactly zero and the masked entropy terms carry
+        zero gradient).  A kernel's ``logits_fn`` refuses grad-requiring
+        inputs.
         """
         B, n, _ = C.shape
         dev = C.device
@@ -204,9 +211,7 @@ class PointerNet(nn.Module):
         pm_flat = pm.clamp(min=0).reshape(B, -1)
         visited = torch.zeros(B, n, dtype=torch.bool, device=dev)
         rows = torch.arange(B, device=dev)
-        order = torch.empty(B, n, dtype=torch.long, device=dev)
-        logp = torch.empty(B, n, dtype=C.dtype, device=dev)
-        ent = torch.empty(B, n, dtype=C.dtype, device=dev)
+        order, logp, ent = [], [], []
         for t in range(n):
             h, c = lstm_gates_to_state(xw + h @ self.dec.wh + self.dec.b, c)
             pvis = torch.gather(visited, 1, pm_flat).view(B, n, -1)
@@ -223,7 +228,7 @@ class PointerNet(nn.Module):
             else:
                 # inverse-CDF pick from one uniform per step; masked slots
                 # have exactly zero probability
-                cdf = torch.cumsum(probs, dim=-1)
+                cdf = torch.cumsum(probs.detach(), dim=-1)
                 draw = uniforms[:, t].to(cdf.dtype) * cdf[:, -1]
                 idx = torch.argmax((cdf > draw[:, None]).to(torch.int32), dim=-1)
                 last_live = torch.argmax(
@@ -234,12 +239,12 @@ class PointerNet(nn.Module):
             idx = torch.where(live, idx, torch.argmax((~visited).to(torch.int32), dim=-1))
             e = -torch.where(probs > 0, probs * logprobs, 0.0).sum(dim=-1)
             lp = logprobs[rows, idx]
-            order[:, t] = idx
-            logp[:, t] = torch.where(live, lp, 0.0)
-            ent[:, t] = torch.where(live, e, 0.0)
+            order.append(idx)
+            logp.append(torch.where(live, lp, 0.0))
+            ent.append(torch.where(live, e, 0.0))
             visited[rows, idx] = True
             xw = ewx[rows, idx]
-        return order, logp, ent
+        return torch.stack(order, 1), torch.stack(logp, 1), torch.stack(ent, 1)
 
 
 def params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> PointerNet:
@@ -255,19 +260,28 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> Pointer
     return PointerNet(to_np(tree)).to(device)
 
 
+def param_tree(net: PointerNet) -> dict:
+    """The reference's parameter tree of ``net`` with the module's own
+    ``nn.Parameter`` objects as leaves (no copies): the tree the optimizer
+    and the checkpoints read.  ``net.requires_grad_(True)`` makes the
+    network trainable (every parameter is built frozen, for serving)."""
+    tree = {"w_in": net.w_in, "b_in": net.b_in, "dec0": net.dec0}
+    for name in ("enc", "dec"):
+        m = getattr(net, name)
+        tree[name] = {k: getattr(m, k) for k in ("wx", "wh", "b")}
+    for name in ("glimpse", "pointer"):
+        m = getattr(net, name)
+        tree[name] = {k: getattr(m, k) for k in ("w_ref", "w_q", "v")}
+    if net.w_sys is not None:
+        tree["w_sys"] = net.w_sys
+    return tree
+
+
 def params_to_numpy(net: PointerNet) -> dict:
     """The reference's parameter tree (nested dicts of float32 numpy
     copies) of ``net``; the inverse of :func:`params_from_numpy`."""
-    def leaf(p):
-        return p.detach().cpu().numpy().copy()
+    def copy(t):
+        return ({k: copy(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.detach().cpu().numpy().copy())
 
-    tree = {"w_in": leaf(net.w_in), "b_in": leaf(net.b_in), "dec0": leaf(net.dec0)}
-    for name in ("enc", "dec"):
-        m = getattr(net, name)
-        tree[name] = {k: leaf(getattr(m, k)) for k in ("wx", "wh", "b")}
-    for name in ("glimpse", "pointer"):
-        m = getattr(net, name)
-        tree[name] = {k: leaf(getattr(m, k)) for k in ("w_ref", "w_q", "v")}
-    if net.w_sys is not None:
-        tree["w_sys"] = leaf(net.w_sys)
-    return tree
+    return copy(param_tree(net))

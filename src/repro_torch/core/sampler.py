@@ -93,18 +93,87 @@ def _draw_n(rng: np.random.Generator, n) -> int:
 class DagSampler:
     """Stateful sampler with a deterministic stream: draw ``c`` comes from
     ``default_rng((seed, c))``, so a restored :meth:`state` resumes the same
-    graphs.  ``n`` is an int or an inclusive ``(lo, hi)`` size range."""
+    graphs.  ``n`` is an int or an inclusive ``(lo, hi)`` size range.
 
-    def __init__(self, seed: int = 0, n=30, degs=(2, 3, 4, 5, 6)):
+    ``label_cache_dir`` is handed to the labeller of the packed batches:
+    the stream is deterministic, so a second epoch reads its exact labels
+    from disk.  The packed batches are labelled on ``device`` (the card
+    unless the caller names one) and come back as CPU tensors."""
+
+    def __init__(self, seed: int = 0, n=30, degs=(2, 3, 4, 5, 6), label_cache_dir=None):
         self.seed = seed
         self.n = tuple(n) if isinstance(n, (tuple, list)) else n
         self.degs = tuple(degs)
+        self.label_cache_dir = label_cache_dir
         self._count = 0
 
     def next_batch(self, batch: int) -> list[CompGraph]:
         rng = np.random.default_rng((self.seed, self._count))
         self._count += 1
         return sample_batch(rng, batch, n=self.n, degs=self.degs)
+
+    def next_packed_batch(self, batch: int, n_stages: int, system=None, max_deg: int = 6,
+                          label_method: str = "dp", pad: bool | str = "auto", device=None):
+        """Sample, embed and exactly label one training batch (a labelled
+        :class:`~repro_torch.core.batching.PaddedGraphBatch`).  ``pad="auto"``
+        packs a fixed-size sampler exactly (dense) and pads a mixed-size one
+        to the power-of-two bucket."""
+        from .costmodel import PipelineSystem
+        from .rl import pack_graphs
+        system = (system or PipelineSystem(n_stages)).with_stages(n_stages)
+        if pad == "auto":
+            pad = isinstance(self.n, tuple)
+        return pack_graphs(self.next_batch(batch), n_stages, system, max_deg=max_deg,
+                           label_method=label_method, cache_dir=self.label_cache_dir,
+                           pad=pad, device=device)
+
+    def packed_stream(self, batch: int, n_stages: int, system=None, max_deg: int = 6,
+                      label_method: str = "dp", epochs: int | None = None,
+                      batches_per_epoch: int = 64, curriculum: bool = False, bucket: bool = True,
+                      pad_batch_dim: bool = True, batch_divisor: int = 1, device=None):
+        """Iterator of labelled packs, the training feed (the reference's
+        ``packed_stream``).
+
+        Each draw samples ``batch`` graphs from the (seed, counter) stream;
+        with ``bucket`` they group by power-of-two size bucket, one pack a
+        bucket; with ``pad_batch_dim`` a pack's batch dim pads to its own
+        power of two with inert ``n_valid = 0`` rows, and ``batch_divisor``
+        rounds it up to a multiple.  ``curriculum`` widens the size range
+        from its lower end to the full range over the counter's first
+        ``batches_per_epoch`` draws.  Every draw, ramp included, is a pure
+        function of (seed, counter), so a restored :meth:`state` resumes the
+        stream.  ``epochs=None`` streams forever."""
+        from .batching import bucketize
+        from .costmodel import PipelineSystem
+        from .rl import pack_graphs
+        system = (system or PipelineSystem(n_stages)).with_stages(n_stages)
+        full_n = self.n
+        epoch = 0
+        while epochs is None or epoch < epochs:
+            for _ in range(batches_per_epoch):
+                n_spec = full_n
+                if curriculum and isinstance(full_n, tuple) and self._count < batches_per_epoch:
+                    lo, hi = full_n
+                    frac = (self._count + 1) / batches_per_epoch
+                    n_spec = (lo, lo + max(1, int((hi - lo) * frac)))
+                rng = np.random.default_rng((self.seed, self._count))
+                self._count += 1
+                graphs = sample_batch(rng, batch, n=n_spec, degs=self.degs)
+                groups = bucketize(graphs).values() if bucket else [list(range(len(graphs)))]
+                for idxs in groups:
+                    pack = pack_graphs(
+                        [graphs[i] for i in idxs], n_stages, system, max_deg=max_deg,
+                        label_method=label_method, cache_dir=self.label_cache_dir,
+                        pad=isinstance(n_spec, (tuple, list)), device=device)
+                    target = pack.batch
+                    if pad_batch_dim and pack.batch != len(graphs):
+                        target = 1 << (pack.batch - 1).bit_length()
+                    if target % batch_divisor:
+                        target += batch_divisor - target % batch_divisor
+                    if target != pack.batch:
+                        pack = pack.pad_batch(target)
+                    yield pack
+            epoch += 1
 
     def state(self) -> dict:
         return {"seed": self.seed, "count": self._count}

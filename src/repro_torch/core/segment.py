@@ -7,6 +7,10 @@
   the capacity penalty), the same ``n_valid``-aware dispatch-overhead count,
   and the same banded lexicographic (bottleneck, latency) argmin with
   ``tol = 1e-6`` and ``+1e-30``, taking the first split inside the band.
+* :func:`exact_dp_batch` — the exact solver's contiguous DP
+  (``core.exact.exact_dp``) for a padded batch: :func:`rho_dp` on the
+  identity order (node indices are topological), with the DP objective; the
+  counterpart of ``segment.exact_dp_batch``, and the training labeller.
 * :func:`repair` — the deployment repair on the host: a numpy twin of
   ``segment.repair_jax`` (equivalently ``postprocess.repair``), run per
   graph on its real nodes.  Integer arithmetic, except the capacity guard,
@@ -21,7 +25,8 @@ import torch
 from .costmodel import CAPACITY_PENALTY_S, PipelineSystem
 from .graph import CompGraph, validate_monotone
 
-__all__ = ["rho_dp", "repair", "dependency_repair", "co_consumer_repair"]
+__all__ = ["rho_dp", "exact_dp", "exact_dp_batch", "repair", "dependency_repair",
+           "co_consumer_repair"]
 
 _TOL = 1e-6
 
@@ -29,7 +34,36 @@ _TOL = 1e-6
 def rho_dp(order, flops, param_bytes, out_bytes, parent_mat, n_stages: int,
            system: PipelineSystem, n_valid=None) -> torch.Tensor:
     """Per-node stage assignment (B, n) int64 of the best contiguous
-    segmentation of each ``order``.
+    segmentation of each ``order``; see :func:`_segment`."""
+    return _segment(order, flops, param_bytes, out_bytes, parent_mat, n_stages, system,
+                    n_valid)[0]
+
+
+def exact_dp_batch(flops, param_bytes, out_bytes, parent_mat, n_stages: int,
+                   system: PipelineSystem, n_valid=None):
+    """The exact contiguous segmentation of each graph of a padded batch:
+    :func:`rho_dp` on the identity order.  Returns the assignment (B, n)
+    int64 (the real prefix equals host ``exact_dp``'s, tie-break included)
+    and the float32 DP bottleneck (B,)."""
+    B, n = flops.shape
+    order = torch.arange(n, device=flops.device).expand(B, n)
+    return _segment(order, flops, param_bytes, out_bytes, parent_mat, n_stages, system, n_valid)
+
+
+def exact_dp(flops, param_bytes, out_bytes, parent_mat, n_stages: int,
+             system: PipelineSystem, n_valid=None):
+    """:func:`exact_dp_batch` of one graph: flops etc. (n,), parent_mat
+    (n, D); returns the assignment (n,) and the bottleneck ()."""
+    nv = None if n_valid is None else torch.as_tensor(n_valid).reshape(1)
+    assign, bott = exact_dp_batch(flops[None], param_bytes[None], out_bytes[None],
+                                  parent_mat[None], n_stages, system, nv)
+    return assign[0], bott[0]
+
+
+def _segment(order, flops, param_bytes, out_bytes, parent_mat, n_stages: int,
+             system: PipelineSystem, n_valid=None):
+    """The segmentation DP: the assignment (B, n) int64 and the float32
+    bottleneck (B,) of the best contiguous segmentation of each ``order``.
 
     order: (B, n) node indices; flops, param_bytes, out_bytes: (B, n)
     float32, zero on padded slots; parent_mat: (B, n, D) int, -1 padded;
@@ -124,7 +158,8 @@ def rho_dp(order, flops, param_bytes, out_bytes, parent_mat, n_stages: int,
         inside = (ar[None, :] >= i[:, None]) & (ar[None, :] < j[:, None])
         assign_pos = torch.where(inside, s, assign_pos)
         j = i
-    return torch.zeros(B, n, dtype=torch.long, device=dev).scatter_(1, order, assign_pos)
+    assign = torch.zeros(B, n, dtype=torch.long, device=dev).scatter_(1, order, assign_pos)
+    return assign, f_b[:, n]
 
 
 def dependency_repair(graph: CompGraph, assign: np.ndarray, n_stages: int) -> np.ndarray:

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import build
-from .kernel import MAX_SMEM_BYTES, THREADS, _WARPS
+from .kernel import MAX_SMEM_BYTES, THREADS, _WARPS, refuse_grad
 from .ref import precompute_refs
 
 __all__ = ["decode_batch", "decode_batch_reference", "decode_kernel_supported",
@@ -119,8 +119,11 @@ def decode_batch(net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None):
     (B,) int; uniforms: (B, n) per-step draws for a sampled decode, None for
     greedy.  A node is selectable once every parent is visited.  Returns
     order (B, n) int64 and logp, entropy (B, n) float32, drained padded
-    steps at zero logp and entropy.
+    steps at zero logp and entropy.  Forward only: raises on a
+    grad-requiring input (or parameter) in grad mode, on the CPU too
+    (:func:`~repro_torch.kernels.ptr.kernel.refuse_grad`).
     """
+    refuse_grad("decode_batch", C, emb, h0, c0, *net.parameters())
     if not C.is_cuda:
         return decode_batch_reference(net, C, emb, h0, c0, parent_mat, n_valid, uniforms)
     fn = load_launcher()

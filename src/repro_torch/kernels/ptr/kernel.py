@@ -15,8 +15,8 @@ import torch
 
 from .. import build
 
-__all__ = ["pointer_step_cuda", "step_kernel_supported", "step_cluster_size", "step_smem_bytes",
-           "THREADS", "MAX_SMEM_BYTES"]
+__all__ = ["pointer_step_cuda", "refuse_grad", "step_kernel_supported", "step_cluster_size",
+           "step_smem_bytes", "THREADS", "MAX_SMEM_BYTES"]
 
 THREADS = 512      # PTR_THREADS in csrc/ptr_common.cuh
 _WARPS = THREADS // 32
@@ -58,6 +58,22 @@ def _f32(x: torch.Tensor, name: str, shape: tuple) -> torch.Tensor:
     return x.contiguous()
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad.
+
+    The kernels' outputs carry no autograd history: a loss built on one
+    would lose every gradient through it without an error.  So the kernel
+    wrappers (and, for the same contract on the CPU, their plain routes)
+    refuse such inputs; differentiate through the plain PyTorch decode
+    (:meth:`repro_torch.core.ptrnet.PointerNet.decode` with its default
+    ``logits_fn``) and call the kernels under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel's output carries no gradient; "
+            "differentiate through PointerNet.decode's plain logits_fn, or call it under "
+            "torch.no_grad()")
+
+
 def load_launcher():
     """``ptr_step_launch`` of the kernel's library, built and loaded at the
     first call."""
@@ -70,6 +86,7 @@ def pointer_step_cuda(C, CWg, CWp, h, w_q_g, v_g, w_q_p, v_p, mask) -> torch.Ten
     masked entries at -1e9."""
     if not C.is_cuda:
         raise ValueError("pointer_step_cuda takes CUDA tensors")
+    refuse_grad("pointer_step_cuda", C, CWg, CWp, h, w_q_g, v_g, w_q_p, v_p)
     B, n, H = C.shape
     if not step_kernel_supported(n, H):
         raise ValueError(f"ptr_step kernel cannot take n={n}, hidden={H}")

@@ -14,7 +14,7 @@ from __future__ import annotations
 from ..build import BUILD_DIR, LAUNCHES, build_kernels
 from . import decode, kernel
 from .decode import decode_kernel_supported, decode_template
-from .kernel import (MAX_SMEM_BYTES, pointer_step_cuda, step_cluster_size,
+from .kernel import (MAX_SMEM_BYTES, pointer_step_cuda, refuse_grad, step_cluster_size,
                      step_kernel_supported)
 from .ref import precompute_refs, reference_pointer_step
 
@@ -37,8 +37,10 @@ __all__ = [
 def pointer_step(net, C, CWg, CWp, h, mask):
     """One glimpse + pointer step for a batch: C, CWg, CWp (B, n, H); h
     (B, H); mask (B, n) bool.  The CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; raises on a grad-requiring input in grad mode
+    (:func:`~repro_torch.kernels.ptr.kernel.refuse_grad`) on both."""
     g, p = net.glimpse, net.pointer
+    refuse_grad("pointer_step", C, CWg, CWp, h, g.w_q, g.v, p.w_q, p.v)
     fn = pointer_step_cuda if C.is_cuda else reference_pointer_step
     return fn(C, CWg, CWp, h, g.w_q, g.v, p.w_q, p.v, mask)
 
