@@ -91,7 +91,22 @@ Run from the repository root:  python3 chip_smoke.py
    (B1, equal to the CPU plain path); a save/restore round trip, bit for
    bit; ms a step and training graphs/s per bucket and, from one profiled
    bucket-64 step, its split over the trainer's rl.* profiler ranges, the
-   device's idle share and B1's device time.
+   device's idle share and B1's device time;
+14. (after 13) the gap-to-optimal eval, repro_torch.eval, on the card: the
+   smoke uniform grid, the smoke heterogeneous grid and the smoke
+   generalization tier with RespectScheduler.from_release() and a CUDA
+   ExactOracle (bb_max_n 12, bb budget 2 s), the launch counters reset just
+   before and read just after each tier (B1 cluster template: two launches a
+   bucket a grid scenario, one a generalization scenario; B2: two a step of
+   each heterogeneous/memcap bucket), held to BENCH_eval.json in every
+   non-timing field (integers and flags equal, floats within EVAL_RTOL
+   relative; on a difference the first respect schedule that leaves the CPU
+   plain path is printed) and to check_results, check_hetero and
+   check_generalization; the card's solve-time ratios beside the artifact's
+   (the JAX package's CPU numbers); then python -m repro_torch.train_release
+   run in-process for 6 steps into build/, its release verified by sha256
+   and loaded on the card and on the CPU, which schedule the Table-I and
+   synthetic graphs identically.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -265,7 +280,7 @@ def first_divergence(net_cpu, graph, kernel_order, max_deg: int, system=None) ->
     import torch
     from repro_torch.core.batching import pack_padded
     batch = pack_padded([graph], max_deg=max_deg)
-    sys_feat = None if system is None else scan_profile(system, "cpu")[0]
+    sys_feat = None if system is None else scan_profile(system, "cpu", system.n_stages)[0]
     with torch.inference_mode():
         C, (h0, c0), emb = net_cpu.encode(batch.feats, batch.n_valid)
         plain = net_cpu.plain_logits_fn(C)
@@ -312,11 +327,11 @@ def compare_logits(got, want, mask) -> tuple[bool, float, float]:
     return same, float(d.max()), float((d / want[mask].abs().clamp_min(1.0)).max())
 
 
-def scan_profile(system, device):
-    """(sys_feat, system with STAGES stages, capacities) as the scan of
+def scan_profile(system, device, n_stages: int = STAGES):
+    """(sys_feat, system with ``n_stages`` stages, capacities) as the scan of
     ``BucketedDecoder.fused_schedules`` takes them."""
     import torch
-    system = system.with_stages(STAGES)
+    system = system.with_stages(n_stages)
     profile = system.profile_features()
     sys_feat = torch.from_numpy(profile).to(device) if profile.any() else None
     return sys_feat, system, system.capacity_vector()
@@ -1262,6 +1277,169 @@ def train_phase(card: str) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# the gap-to-optimal eval and the release trainer
+# ---------------------------------------------------------------------- #
+EVAL_BENCH = ROOT / "BENCH_eval.json"
+EVAL_RTOL = 1e-12   # float64 re-derivations from equal integer assignments
+# the size ramp off: inside it the first draws hold 5-6 nodes, every reward is
+# 1.0 and the weights would not move
+RELEASE_ARGS = ["--max-steps", "6", "--eval-every", "3", "--batch", "16", "--n-max", "20",
+                "--stage-counts", "2,4", "--ramp-batches", "1"]
+
+
+def eval_divergence(card, cpu) -> str:
+    """The first graph of the eval tiers whose respect schedule from the
+    scheduler ``card`` differs from the CPU plain path's (``cpu``), with
+    :func:`first_divergence` there."""
+    import numpy as np
+    from repro_torch.core import PipelineSystem
+    from repro_torch.eval import generalization_grid, hetero_grid, scenario_grid
+    for sc in (scenario_grid(smoke=True) + hetero_grid(smoke=True)
+               + generalization_grid(smoke=True)):
+        graphs = sc.build()
+        system = (sc.resolve_system(graphs) if hasattr(sc, "resolve_system")
+                  else PipelineSystem(sc.n_stages))
+        got = card.schedule_many(graphs, sc.n_stages, system, use_cache=False)
+        want = cpu.schedule_many(graphs, sc.n_stages, system, use_cache=False)
+        for i, (g, r, w) in enumerate(zip(graphs, got, want)):
+            if not (np.array_equal(r["order"], w["order"])
+                    and np.array_equal(r["assignment"], w["assignment"])):
+                cond = None if system.is_uniform else system
+                return (f"{sc.name} graph {i} (n = {g.n}): "
+                        f"{first_divergence(cpu.net, g, r['order'], cpu.max_deg, cond)}")
+    return "every respect schedule equals the CPU plain path's"
+
+
+def eval_phase(card: str, table1, synth) -> None:
+    """The three smoke eval tiers on the card, held to BENCH_eval.json, with
+    the launch counters reset just before and read just after each; then a
+    short run of the release trainer on the card (see the module docstring,
+    item 14)."""
+    import numpy as np
+    import torch
+    from repro_torch import train_release
+    from repro_torch.checkpoint import params_sha256, verify_release
+    from repro_torch.core import RespectScheduler
+    from repro_torch.core.batching import bucketize
+    from repro_torch.core.ptrnet import param_tree
+    from repro_torch.eval import (ExactOracle, check_generalization, check_hetero,
+                                  check_results, diff_results, generalization_grid, hetero_grid,
+                                  run_generalization, run_grid, scenario_grid, summarize,
+                                  summarize_hetero)
+    from repro_torch.eval.__main__ import BB_BUDGET_S, BB_MAX_N
+    from repro_torch.kernels.ptr import ops
+
+    bench = json.loads(EVAL_BENCH.read_text())
+    t_phase = time.perf_counter()
+    sched = RespectScheduler.from_release()
+    oracle = ExactOracle()
+    check(sched.device.type == "cuda" and oracle.device.type == "cuda",
+          "eval: scheduler or oracle is not on the card")
+    uniform, hetero, gen = (scenario_grid(smoke=True), hetero_grid(smoke=True),
+                            generalization_grid(smoke=True))
+
+    def buckets(scs):
+        return [bn for sc in scs for bn in bucketize(sc.build())]
+
+    # respect runs twice a grid scenario (an untimed warm call, then the timed
+    # one), once a generalization scenario: one B1 launch a bucket a call on
+    # a uniform system, one B2 launch a step (bucket_n) on a conditioned one
+    runs = {
+        "uniform": (lambda: run_grid(uniform, sched, oracle, bb_max_n=BB_MAX_N,
+                                     bb_budget_s=BB_BUDGET_S),
+                    {"ptr_decode_cluster": 2 * len(buckets(uniform)), "ptr_step": 0}),
+        "hetero": (lambda: run_grid(hetero, sched, oracle, bb_max_n=BB_MAX_N,
+                                    bb_budget_s=BB_BUDGET_S),
+                   {"ptr_decode_cluster": 0, "ptr_step": 2 * sum(buckets(hetero))}),
+        "gen": (lambda: run_generalization(sched, gen),
+                {"ptr_decode_cluster": len(buckets(gen)), "ptr_step": 0}),
+    }
+    tiers, times = {}, {}
+    for label, (fn, want) in runs.items():
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        tiers[label] = fn()
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        ran = dict(ops.LAUNCHES)
+        check(ran["ptr_decode_block"] == 0
+              and all(ran[k] == v for k, v in want.items()) and sum(want.values()) > 0,
+              f"eval {label} tier: launches {ran}, expected {want} and no ptr_decode_block")
+        print(f"eval {label} tier on {card}: {times[label]:.2f} s; B1 (ptr_decode_cluster) "
+              f"{ran['ptr_decode_cluster']} launches, B2 (ptr_step) {ran['ptr_step']} launches",
+              flush=True)
+
+    meta = {"smoke": True, "trained_agent": sched.release is not None, "bb_max_n": BB_MAX_N,
+            "n_scenarios": len(uniform)}
+    summary = summarize(tiers["uniform"], meta, generalization=tiers["gen"])
+    summary.update(summarize_hetero(tiers["hetero"]))
+    diffs = diff_results(json.loads(json.dumps(summary)), bench, rtol=EVAL_RTOL)
+    problems = (check_results(tiers["uniform"]) + check_hetero(tiers["hetero"])
+                + check_generalization(tiers["gen"]))
+    if diffs or problems:
+        print("eval: " + "; ".join(diffs[:10] + problems[:10]), flush=True)
+        print("eval first_divergence: "
+              + eval_divergence(sched, RespectScheduler.from_release(device="cpu")), flush=True)
+    check(not problems, f"eval checks failed: {problems}")
+    check(not diffs, f"eval tiers differ from BENCH_eval.json in {len(diffs)} fields")
+    print(f"eval on {card}: the three smoke tiers equal BENCH_eval.json in every non-timing "
+          f"field (floats within {EVAL_RTOL} relative): match_rate_respect "
+          f"{summary['match_rate_respect']!r}, table1_matches_k4 {summary['table1_matches_k4']}, "
+          f"hetero_match_rate_respect {summary['hetero_match_rate_respect']!r}, "
+          f"gen_gap_mean_respect {summary['gen_gap_mean_respect']!r}; check_results, "
+          "check_hetero and check_generalization find no problem", flush=True)
+    for label in ("uniform", "hetero"):
+        res = tiers[label]
+        print(f"eval {label} speedups on {card}: speedup_oracle_batched "
+              f"{res['speedup_oracle_batched']!r} (host exact_dp {res['t_exact_host_s']:.4f} s, "
+              f"oracle on the card {res['t_exact_device_s']:.4f} s), speedup_respect_vs_exact "
+              f"{res['speedup_respect_vs_exact']!r} (respect "
+              f"{res['aggregate']['respect']['t_s']:.4f} s); BENCH_eval.json's (the JAX "
+              f"package on a CPU): {bench['speedup_oracle_batched']!r}, "
+              f"{bench['speedup_respect_vs_exact']!r}", flush=True)
+
+    # ---- a short run of the release trainer on the card ----------------- #
+    out = ROOT / "build" / "chip_smoke_release"
+    shutil.rmtree(out, ignore_errors=True)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    rc = train_release.main(RELEASE_ARGS + ["--out", str(out / "rel"), "--ckpt-dir",
+                                            str(out / "ckpt"), "--label-cache",
+                                            str(out / "labels")])
+    torch.cuda.synchronize()
+    t_rel = time.perf_counter() - t0
+    ran = dict(ops.LAUNCHES)
+    check(rc == 0, f"release trainer exited {rc}")
+    check(ran["ptr_decode_cluster"] > 0 and ran["ptr_step"] == 0,
+          f"release trainer: launches {ran}, expected B1 in its baselines and evals")
+    _, manifest = verify_release(out / "rel")        # the port's reader: the sha256 check
+    check(manifest["train"]["steps"] == 6, f"release trainer: {manifest['train']['steps']} steps")
+    init = RespectScheduler.init(seed=0, hidden=128, device="cpu").net
+    check(manifest["params_sha256"] != params_sha256(param_tree(init)),
+          "release trainer: the weights did not move off their seeded init")
+    on_card = RespectScheduler.from_release(out / "rel")
+    on_cpu = RespectScheduler.from_release(out / "rel", device="cpu")
+    check(on_card.device.type == "cuda"
+          and on_card.release["params_sha256"] == on_cpu.release["params_sha256"]
+          == manifest["params_sha256"], "release: the card and the CPU loaded other weights")
+    for label, graphs in (("Table-I", table1), ("synthetic", synth)):
+        got = on_card.schedule_many(graphs, STAGES, use_cache=False)
+        want = on_cpu.schedule_many(graphs, STAGES, use_cache=False)
+        bad = [f"{i}: {first_divergence(on_cpu.net, g, r['order'], on_cpu.max_deg)}"
+               for i, (g, r, w) in enumerate(zip(graphs, got, want))
+               if not (np.array_equal(r["order"], w["order"])
+                       and np.array_equal(r["assignment"], w["assignment"]))]
+        check(not bad, f"release, {label}: card and CPU differ:\n  " + "\n  ".join(bad))
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"release trainer on {card}: {' '.join(RELEASE_ARGS)} in {t_rel:.2f} s (B1 "
+          f"{ran['ptr_decode_cluster']} launches), sha256 verified, loaded on the card and the "
+          f"CPU, the {len(table1)} Table-I and {len(synth)} synthetic schedules equal", flush=True)
+    print(f"eval phase on {card}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------- #
 # the LM zoo's serving path: zamba2-7b, kernels B3 (flash) and B4 (SSD)
 # ---------------------------------------------------------------------- #
 ZOO_ARCH = "zamba2-7b"
@@ -1716,6 +1894,9 @@ def run() -> dict:
     # ---- the RL training engine (its own counted run) ----------------- #
     train_phase(card)
 
+    # ---- the gap-to-optimal eval and the release trainer (counted) ----- #
+    eval_phase(card, table1, synth)
+
     # ---- kernels against their plain versions, at the path's shapes --- #
     net = sched.net
     by_bucket = bucketize(table1)
@@ -1939,7 +2120,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
-            and SEEDED_GOLDEN.exists() and TRAIN_GOLDEN.exists()):
+            and SEEDED_GOLDEN.exists() and TRAIN_GOLDEN.exists() and EVAL_BENCH.exists()):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))

@@ -26,6 +26,7 @@ bucket runs exactly the graphs it holds.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -38,7 +39,8 @@ from .embedding import embed_graph
 from .graph import CompGraph
 
 __all__ = ["bucket_for", "bucketize", "PaddedGraphBatch", "pack_padded",
-           "BucketedDecoder", "DECODE_IMPLS", "greedy_order", "sample_order"]
+           "BucketedDecoder", "DECODE_IMPLS", "DECODE_IMPL_ENV", "greedy_order",
+           "sample_order"]
 
 MIN_BUCKET = 8
 
@@ -47,6 +49,12 @@ MIN_BUCKET = 8
 #: the per-step loop with the single-step kernel, "kernel" the whole-decode
 #: kernel.  On CPU tensors both run the plain PyTorch versions.
 DECODE_IMPLS = (None, "scan", "kernel")
+
+#: environment override, below an explicit ``decode_impl`` argument:
+#: RESPECT_DECODE_IMPL=scan|kernel forces one impl for every BucketedDecoder
+#: built without one (the reference's "kernel-interpret" has no port value
+#: and raises like any other unknown value)
+DECODE_IMPL_ENV = "RESPECT_DECODE_IMPL"
 
 
 def bucket_for(n: int, min_bucket: int = MIN_BUCKET) -> int:
@@ -117,6 +125,12 @@ class PaddedGraphBatch:
         return PaddedGraphBatch(**{k: None if v is None else v.to(device)
                                    for k, v in self._tensors().items()}, dense=self.dense,
                                 label_stages=self.label_stages)
+
+    def with_exact(self, exact_assign, exact_bottleneck) -> "PaddedGraphBatch":
+        """A copy carrying the exact oracle's solution of this pack
+        (:meth:`repro_torch.eval.oracle.ExactOracle.label_pack`)."""
+        return dataclasses.replace(self, exact_assign=exact_assign,
+                                   exact_bottleneck=exact_bottleneck)
 
     def pad_batch(self, bucket_b: int) -> "PaddedGraphBatch":
         """Pad the batch dimension with inert ``n_valid = 0`` rows (zero
@@ -200,10 +214,14 @@ class BucketedDecoder:
     runs.  A profile-conditioned system (heterogeneous or memory-capped)
     takes the scan: the whole-decode kernel has no system input.  A forced
     "kernel" that cannot take a bucket, or a conditioned system, raises.
+    Without an explicit ``decode_impl`` the :data:`DECODE_IMPL_ENV`
+    variable, when set and not empty, chooses it.
     """
 
     def __init__(self, device: torch.device, max_deg: int = 6, min_bucket: int = MIN_BUCKET,
                  decode_impl: str | None = None):
+        if decode_impl is None:
+            decode_impl = os.environ.get(DECODE_IMPL_ENV) or None
         if decode_impl not in DECODE_IMPLS:
             raise ValueError(f"decode_impl {decode_impl!r} not one of {DECODE_IMPLS}")
         self.device = torch.device(device)

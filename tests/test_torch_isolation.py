@@ -66,6 +66,14 @@ def test_port_runs_with_jax_unimportable():
         logits, cache = model.prefill(model.init_params(0),
                                       {"tokens": torch.zeros((1, 10), dtype=torch.long)})
         assert logits.shape == (1, 1, 256) and bool(torch.isfinite(logits.float()).all())
+        import repro_torch.eval.__main__
+        import repro_torch.train_release
+        from repro_torch.core import postprocess
+        from repro_torch.eval import ExactOracle, hetero_grid, run_scenario
+        sc = hetero_grid(smoke=True)[1]                      # memcap/k2
+        rec = run_scenario(sc, sched, ExactOracle(device="cpu"))
+        assert rec["oracle"]["parity"] and rec["policies"]["respect"]["all_capacity_ok"]
+        assert postprocess.repair(g, res[0]["assignment"], 4).shape == (20,)
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
