@@ -106,7 +106,33 @@ Run from the repository root:  python3 chip_smoke.py
    (the JAX package's CPU numbers); then python -m repro_torch.train_release
    run in-process for 6 steps into build/, its release verified by sha256
    and loaded on the card and on the CPU, which schedule the Table-I and
-   synthetic graphs identically.
+   synthetic graphs identically;
+15. (after 6-8) the models the ingest path traces, served at full width on
+   the card with seeded random weights, the launch counters reset just
+   before and read just after each, every launch's shape recorded:
+   whisper-tiny (4 + 4 layers, d_model 384, bf16; B = 2, 1500 frames, 64
+   prompt tokens, max_len 80) with 12 flash launches a prefill (4 encoder,
+   non-causal; 4 decoder self, causal; 4 cross, non-causal), all of them the
+   bf16 template by profiler name; xlstm-350m (24 layers "xs", d_model 1024,
+   bf16; B = 2, 1024 prompt tokens) with 24 SSD launches a prefill (12 mLSTM
+   layers: the numerator at N = P = 512, the normalizer at P = 1, both the
+   tiled template); 16 greedy decode steps each, which launch neither
+   kernel; prefill and decode tokens/s;
+16. one full-width whisper encoder block plus decoder block, and one
+   full-width xs unit, in float32 through the kernels and through the plain
+   versions on the card, logits compared;
+17. B3 at whisper-tiny's three shapes and B4 at xlstm-350m's two, each held
+   to its plain version and timed (kernel, plain version, PyTorch's
+   scaled_dot_product_attention for B3, bound);
+18. ingest_model of both full configs at seq 64 and 12 and 64 nodes:
+   parameter bytes equal to BENCH_ingest.json's, flops printed beside its,
+   no warning, the graph hash equal to the CPU's
+   (tests/golden/torch_ingest_hashes.json) and to a second trace's;
+19. RespectScheduler.schedule_model of both full configs at k = 4 through
+   B1 on the card (one launch each), equal to the CPU plain path's and
+   dependency-valid;
+20. the eval's ingest/k4 cell (run_scenario with a CUDA ExactOracle, 12
+   nodes) equal in every non-timing field to the same cell on the CPU.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -1458,24 +1484,49 @@ TOL_ZOO_F32 = 1e-4             # x max(1, |logits|): float32 logits through a fu
                                # (measured 1.35e-5 at |logits| <= 4; a bf16 slip is ~1e-3)
 
 
-def flash_work(b, hq, hkv, sq, sk, d, dv, itemsize) -> tuple[float, float]:
-    """(bytes, flops) of a causal attention: q, k, v read once, o written
-    once; the two products over the (query, key) pairs the mask keeps."""
-    pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2
-    flops = 2.0 * b * hq * pairs * (d + dv)
+def flash_work(b, hq, hkv, sq, sk, d, dv, itemsize, causal: bool = True) -> tuple[float, float]:
+    """(bytes, flops) of an attention: q, k, v read once, o written once;
+    the two products over the (query, key) pairs the mask keeps (the
+    kernel module's formula)."""
+    from repro_torch.kernels.flash.kernel import attention_flops
+    flops = attention_flops(b, hq, sq, sk, d, dv, causal)
     return itemsize * b * (hq * sq * d + hkv * sk * (d + dv) + hq * sq * dv), flops
 
 
 def ssd_work(bt, s, h, p, g, n, q, itemsize, in_scale: bool) -> tuple[float, float]:
     """(bytes, flops) of an SSD scan: x, B, C, dt (and in_scale) read once, y
     and the final state written once; per chunk the lower triangle of
-    C B^T and of its product with x, and the two (N, P) state products."""
-    chunks = -(-s // q)
-    tri = q * (q + 1) // 2
-    flops = 2.0 * bt * h * chunks * (tri * n + tri * p + 2 * q * n * p)
+    C B^T and of its product with x, and the two (N, P) state products (the
+    kernel module's formula)."""
+    from repro_torch.kernels.ssd.kernel import scan_flops
     nbytes = (itemsize * bt * s * (2 * h * p + 2 * g * n) + 4 * bt * s * h * (2 if in_scale else 1)
               + 4 * h + 4 * bt * h * n * p)
-    return nbytes, flops
+    return nbytes, scan_flops(bt, s, h, p, n, q)
+
+
+def plain_flash(q, k, v, *, causal=True, scale=None):
+    from repro_torch.kernels.flash.ref import reference_attention
+    return reference_attention(q, k, v, causal=causal, scale=scale)
+
+
+def plain_ssd(x, dt, A, B, C, *, chunk, in_scale=None):
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    y, hf = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
+    return y.to(x.dtype), hf
+
+
+def plain_kernels():
+    """The zoo ops' plain versions in place of their CUDA launches (same
+    padding and layout code around them), for comparison only."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(flash_ops, "flash_attention_cuda", plain_flash))
+    stack.enter_context(mock.patch.object(ssd_ops, "ssd_scan_cuda", plain_ssd))
+    return stack
 
 
 def device_split(label: str, card: str, fn) -> list[str]:
@@ -1521,10 +1572,38 @@ def device_split(label: str, card: str, fn) -> list[str]:
     return [e.name for e in kern]
 
 
-def zoo_phase(card: str) -> list[dict]:
-    import contextlib
-    from unittest import mock
+def wall(fn, reps: int) -> float:
+    """Median seconds of ``reps`` synchronized calls of ``fn`` (host clock)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
 
+
+def serve_rates(label: str, card: str, model, params, batch: dict, max_len: int) -> None:
+    """Print prefill tokens/s (median of 3) and greedy decode tokens/s over
+    DECODE_STEPS steps of ``model`` on ``batch`` (host clock, synchronized)."""
+    b, s = batch["tokens"].shape
+    t_pre = wall(lambda: model.prefill(params, batch, max_len=max_len), reps=3)
+    logits, cache = model.prefill(params, batch, max_len=max_len)
+
+    def decode():
+        tok = logits.argmax(-1)
+        for t in range(DECODE_STEPS):
+            tok = model.decode_step(params, tok, cache, s + t)[0].argmax(-1)
+    t_dec = wall(decode, reps=1)
+    print(f"{label} B={b} S={s} on {card}: prefill {t_pre * 1e3:.1f} ms = "
+          f"{b * s / t_pre:.0f} tokens/s (median of 3); decode {DECODE_STEPS} steps "
+          f"{t_dec * 1e3:.1f} ms = {b * DECODE_STEPS / t_dec:.1f} tokens/s "
+          f"({t_dec / DECODE_STEPS * 1e3:.2f} ms a step)", flush=True)
+
+
+def zoo_phase(card: str) -> list[dict]:
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1532,35 +1611,8 @@ def zoo_phase(card: str) -> list[dict]:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.flash import ops as flash_ops
-    from repro_torch.kernels.flash.ref import reference_attention
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.kernels.ssd.ref import ssd_chunked
     from repro_torch.models.model import build_model, count_params
-
-    def plain_flash(q, k, v, *, causal=True, scale=None):
-        return reference_attention(q, k, v, causal=causal, scale=scale)
-
-    def plain_ssd(x, dt, A, B, C, *, chunk, in_scale=None):
-        y, hf = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
-        return y.to(x.dtype), hf
-
-    @contextlib.contextmanager
-    def plain_kernels():
-        """The ops' plain versions in place of their CUDA launches (same
-        padding and layout code around them), for comparison only."""
-        with mock.patch.object(flash_ops, "flash_attention_cuda", plain_flash), \
-                mock.patch.object(ssd_ops, "ssd_scan_cuda", plain_ssd):
-            yield
-
-    def wall(fn, reps: int) -> float:
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
 
     cfg = get_config(ZOO_ARCH)
     model = build_model(cfg)                                   # device: cuda
@@ -1605,30 +1657,18 @@ def zoo_phase(card: str) -> list[dict]:
 
     # ---- throughput, and where a prefill's device time goes ------------- #
     for (b, s), tokens in prompts.items():
-        t_pre = wall(lambda: model.prefill(params, {"tokens": tokens}, max_len=s + DECODE_STEPS),
-                     reps=3)
-        logits, cache = model.prefill(params, {"tokens": tokens}, max_len=s + DECODE_STEPS)
-
-        def decode(logits=logits, cache=cache):
-            tok = logits.argmax(-1)
-            for t in range(DECODE_STEPS):
-                logits, _ = model.decode_step(params, tok, cache, s + t)
-                tok = logits.argmax(-1)
-        t_dec = wall(decode, reps=1)
-        print(f"zoo serve B={b} S={s} on {card}: prefill {t_pre * 1e3:.1f} ms = "
-              f"{b * s / t_pre:.0f} tokens/s (median of 3); decode {DECODE_STEPS} steps "
-              f"{t_dec * 1e3:.1f} ms = {b * DECODE_STEPS / t_dec:.1f} tokens/s "
-              f"({t_dec / DECODE_STEPS * 1e3:.2f} ms a step)", flush=True)
-        del cache, logits
+        serve_rates("zoo serve", card, model, params, {"tokens": tokens}, s + DECODE_STEPS)
     b, s = SERVE[0]
     names = device_split(f"zoo prefill B={b} S={s}", card, lambda: model.prefill(
         params, {"tokens": prompts[(b, s)]}, max_len=s + DECODE_STEPS))
     if names:   # bf16 inputs run the tensor-core templates, and only those
         ran = {k: sum(k in n for n in names) for k in ("flash_fwd_bf16", "flash_fwd_f32",
-                                                       "ssd_scan_bf16", "ssd_scan_f32")}
+                                                       "ssd_scan_bf16", "ssd_scan_f32",
+                                                       "ssd_scan_tiled")}
         print(f"zoo prefill B={b} S={s}: kernel templates launched {ran}", flush=True)
         check(ran == {"flash_fwd_bf16": PER_PREFILL["flash_fwd"], "flash_fwd_f32": 0,
-                      "ssd_scan_bf16": PER_PREFILL["ssd_scan"], "ssd_scan_f32": 0},
+                      "ssd_scan_bf16": PER_PREFILL["ssd_scan"], "ssd_scan_f32": 0,
+                      "ssd_scan_tiled": 0},
               f"bf16 prefill ran {ran}, expected only the bf16 templates")
     logits, cache = model.prefill(params, {"tokens": prompts[(b, s)]}, max_len=s + DECODE_STEPS)
     device_split(f"zoo decode step B={b} kv_len={s}", card,
@@ -1759,6 +1799,343 @@ def zoo_phase(card: str) -> list[dict]:
     del m6, p6
     torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------- #
+# the models ingest traces, served: whisper-tiny (B3) and xlstm-350m (B4)
+# ---------------------------------------------------------------------- #
+INGEST_ARCHS = ("whisper-tiny", "xlstm-350m")
+INGEST_BENCH = ROOT / "BENCH_ingest.json"
+INGEST_HASHES = ROOT / "tests" / "golden" / "torch_ingest_hashes.json"
+INGEST_NODES = (12, 64)
+# (batch, prompt tokens, max_len) of the served runs; whisper also takes 1500 frames
+SERVED = {"whisper-tiny": (2, 64, 80), "xlstm-350m": (2, 1024, 1024 + DECODE_STEPS)}
+# launches a prefill: whisper 4 encoder + 4 decoder self + 4 cross (B3), by shape;
+# xlstm 12 mLSTM layers x (numerator P = 512, normalizer P = 1) (B4)
+SERVED_PER_PREFILL = {
+    "whisper-tiny": {"flash_fwd": {"encoder": 4, "decoder self": 4, "cross": 4}},
+    "xlstm-350m": {"ssd_scan": {"numerator": 12, "normalizer": 12}},
+}
+FLASH_SRC, SSD_SRC = ("src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
+                      "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu")
+
+
+def launch_shapes(log: list):
+    """The zoo ops' CUDA wrappers, each call's shape class appended to
+    ``log`` before the real wrapper launches (and counts) its kernel."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    real_flash, real_ssd = flash_ops.flash_attention_cuda, ssd_ops.ssd_scan_cuda
+
+    def flash(q, k, v, *, causal=True, scale=None):
+        kind = ("decoder self" if causal else "encoder" if q.shape[2] == k.shape[2] else "cross")
+        log.append(("flash_fwd", kind))
+        return real_flash(q, k, v, causal=causal, scale=scale)
+
+    def ssd(x, dt, A, B, C, *, chunk, in_scale=None):
+        log.append(("ssd_scan", "normalizer" if x.shape[-1] == 1 else "numerator"))
+        return real_ssd(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(flash_ops, "flash_attention_cuda", flash))
+    stack.enter_context(mock.patch.object(ssd_ops, "ssd_scan_cuda", ssd))
+    return stack
+
+
+def served_models_phase(card: str) -> list[dict]:
+    """whisper-tiny and xlstm-350m served at full width on the card, their
+    launches counted; one full-width unit of each in float32 held to the
+    plain path; B3 and B4 at these paths' shapes held to their plain
+    versions and timed (see the module docstring, items 15-17)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models.model import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def inputs(cfg, b, s, dtype):
+        out = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")}
+        if cfg.family == "audio":
+            out["audio_embed"] = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                              device="cuda").to(dtype)
+        return out
+
+    launched: dict[str, dict] = {}
+    for arch, (b, s, max_len) in SERVED.items():
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init_params(seed=0)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        batch = inputs(cfg, b, s, torch.bfloat16)
+        want = SERVED_PER_PREFILL[arch]
+        # ---- the path, counted: prefill then greedy decode ------------- #
+        for k in kbuild.LAUNCHES:
+            kbuild.LAUNCHES[k] = 0
+        log: list = []
+        with launch_shapes(log):
+            logits, cache = model.prefill(params, batch, max_len=max_len)
+            torch.cuda.synchronize()
+            pre = {k: kbuild.LAUNCHES[k] for k in ("flash_fwd", "ssd_scan")}
+            n_pre = len(log)
+            seq, tok = [logits], logits.argmax(-1)
+            for t in range(DECODE_STEPS):
+                logits, cache = model.decode_step(params, tok, cache, s + t)
+                seq.append(logits)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+        dec = {k: kbuild.LAUNCHES[k] - pre[k] for k in pre}
+        by_shape = {}
+        for kern, kind in log[:n_pre]:
+            by_shape.setdefault(kern, {}).setdefault(kind, 0)
+            by_shape[kern][kind] += 1
+        out = torch.cat(seq, dim=1).float()
+        print(f"{arch} served on {card}: full config ({cfg.n_layers} layers"
+              + (f" + {cfg.encoder_layers} encoder, {cfg.encoder_seq} frames" if cfg.encoder_layers
+                 else "") + f", d_model {cfg.d_model}, {cfg.dtype}, seeded weights drawn in "
+              f"{t_init:.2f} s), B={b} S={s}: prefill launches {pre} by shape {by_shape}, "
+              f"{DECODE_STEPS} decode steps launches {dec}; logits {tuple(out.shape)}", flush=True)
+        want_pre = {k: sum(want.get(k, {}).values()) for k in pre}
+        check(pre == want_pre and by_shape == want and len(log) == n_pre,
+              f"{arch} prefill: launches {pre} by shape {by_shape}, expected {want}")
+        check(not any(dec.values()), f"{arch} decode launched kernels {dec}")
+        check(out.shape == (b, DECODE_STEPS + 1, cfg.vocab_size)
+              and bool(torch.isfinite(out).all()), f"{arch}: logits not finite or misshapen")
+        launched[arch] = by_shape
+        del cache, logits, seq
+        serve_rates(f"{arch} serve", card, model, params, batch, max_len)
+        if arch == "whisper-tiny":   # bf16 runs the tensor-core template, and only that
+            names = device_split(f"{arch} prefill B={b} S={s}", card,
+                                 lambda: model.prefill(params, batch, max_len=max_len))
+            if names:
+                ran = {k: sum(k in n for n in names) for k in ("flash_fwd_bf16", "flash_fwd_f32")}
+                check(ran == {"flash_fwd_bf16": 12, "flash_fwd_f32": 0},
+                      f"{arch} bf16 prefill ran flash templates {ran}")
+        else:   # one of the 12 "xs" units (the whole prefill is ~250k launches to profile)
+            unit = build_model(cfg.scaled(n_layers=2))
+            uparams = unit.init_params(seed=0)
+            names = device_split(f"{arch} one xs unit, prefill B={b} S={s}", card,
+                                 lambda: unit.prefill(uparams, batch))
+            if names:
+                ran = sum("ssd_scan_tiled" in n for n in names)
+                check(ran == 2, f"{arch} xs unit ran {ran} ssd_scan_tiled kernels, expected 2")
+            del unit, uparams
+        del params, model, batch
+        torch.cuda.empty_cache()
+
+    # ---- one full-width unit of each in float32: kernels vs plain ------ #
+    for arch, kw, s, want_k in (
+            ("whisper-tiny", {"encoder_layers": 1, "n_layers": 1}, 64, {"flash_fwd": 3}),
+            ("xlstm-350m", {"n_layers": 2}, 1024, {"ssd_scan": 2})):
+        cfg = get_config(arch).scaled(dtype="float32", **kw)
+        model = build_model(cfg)
+        params = model.init_params(seed=1)
+        batch = inputs(cfg, 1, s, torch.float32)
+        before = dict(kbuild.LAUNCHES)
+        got, _ = model.prefill(params, batch)
+        mid = dict(kbuild.LAUNCHES)
+        with plain_kernels():
+            ref, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        ran = {k: mid[k] - before[k] for k in ("flash_fwd", "ssd_scan") if mid[k] > before[k]}
+        check(ran == want_k and kbuild.LAUNCHES == mid,
+              f"{arch} f32 unit: launches {ran}, expected {want_k}")
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        check(err <= TOL_ZOO_F32 * max(1.0, scale) and torch.equal(got.argmax(-1), ref.argmax(-1)),
+              f"{arch} f32 unit: kernel path and plain path differ (max |err| {err:.3e}, "
+              f"|logits| {scale:.3f})")
+        unit = "e" * cfg.encoder_layers + "c" * cfg.n_layers if cfg.encoder_layers else \
+            cfg.pattern()
+        print(f"{arch} f32 unit ({unit}, d_model {cfg.d_model}), B=1 S={s}: kernel path vs "
+              f"plain path on the card, logits max "
+              f"|err| {err:.3e} (|logits| up to {scale:.3f}, tolerance {TOL_ZOO_F32} x max(1, "
+              f"|logits|)), greedy tokens equal", flush=True)
+        del model, params
+        torch.cuda.empty_cache()
+
+    # ---- B3 and B4 at these paths' shapes, against their plain versions  #
+    def within(got, want, tol):
+        atol, rtol = tol
+        got, want = got.float(), want.float()
+        return bool(((got - want).abs() <= atol + rtol * want.abs()).all()), \
+            float((got - want).abs().max())
+
+    rows = []
+    wcfg = get_config("whisper-tiny")
+    b, s = SERVED["whisper-tiny"][:2]
+    h, dh, se = wcfg.n_heads, wcfg.resolved_head_dim, wcfg.encoder_seq
+    for kind, sq, sk, causal in (("encoder", se, se, False), ("cross", s, se, False),
+                                 ("decoder self", s, s, True)):
+        q = torch.randn((b, sq, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((b, sk, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((b, sk, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))     # the path's layout
+
+        def call(q=q, k=k, v=v, causal=causal):
+            return flash_ops.flash_attention(q, k, v, causal=causal)
+        got = call()
+        with plain_kernels():
+            ref = call()
+            plain_ms = cuda_ms(call, iters=3)
+        torch.cuda.synchronize()
+        ok, err = within(got, ref, TOL_BF16_OUT)
+        check(ok, f"flash whisper {kind}: kernel and plain version differ (max |err| {err:.3e})")
+        ev_ms = cuda_ms(call, iters=20)
+        dev_ms = device_ms(call, "flash_fwd_bf16", iters=10)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), iters=20)
+        b_ms, b_by = bound(*flash_work(b, h, h, sq, sk, dh, dh, 2, causal), BF16_FLOPS_PER_S)
+        print(f"flash_fwd whisper-tiny {kind} B={b} H={h} Sq={sq} Sk={sk} D={dh} bf16 "
+              f"{'causal' if causal else 'non-causal'} on {card}: max |err| {err:.3e} (tolerance "
+              f"atol, rtol {TOL_BF16_OUT}); kernel {ev_ms:.4f} ms (CUDA events; device "
+              f"{dev_ms:.4f} ms), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+        rows.append({"name": f"flash_fwd (whisper-tiny {kind})", "route": "cuda",
+                     "source": FLASH_SRC, "replaces": "src/repro/kernels/flash/kernel.py:43",
+                     "launches": launched["whisper-tiny"]["flash_fwd"][kind],
+                     "max_abs_err": err, "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+
+    xcfg = get_config("xlstm-350m")
+    b, s = SERVED["xlstm-350m"][:2]
+    nh = xcfg.n_heads
+    ph = xcfg.ssm.expand * xcfg.d_model // nh
+    chunk = xcfg.ssm.chunk
+    gates = torch.randn((b, s, 2 * nh), generator=gen, device="cuda")
+    i_g, f_g = torch.sigmoid(gates[..., :nh]), torch.sigmoid(gates[..., nh:] + 2.0)
+    dtv = -torch.log(f_g.clamp(1e-6, 1 - 1e-6))
+    A = torch.ones((nh,), device="cuda")
+    kq = torch.randn((b, s, 2, nh, ph), generator=gen, device="cuda").to(torch.bfloat16)
+    kk, qq = kq[:, :, 0] * ph ** -0.5, kq[:, :, 1]
+    for kind, p in (("numerator", ph), ("normalizer", 1)):
+        x = (torch.randn((b, s, nh, p), generator=gen, device="cuda").to(torch.bfloat16)
+             if p > 1 else torch.ones((b, s, nh, 1), dtype=torch.bfloat16, device="cuda"))
+
+        def call(x=x):
+            return ssd_ops.ssd_scan(x, dtv, A, kk, qq, chunk=chunk, in_scale=i_g)
+        y, hf = call()
+        with plain_kernels():
+            wy, wh = call()
+            plain_ms = cuda_ms(call, iters=2)
+        torch.cuda.synchronize()
+        ok_y, err_y = within(y, wy, TOL_BF16_OUT)
+        ok_h, err_h = within(hf, wh, TOL_SSD_STATE)
+        check(ok_y and ok_h, f"ssd xlstm {kind}: kernel and plain version differ "
+              f"(y {err_y:.3e}, state {err_h:.3e})")
+        ev_ms = cuda_ms(call, iters=10)
+        dev_ms = device_ms(call, "ssd_scan_tiled", iters=5)
+        b_ms, b_by = bound(*ssd_work(b, s, nh, p, nh, ph, chunk, 2, True), BF16_FLOPS_PER_S)
+        print(f"ssd_scan xlstm-350m {kind} Bt={b} S={s} H=G={nh} N={ph} P={p} chunk {chunk} bf16 "
+              f"(tiled template) on {card}: max |err| y {err_y:.3e} (tolerance atol, rtol "
+              f"{TOL_BF16_OUT}), state {err_h:.3e} (tolerance {TOL_SSD_STATE}); kernel "
+              f"{ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by})", flush=True)
+        rows.append({"name": f"ssd_scan (xlstm-350m {kind}, tiled)", "route": "cuda",
+                     "source": SSD_SRC, "replaces": "src/repro/kernels/ssd/kernel.py:41",
+                     "launches": launched["xlstm-350m"]["ssd_scan"][kind],
+                     "max_abs_err": max(err_y, err_h), "ms": reported_ms(ev_ms, dev_ms),
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+    return rows
+
+
+def ingest_phase(card: str) -> None:
+    """Ingest both models' full configs, schedule them through B1 and score
+    the eval's ingest/k4 cell on the card, each held to the CPU (see the
+    module docstring, items 18-20)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RespectScheduler, validate_graph, validate_monotone
+    from repro_torch.eval import ExactOracle, diff_results, ingest_scenarios, run_scenario
+    from repro_torch.eval.__main__ import BB_BUDGET_S, BB_MAX_N
+    from repro_torch.ingest import coarsen_program, ingest_model, trace_model
+    from repro_torch.kernels.ptr import ops
+
+    bench = {(r["arch"], r["n_nodes"]): r for r in json.loads(INGEST_BENCH.read_text())["reports"]}
+    golden = json.loads(INGEST_HASHES.read_text())
+    seq = golden["seq_len"]
+    for arch in INGEST_ARCHS:
+        again = trace_model(arch, smoke=False, seq_len=seq).program   # a second, uncached trace
+        for n in INGEST_NODES:
+            t0 = time.perf_counter()
+            res = ingest_model(arch, n, smoke=False, seq_len=seq)
+            t_ing = time.perf_counter() - t0
+            rep, want, g = res.report, bench[(arch, n)], res.graph
+            validate_graph(g)
+            stable = coarsen_program(again, n, model_name=g.model_name).content_hash()
+            check(rep["param_bytes_total"] == want["param_bytes_total"],
+                  f"ingest {arch}/{n}: param bytes {rep['param_bytes_total']}, BENCH_ingest.json "
+                  f"{want['param_bytes_total']}")
+            check(rep["n_warnings"] == 0 and g.n <= n and g.max_in_degree <= 6,
+                  f"ingest {arch}/{n}: warnings {rep['warnings']}, {g.n} nodes, in-degree "
+                  f"{g.max_in_degree}")
+            check(stable == rep["graph_hash"], f"ingest {arch}/{n}: not bit-stable")
+            check(rep["graph_hash"] == golden["graph_hash"][arch][str(n)],
+                  f"ingest {arch}/{n}: graph hash differs from the CPU's ({INGEST_HASHES.name})")
+            print(f"ingest {arch} full config, seq {seq}, {n} nodes: {t_ing:.2f} s "
+                  f"({rep['n_records']} records, notes {rep['notes']}); param bytes "
+                  f"{rep['param_bytes_total']:.0f} (BENCH_ingest.json "
+                  f"{want['param_bytes_total']:.0f}); flops {rep['flops_total']:.0f} "
+                  f"(BENCH_ingest.json {want['flops_total']:.0f}, ratio "
+                  f"{rep['flops_total'] / want['flops_total']:.4f}); 0 warnings; {g.n} nodes, "
+                  f"{g.num_edges} edges; hash equal to the CPU's and across two traces",
+                  flush=True)
+
+    sched = RespectScheduler.from_release()
+    cpu = RespectScheduler.from_release(device="cpu")
+    for arch in INGEST_ARCHS:
+        for n in INGEST_NODES:
+            for k in ops.LAUNCHES:
+                ops.LAUNCHES[k] = 0
+            res = sched.schedule_model(arch, STAGES, n_nodes=n, smoke=False, use_cache=False)
+            torch.cuda.synchronize()
+            ran = dict(ops.LAUNCHES)
+            want = cpu.schedule_model(arch, STAGES, n_nodes=n, smoke=False, use_cache=False)
+            g = ingest_model(arch, n, smoke=False, max_deg=sched.max_deg).graph
+            check(ran["ptr_decode_cluster"] == 1 and ran["ptr_decode_block"] == 0
+                  and ran["ptr_step"] == 0, f"schedule_model {arch}/{n}: launches {ran}")
+            check(np.array_equal(res["order"], want["order"])
+                  and np.array_equal(res["assignment"], want["assignment"]),
+                  f"schedule_model {arch}/{n}: card and CPU plain path differ")
+            check(validate_monotone(g, res["assignment"], STAGES),
+                  f"schedule_model {arch}/{n}: not dependency-valid")
+            print(f"schedule_model {arch} (full config, {n} nodes) k={STAGES} on {card}: "
+                  f"B1 (ptr_decode_cluster) {ran['ptr_decode_cluster']} launch; nodes a stage "
+                  f"{np.bincount(res['assignment'], minlength=STAGES).tolist()}, assignment "
+                  f"equal to the CPU plain path's, dependency-valid", flush=True)
+
+    sc = ingest_scenarios()[0]
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    rec = run_scenario(sc, sched, ExactOracle(), bb_max_n=BB_MAX_N, bb_budget_s=BB_BUDGET_S)
+    torch.cuda.synchronize()
+    t_cell = time.perf_counter() - t0
+    ran = dict(ops.LAUNCHES)
+    want = run_scenario(sc, cpu, ExactOracle(device="cpu"), bb_max_n=BB_MAX_N,
+                        bb_budget_s=BB_BUDGET_S)
+    diffs = diff_results(json.loads(json.dumps(rec)), json.loads(json.dumps(want)),
+                         rtol=EVAL_RTOL)
+    check(ran["ptr_decode_cluster"] > 0 and ran["ptr_step"] == 0,
+          f"eval {sc.name}: launches {ran}")
+    check(not diffs, f"eval {sc.name}: the card differs from the CPU in {diffs[:5]}")
+    flags = [(gr["model"], gr["respect_gap"], gr["respect_match"], gr["respect_valid"])
+             for gr in rec["graphs"]]
+    check(all(valid for *_, valid in flags) and rec["oracle"]["parity"],
+          f"eval {sc.name}: {flags}, oracle parity {rec['oracle']['parity']}")
+    print(f"eval {sc.name} on {card} ({t_cell:.2f} s; B1 {ran['ptr_decode_cluster']} launches): "
+          f"every non-timing field equal to the CPU's; respect (model, gap, match, valid) "
+          f"{flags}; oracle parity {rec['oracle']['parity']}", flush=True)
 
 
 def run() -> dict:
@@ -2050,6 +2427,10 @@ def run() -> dict:
     del net, wide
     kernels += zoo_phase(card)
 
+    # ---- whisper-tiny and xlstm-350m served; ingest, schedule_model ---- #
+    kernels += served_models_phase(card)
+    ingest_phase(card)
+
     # ---- the heterogeneous batch: B2 at the path's own masks, time split  #
     # after the zoo, with the other profiles of whole batches (see below)
     net = sched.net
@@ -2120,7 +2501,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
-            and SEEDED_GOLDEN.exists() and TRAIN_GOLDEN.exists() and EVAL_BENCH.exists()):
+            and SEEDED_GOLDEN.exists() and TRAIN_GOLDEN.exists() and EVAL_BENCH.exists()
+            and INGEST_BENCH.exists() and INGEST_HASHES.exists()):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))

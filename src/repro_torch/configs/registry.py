@@ -12,12 +12,14 @@ import importlib
 from .base import ModelConfig, SHAPES, ShapeConfig, shape_applicable  # noqa: F401
 
 _MODULES = {
+    "xlstm-350m": "xlstm_350m",
+    "whisper-tiny": "whisper_tiny",
     "zamba2-7b": "zamba2_7b",
 }
 
 #: the reference's archs that the port does not build yet
 NOT_PORTED = (
-    "xlstm-350m", "whisper-tiny", "qwen3-32b", "qwen3-14b", "minicpm3-4b",
+    "qwen3-32b", "qwen3-14b", "minicpm3-4b",
     "internlm2-1.8b", "kimi-k2-1t-a32b", "qwen3-moe-235b-a22b",
     "llava-next-mistral-7b",
 )

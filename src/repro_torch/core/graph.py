@@ -89,6 +89,10 @@ class CompGraph:
                 yield (u, v)
 
     @property
+    def num_edges(self) -> int:
+        return sum(len(p) for p in self.parents)
+
+    @property
     def max_in_degree(self) -> int:
         return max((len(p) for p in self.parents), default=0)
 
@@ -106,6 +110,37 @@ class CompGraph:
     @property
     def depth(self) -> int:
         return int(self.levels.max()) + 1 if self.n else 0
+
+    @classmethod
+    def from_edges(cls, n: int, edges: list[tuple[int, int]], flops, param_bytes, out_bytes,
+                   names=None, model_name: str = "graph") -> "CompGraph":
+        """Build from an arbitrary edge list, relabelling the nodes into the
+        reference's topological order (a stack-driven Kahn sort)."""
+        indeg = np.zeros(n, dtype=np.int64)
+        ch: list[list[int]] = [[] for _ in range(n)]
+        for u, v in edges:
+            if u == v:
+                raise ValueError("self edge")
+            ch[u].append(v)
+            indeg[v] += 1
+        order: list[int] = []
+        stack = [v for v in range(n) if indeg[v] == 0]
+        while stack:
+            u = stack.pop()
+            order.append(u)
+            for w in ch[u]:
+                indeg[w] -= 1
+                if indeg[w] == 0:
+                    stack.append(w)
+        if len(order) != n:
+            raise ValueError("graph has a cycle")
+        pos = {old: new for new, old in enumerate(order)}
+        parents: list[list[int]] = [[] for _ in range(n)]
+        for u, v in edges:
+            parents[pos[v]].append(pos[u])
+        names = [names[i] for i in order] if names is not None else None
+        return cls(parents, np.asarray(flops)[order], np.asarray(param_bytes)[order],
+                   np.asarray(out_bytes)[order], names, model_name)
 
     def parent_matrix(self, max_deg: int) -> np.ndarray:
         """(n, max_deg) int32 matrix of parent indices, padded with -1."""
@@ -152,6 +187,18 @@ class CompGraph:
             h.update(np.ascontiguousarray(arr, dtype=np.float64).tobytes())
         h.update("\x00".join(self.names).encode("utf-8"))
         return h.hexdigest()
+
+
+    def stats(self) -> dict:
+        return {
+            "model": self.model_name,
+            "V": self.n,
+            "E": self.num_edges,
+            "deg": self.max_in_degree,
+            "depth": self.depth,
+            "param_MB": float(self.param_bytes.sum() / 2**20),
+            "flops_G": float(self.flops.sum() / 1e9),
+        }
 
 
 def asap_levels(parents: list[list[int]]) -> np.ndarray:

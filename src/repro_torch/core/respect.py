@@ -1,6 +1,8 @@
 """RespectScheduler — the deployable facade (paper Fig. 1a, steps 1-4).
 
-``schedule_many(graphs, n_stages)`` is the serving path: cache misses are
+``schedule_many(graphs, n_stages)`` is the serving path (and
+``schedule_model(arch, n_stages)`` the same path for a real model's
+ingested graph): cache misses are
 grouped into power-of-two size buckets and each bucket runs embed ->
 pointer-network decode -> segmentation DP on the device and repair on the
 host (:mod:`repro_torch.core.batching`).  A lock-guarded content-hash LRU
@@ -154,6 +156,21 @@ class RespectScheduler:
         if return_timing:
             res["t_total_s"] = time.perf_counter() - t0
         return res
+
+    def schedule_model(self, arch: str, n_stages: int = 4, *, n_nodes: int = 32,
+                       smoke: bool = True, kind: str = "prefill",
+                       system: PipelineSystem | None = None,
+                       use_cache: bool = True) -> ScheduleResult:
+        """Schedule a REAL registry model end to end: trace it on the meta
+        device, record its operations, coarsen to at most ``n_nodes``
+        super-nodes (:mod:`repro_torch.ingest`), then run the CompGraph
+        through :meth:`schedule` — the same engine, the same cache.  The
+        ingest report rides along under ``result["ingest"]``."""
+        from ..ingest import ingest_model   # deferred: pulls in the model zoo
+        res = ingest_model(arch, n_nodes=n_nodes, smoke=smoke, kind=kind, max_deg=self.max_deg)
+        out = self.schedule(res.graph, n_stages, system, use_cache=use_cache)
+        out["ingest"] = dict(res.report)
+        return out
 
     def load_kernels(self) -> None:
         """On a CUDA scheduler, build and load the kernels the miss path

@@ -80,7 +80,7 @@ __all__ = [
 ]
 
 #: what data-parallel training waits for
-_DP_ITEM = "ROADMAP.md queue A item 5, left over: data parallelism over torch.distributed"
+_DP_ITEM = "waits for data parallelism over torch.distributed, not ported yet"
 
 #: the profiler ranges (each ``rl.<name>``): the labeller of a pack, the
 #: uniforms of the sampled pass, the encoder and plain decode of the

@@ -17,8 +17,9 @@ schedule or a generalization-tier failure.
 The scheduler is the release at ``--release`` or the newest discovered one
 (``checkpoints/respect-v*``, seeded weights with a warning if none).  It
 runs on the card unless ``--device`` names another.  The full (non-smoke)
-uniform grid holds the ingest cells, which the port cannot build yet, so it
-is refused up front.
+uniform grid holds the ingest cell ``ingest/k4``: whisper-tiny and
+xlstm-350m traced on the meta device (:mod:`repro_torch.ingest`) and
+coarsened to 12 nodes.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from .scenarios import hetero_grid, scenario_grid
 
 BB_MAX_N = 12          # bb-refine the optimum on graphs up to this size
 BB_BUDGET_S = 2.0
-FULL_GRID_ITEM = "ROADMAP.md queue A item 5 (ingest for torch models)"
 
 
 def emit(name: str, us_per_call: float, derived: str) -> str:
@@ -74,9 +74,6 @@ def run(smoke: bool = False, out_json: str | Path | None = None, check: bool = F
         hetero_only: bool = False, release: str | Path | None = None, device=None) -> dict:
     """Run the chosen tiers; returns the ``BENCH_eval.json``-shaped payload
     of what ran."""
-    if not smoke and not gen_only and not hetero_only:
-        raise SystemExit(f"the full grid holds the ingest cells; ingest is not ported yet: "
-                         f"{FULL_GRID_ITEM}.  Pass --smoke, --gen-only or --hetero-only.")
     sched = RespectScheduler.from_release(release, device=device)
     oracle = ExactOracle(device=sched.device)
     meta = {"smoke": smoke, "trained_agent": sched.release is not None, "bb_max_n": BB_MAX_N}

@@ -22,11 +22,12 @@ pack under the repo-wide ``max_deg``):
   end of the training distribution).
 
 The fourth population is **ingested** graphs (family ``ingest``): real
-zoo architectures traced into coarsened CompGraphs.  The port has no
-ingest yet (ROADMAP.md queue A item 5), so an ingest scenario's
-``build()`` raises :class:`NotImplementedError`; the scenario lists stay
-the reference's, so the full grid still names its ``ingest/k4`` cell.
-The smoke grid (the checked-in ``BENCH_eval.json`` baseline) holds none.
+zoo architectures traced through :mod:`repro_torch.ingest` (a shapes-only
+torch trace -> per-operation records -> coarsened CompGraph).  The port's
+trace is its own (XLA fuses, the port's records do not), so its graphs are
+not the reference's; the scenario lists are.  Ingest scenarios join the
+FULL grid only; the smoke grid (the checked-in ``BENCH_eval.json``
+baseline) holds none.
 """
 
 from __future__ import annotations
@@ -169,9 +170,12 @@ class Scenario:
             pool, _, _ = traffic_pool(self.smoke, rng)
             return pool
         if self.family == "ingest":
-            raise NotImplementedError(
-                f"scenario {self.name!r}: ingest is not ported yet (ROADMAP.md queue A "
-                "item 5: ingest for torch models)")
+            # deferred import: ingestion pulls in the model zoo, which the
+            # synthetic grid never needs
+            from ..ingest import ingest_model
+            return [ingest_model(a, n_nodes=self.n_nodes, smoke=self.smoke,
+                                 seq_len=INGEST_SEQ_LEN).graph
+                    for a in self.archs]
         if self.family in HETERO_FAMILIES:
             # the hetero axis varies the SYSTEM, not the graphs: a mixed
             # draw over all synthetic families keeps the pool comparable

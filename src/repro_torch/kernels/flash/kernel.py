@@ -18,13 +18,21 @@ import torch
 
 from .. import build
 
-__all__ = ["flash_attention_cuda", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention_cuda", "attention_flops", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256      # FL_MAX_D in csrc/flash_fwd.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+
+
+def attention_flops(b: int, hq: int, sq: int, sk: int, d: int, dv: int, causal: bool) -> float:
+    """The two products' operations over the (query, key) pairs the mask
+    keeps: every pair, or (causal, queries at the end of the keys) the pairs
+    on and below the diagonal."""
+    pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2 if causal else sq * sk
+    return 2.0 * b * hq * pairs * (d + dv)
 
 
 def _inner_contiguous(x: torch.Tensor) -> torch.Tensor:

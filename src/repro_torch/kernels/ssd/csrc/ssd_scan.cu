@@ -18,7 +18,7 @@
 // final state written once take 0.037 ms at 3.35 TB/s, against 0.011 ms for
 // the four products' lower-triangle work at 989 TFLOP/s.
 //
-// Two templates, chosen by dtype in ssd_scan_launch:
+// For N and P up to 128, two templates, chosen by dtype in ssd_scan_launch:
 //
 // * bfloat16 (ssd_scan_bf16_kernel, the served model's path): tensor cores
 //   and asynchronous copies.  The state's P columns evolve independently
@@ -60,6 +60,23 @@
 //   T, T = ceil(max(Q, N, P) / 16)), so each shared load feeds T FMAs; the (C
 //   B^T o L)(x) product stops at the thread's last row, since L is lower
 //   triangular.
+//
+// A third template, chosen by shape, takes N or P above 128 (xLSTM's mLSTM:
+// chunk 64, N = P = 512 for the numerator and P = 1 for the normalizer; both
+// dtypes): ssd_scan_tiled_kernel, on the CUDA cores in float32 whatever the
+// input type.  The two templates above keep a chunk x N tile of B and C, and
+// the whole (N, P) state, on chip; at N = 512 that does not fit in 227 KB.
+// Here a block owns a slice of 32 state columns (one (slice, head, batch)
+// each: 128 blocks at the mLSTM's numerator, 8 at its normalizer), keeps its
+// (N, 32) float32 state slice in shared memory (66 KB at N = 512), and walks
+// N in tiles of 64: C B^T and C h are sums over N, accumulated tile by tile
+// in registers, and the state update is separable in N, so each tile of 64
+// state rows is updated as soon as C h has read it.  Every block recomputes
+// its chunk's C B^T (the slices do not share it).  Simple and correct, not
+// fast: at the numerator's served shapes (Bt = 2, S = 1024, H = 4, bf16) the
+// bound is 0.013 ms of bytes (42 MB), while the 9.1 GFLOP of the four
+// products take 0.14 ms at the CUDA cores' float32 rate (67 TFLOP/s) before
+// the recomputed C B^T (16 slices) adds its share.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -650,20 +667,212 @@ static int ssd_dispatch_bf16(const SsdParams& p, int Bt, void* stream) {
                    : ssd_launch_bf16<128, 128>(p, flags, Bt, stream);
 }
 
+// ---------------------------------------------------------------------------
+// tiled template: N or P above SSD_MAX_DIM, float32 math on the CUDA cores
+// ---------------------------------------------------------------------------
+#define ST_PB 32            // state columns (of P) a block owns
+#define ST_NT 64            // rows of N in one tile of B and C
+#define ST_MAX_DIM 512      // N and P the tiled template takes
+
+static size_t st_smem_floats(int Q, int N) {
+  return (size_t)N * (ST_PB + 1) + (size_t)Q * (ST_PB + 1) + 2 * (size_t)Q * (ST_NT + 1) +
+         (size_t)Q * (Q + 1) + 2 * (size_t)Q;
+}
+
+__device__ __forceinline__ float st_load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float st_load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// acc[a][c] += sum_{k < K} fa(i, k) fb(k, j) for i = ty + 16 a < M (a < TA) and
+// j = tx + 16 c < Nn (c < TB).  Out-of-range rows and columns read zeros.
+template <int TA, int TB, class FA, class FB>
+__device__ __forceinline__ void st_mm(float (&acc)[TA][TB], int M, int Nn, int K, FA fa, FB fb) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  for (int k = 0; k < K; ++k) {
+    float av[TA], bv[TB];
+#pragma unroll
+    for (int a = 0; a < TA; ++a) {
+      const int i = ty + 16 * a;
+      av[a] = i < M ? fa(i, k) : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < TB; ++c) {
+      const int j = tx + 16 * c;
+      bv[c] = j < Nn ? fb(k, j) : 0.0f;
+    }
+#pragma unroll
+    for (int a = 0; a < TA; ++a)
+#pragma unroll
+      for (int c = 0; c < TB; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+  }
+}
+
+// TQ: ceil(Q / 16) rows of the chunk a thread row covers
+template <class T, int TQ>
+__global__ void __launch_bounds__(SSD_THREADS) ssd_scan_tiled_kernel(SsdParams p) {
+  extern __shared__ float smem[];
+  constexpr int LDP = ST_PB + 1, LDT = ST_NT + 1;
+  const int Q = p.Q, N = p.N, P = p.P, LDG = Q + 1;
+  float* Hs = smem;              // N x LDP  the state slice
+  float* Xs = Hs + N * LDP;      // Q x LDP  in_scale * x, the slice's columns
+  float* Ct = Xs + Q * LDP;      // Q x LDT  a tile of C
+  float* Bt = Ct + Q * LDT;      // Q x LDT  the same tile of B
+  float* Gs = Bt + Q * LDT;      // Q x LDG  (C B^T) o L
+  float* la = Gs + Q * LDG;      // Q        cumulative log decay
+  float* Ws = la + Q;            // Q        exp(la_Q - la)
+
+  const int p0 = blockIdx.x * ST_PB, h = blockIdx.y, b = blockIdx.z;
+  const int pw = min(ST_PB, P - p0);
+  const int g = h / (p.H / p.G);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const float A = __ldg(p.A + h);
+  const T* x = (const T*)p.x + b * p.sxb + h * p.sxh + p0;
+  const float* dt = p.dt + b * p.sdb + h * p.sdh;
+  const float* sc = p.sc + b * p.ssb + h * p.ssh;
+  const T* Bg = (const T*)p.B + b * p.sBb + g * p.sBg;
+  const T* Cg = (const T*)p.C + b * p.sCb + g * p.sCg;
+  T* y = (T*)p.y + b * p.syb + h * p.syh + p0;
+
+  for (int idx = tid; idx < N * LDP; idx += SSD_THREADS) Hs[idx] = 0.0f;
+
+  float gacc[TQ][TQ], yacc[TQ][2], uacc[4][2];
+  const int nchunks = p.S / Q;
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int s0 = ch * Q;
+    // the previous chunk's readers of Xs, Gs, la and Ws are done (and Hs is zeroed)
+    __syncthreads();
+    for (int i = tid; i < Q; i += SSD_THREADS) la[i] = -A * __ldg(dt + (s0 + i) * p.sds);
+    for (int idx = tid; idx < Q * ST_PB; idx += SSD_THREADS) {
+      const int i = idx / ST_PB, j = idx - i * ST_PB;
+      Xs[i * LDP + j] =
+          j < pw ? __ldg(sc + (s0 + i) * p.sss) * st_load(x + (s0 + i) * p.sxs + j) : 0.0f;
+    }
+    __syncthreads();
+    if (tid < 32) {  // inclusive scan of la: a run per lane, then across the warp
+      const int per = (Q + 31) / 32, i0 = tid * per, i1 = min(Q, i0 + per);
+      float run = 0.0f;
+      for (int i = i0; i < i1; ++i) {
+        run += la[i];
+        la[i] = run;
+      }
+      float incl = run;
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, incl, o);
+        if (tid >= o) incl += t;
+      }
+      for (int i = i0; i < i1; ++i) la[i] += incl - run;
+    }
+    __syncthreads();
+    const float la_last = la[Q - 1], decay = expf(la_last);
+    for (int i = tid; i < Q; i += SSD_THREADS) Ws[i] = expf(la_last - la[i]);  // read after a barrier
+
+#pragma unroll
+    for (int a = 0; a < TQ; ++a) {
+#pragma unroll
+      for (int c = 0; c < TQ; ++c) gacc[a][c] = 0.0f;
+      yacc[a][0] = yacc[a][1] = 0.0f;
+    }
+    for (int n0 = 0; n0 < N; n0 += ST_NT) {
+      const int nt = min(ST_NT, N - n0);
+      __syncthreads();  // the previous tile's readers of Ct and Bt are done
+      for (int idx = tid; idx < Q * ST_NT; idx += SSD_THREADS) {
+        const int i = idx / ST_NT, k = idx - i * ST_NT;
+        const bool in = k < nt;
+        Ct[i * LDT + k] = in ? st_load(Cg + (s0 + i) * p.sCs + n0 + k) : 0.0f;
+        Bt[i * LDT + k] = in ? st_load(Bg + (s0 + i) * p.sBs + n0 + k) : 0.0f;
+      }
+      __syncthreads();
+      // C B^T and C h, summed over this tile of N (h: the state entering the chunk)
+      st_mm<TQ, TQ>(gacc, Q, Q, nt, [&](int i, int k) { return Ct[i * LDT + k]; },
+                    [&](int k, int j) { return Bt[j * LDT + k]; });
+      st_mm<TQ, 2>(yacc, Q, pw, nt, [&](int i, int k) { return Ct[i * LDT + k]; },
+                   [&](int k, int j) { return Hs[(n0 + k) * LDP + j]; });
+      __syncthreads();  // every read of this tile's state rows is done
+      // the tile's state rows: h' = exp(la_Q) h + (B o w)^T (in_scale x)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) uacc[a][0] = uacc[a][1] = 0.0f;
+      st_mm<4, 2>(uacc, nt, pw, Q, [&](int i, int k) { return Bt[k * LDT + i] * Ws[k]; },
+                  [&](int k, int j) { return Xs[k * LDP + j]; });
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int n = ty + 16 * a, j = tx + 16 * c;
+          if (n < nt && j < pw) {
+            float* hv = Hs + (n0 + n) * LDP + j;
+            *hv = decay * *hv + uacc[a][c];
+          }
+        }
+    }
+    // Gs = (C B^T) o L; y = exp(la) o (C h) + Gs (in_scale x)
+#pragma unroll
+    for (int a = 0; a < TQ; ++a) {
+      const int i = ty + 16 * a;
+#pragma unroll
+      for (int c = 0; c < TQ; ++c) {
+        const int j = tx + 16 * c;
+        if (i < Q && j < Q) Gs[i * LDG + j] = j <= i ? gacc[a][c] * expf(la[i] - la[j]) : 0.0f;
+      }
+      const float e = i < Q ? expf(la[i]) : 0.0f;
+      yacc[a][0] *= e;
+      yacc[a][1] *= e;
+    }
+    __syncthreads();  // Gs is complete
+    const int kmax = min(Q, ty + 16 * (TQ - 1) + 1);  // L is lower triangular
+    st_mm<TQ, 2>(yacc, Q, pw, kmax, [&](int i, int k) { return Gs[i * LDG + k]; },
+                 [&](int k, int j) { return Xs[k * LDP + j]; });
+#pragma unroll
+    for (int a = 0; a < TQ; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = ty + 16 * a, j = tx + 16 * c;
+        if (i < Q && j < pw) st_store(y + (s0 + i) * p.sys + j, yacc[a][c]);
+      }
+  }
+  __syncthreads();
+  float* hout = p.hout + ((size_t)b * p.H + h) * N * P + p0;
+  for (int idx = tid; idx < N * pw; idx += SSD_THREADS) {
+    const int n = idx / pw, j = idx - n * pw;
+    hout[(size_t)n * P + j] = Hs[n * LDP + j];
+  }
+}
+
+template <class T, int TQ>
+static int ssd_launch_tiled(const SsdParams& p, int Bt, void* stream) {
+  const size_t smem = sizeof(float) * st_smem_floats(p.Q, p.N);
+  cudaError_t e = cudaFuncSetAttribute(ssd_scan_tiled_kernel<T, TQ>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.P + ST_PB - 1) / ST_PB, p.H, Bt);
+  ssd_scan_tiled_kernel<T, TQ><<<grid, SSD_THREADS, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+static int ssd_dispatch_tiled(const SsdParams& p, int Bt, void* stream) {
+  if (p.Q <= 16) return ssd_launch_tiled<T, 1>(p, Bt, stream);
+  if (p.Q <= 32) return ssd_launch_tiled<T, 2>(p, Bt, stream);
+  if (p.Q <= 64) return ssd_launch_tiled<T, 4>(p, Bt, stream);
+  return ssd_launch_tiled<T, 8>(p, Bt, stream);
+}
+
 // x (Bt, S, H, P), B and C (Bt, S, G, N) of one type (float32 or bfloat16,
 // is_bf16), dt and in_scale (Bt, S, H) float32, A (H,) float32; y (Bt, S, H, P)
 // of x's type, hout (Bt, H, N, P) float32 contiguous.  strides holds the
 // element strides over (batch, seq, head or group) of x, dt, in_scale, B, C
 // and y, in that order; each innermost dimension is contiguous.  S must be a
-// multiple of the chunk Q.  bfloat16 inputs take the tensor-core template,
-// float32 inputs the CUDA-core one.  Launches on the given stream; returns
-// cudaGetLastError() (0 on success).
+// multiple of the chunk Q (at most SSD_MAX_DIM).  N and P up to SSD_MAX_DIM:
+// bfloat16 inputs take the tensor-core template, float32 inputs the
+// CUDA-core one; N or P above it (up to ST_MAX_DIM) take the tiled template,
+// in either type.  Launches on the given stream; returns cudaGetLastError()
+// (0 on success).
 extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* sc, const float* A,
                                const void* B, const void* C, void* y, float* hout,
                                const long long* strides, int Bt, int S, int H, int G, int N,
                                int P, int Q, int is_bf16, int device, void* stream) {
   if (Bt <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || N <= 0 || P <= 0 || Q <= 0 ||
-      S % Q != 0 || N > SSD_MAX_DIM || P > SSD_MAX_DIM || Q > SSD_MAX_DIM)
+      S % Q != 0 || N > ST_MAX_DIM || P > ST_MAX_DIM || Q > SSD_MAX_DIM)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -676,6 +885,9 @@ extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* sc, 
   p.sCb = strides[12], p.sCs = strides[13], p.sCg = strides[14];
   p.syb = strides[15], p.sys = strides[16], p.syh = strides[17];
   p.S = S, p.H = H, p.G = G, p.N = N, p.P = P, p.Q = Q;
+  if (N > SSD_MAX_DIM || P > SSD_MAX_DIM)
+    return is_bf16 ? ssd_dispatch_tiled<__nv_bfloat16>(p, Bt, stream)
+                   : ssd_dispatch_tiled<float>(p, Bt, stream);
   return is_bf16 ? ssd_dispatch_bf16(p, Bt, stream) : ssd_dispatch_f32(p, Bt, stream);
 }
 

@@ -2,8 +2,10 @@
 
 The counterpart of the reference's ``ssd_scan_pallas``.  On CUDA tensors it
 launches the kernel on PyTorch's current stream; it takes nothing else.
-bfloat16 inputs go to the kernel's tensor-core template, float32 inputs to
-its CUDA-core template; each has its own shared-memory layout
+For N and P up to :data:`MAX_DIM`, bfloat16 inputs go to the kernel's
+tensor-core template, float32 inputs to its CUDA-core template; N or P
+above it (up to :data:`MAX_TILED_DIM`: the mLSTM's 512) go to its tiled
+template, in either type.  Each has its own shared-memory layout
 (:func:`smem_bytes`).
 """
 
@@ -15,9 +17,11 @@ import torch
 
 from .. import build
 
-__all__ = ["ssd_scan_cuda", "smem_bytes", "MAX_DIM", "MAX_SMEM_BYTES"]
+__all__ = ["ssd_scan_cuda", "scan_flops", "smem_bytes", "MAX_DIM", "MAX_TILED_DIM",
+           "MAX_SMEM_BYTES"]
 
-MAX_DIM = 128                 # SSD_MAX_DIM in csrc/ssd_scan.cu: chunk, N and P
+MAX_DIM = 128                 # SSD_MAX_DIM in csrc/ssd_scan.cu: chunk, and N, P untiled
+MAX_TILED_DIM = 512           # ST_MAX_DIM: N and P of the tiled template
 MAX_SMEM_BYTES = 227 * 1024   # dynamic shared memory one block may use on Hopper
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -27,14 +31,30 @@ _ARGTYPES = [_P] * 9 + [_I] * 9 + [_P]
 
 #: columns of P one block of the bfloat16 template owns (SB_PB in csrc/ssd_scan.cu)
 P_SLICE = 32
+#: columns of P (ST_PB) and rows of N in a tile (ST_NT) of the tiled template
+TILED_P_SLICE, TILED_N_TILE = 32, 64
+
+
+def scan_flops(bt: int, s: int, h: int, p: int, n: int, chunk: int) -> float:
+    """The scan's operations: per chunk and head, the lower triangle of
+    C B^T and of its product with x, and the two (N, P) state products
+    (C h and the state update)."""
+    chunks = -(-s // chunk)
+    tri = chunk * (chunk + 1) // 2
+    return 2.0 * bt * h * chunks * (tri * n + tri * p + 2 * chunk * n * p)
 
 
 def smem_bytes(chunk: int, n: int, p: int, bf16: bool = False) -> int:
-    """Dynamic shared memory of one block: the float32 template's (mirrors
-    ``ssd_smem_floats``) or the bfloat16 template's (mirrors
-    ``SbLayout<QT, NT>::BYTES``: chunk and N rounded up to 64 or 128, a
-    double buffer of C, B, the x slice, dt and in_scale, the state slice's
-    bf16 halves and each warp's decay arrays)."""
+    """Dynamic shared memory of one block: the tiled template's (mirrors
+    ``st_smem_floats``: the (N, 32) state slice, the x slice, a tile of C
+    and of B, the masked scores and the decay arrays), the float32
+    template's (mirrors ``ssd_smem_floats``) or the bfloat16 template's
+    (mirrors ``SbLayout<QT, NT>::BYTES``: chunk and N rounded up to 64 or
+    128, a double buffer of C, B, the x slice, dt and in_scale, the state
+    slice's bf16 halves and each warp's decay arrays)."""
+    if max(n, p) > MAX_DIM:
+        return 4 * (n * (TILED_P_SLICE + 1) + chunk * (TILED_P_SLICE + 1)
+                    + 2 * chunk * (TILED_N_TILE + 1) + chunk * (chunk + 1) + 2 * chunk)
     if not bf16:
         return 4 * (n * (p + 1) + chunk * (p + 1) + 2 * chunk * (n + 1)
                     + chunk * (chunk + 1) + 2 * chunk)
@@ -65,9 +85,9 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int, in_scale=None):
         raise ValueError(f"x, B, C must share one dtype of {_DTYPES}, got "
                          f"{x.dtype}, {B.dtype}, {C.dtype}")
     smem = smem_bytes(chunk, n, p, bf16=x.dtype == torch.bfloat16)
-    if max(chunk, n, p) > MAX_DIM or smem > MAX_SMEM_BYTES:
-        raise ValueError(f"the kernel takes chunk, N, P <= {MAX_DIM} within "
-                         f"{MAX_SMEM_BYTES} bytes of shared memory; got chunk={chunk}, "
+    if chunk > MAX_DIM or max(n, p) > MAX_TILED_DIM or smem > MAX_SMEM_BYTES:
+        raise ValueError(f"the kernel takes chunk <= {MAX_DIM} and N, P <= {MAX_TILED_DIM} "
+                         f"within {MAX_SMEM_BYTES} bytes of shared memory; got chunk={chunk}, "
                          f"N={n}, P={p} ({smem} bytes, {x.dtype})")
     for t in (dt, sc, A, B, C):
         if t.device != x.device:

@@ -1,11 +1,15 @@
 """Public SSD scan op: the CUDA kernel for CUDA tensors (or it raises), the
-plain chunkwise version for CPU tensors."""
+plain chunkwise version for CPU tensors, and on ``meta`` tensors (a
+shapes-only ingest trace) the outputs' shapes as one kernel operation
+(:func:`repro_torch.trace_hooks.kernel`)."""
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
-from .kernel import ssd_scan_cuda
+from ... import trace_hooks
+from .kernel import scan_flops, ssd_scan_cuda
 from .ref import ssd_chunked
 
 __all__ = ["ssd_scan"]
@@ -32,5 +36,12 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, in_scale=None):
         return y[:, :s], hf
     if x.is_cuda:
         return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
+    if x.is_meta:
+        bt, _, h, p = x.shape
+        n = B.shape[3]
+        inputs = (x, dt, A, B, C) + (() if in_scale is None else (in_scale,))
+        return trace_hooks.kernel(
+            "ssd_scan", scan_flops(bt, s, h, p, n, chunk), inputs,
+            lambda: (torch.empty_like(x), x.new_empty((bt, h, n, p), dtype=torch.float32)))
     y, hf = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
     return y.to(x.dtype), hf

@@ -3,9 +3,14 @@
 * ``a`` — pre-norm GQA attention + dense SwiGLU MLP;
 * ``A`` — the same block with SHARED parameters across its call sites
   (zamba2);
-* ``m`` — pre-norm Mamba-2.
+* ``m`` — pre-norm Mamba-2;
+* ``x`` — pre-norm mLSTM;
+* ``s`` — pre-norm sLSTM;
+* ``e`` — encoder block (bidirectional attention + SwiGLU MLP; whisper);
+* ``c`` — decoder block with cross-attention to the encoder output
+  (whisper): causal self-attention, cross-attention, MLP.
 
-Other tokens (mLSTM, sLSTM, encoder, cross-attention) and MLA/MoE wait.
+MLA and MoE wait.
 """
 
 from __future__ import annotations
@@ -15,11 +20,15 @@ import torch
 from . import attention as attn
 from . import mlp as mlp_mod
 from . import ssm
-from .common import Init, rms_norm
+from .common import Init, dtype_of, rms_norm
 
 __all__ = ["TOKENS", "check_supported", "init_block", "init_block_cache", "block_forward"]
 
-TOKENS = ("a", "A", "m")
+TOKENS = ("a", "A", "m", "x", "s", "e", "c")
+
+
+def _is_attn(tok: str) -> bool:
+    return tok in ("a", "A", "e", "c")
 
 
 def check_supported(cfg, tok: str) -> None:
@@ -34,28 +43,67 @@ def init_block(init: Init, cfg, tok: str):
     ln = init.full((cfg.d_model,), 1.0, torch.float32)
     if tok == "m":
         return {"ln": ln, "mamba": ssm.init_mamba2(init, cfg)}
-    return {"ln1": ln, "attn": attn.init_gqa(init, cfg),
-            "ln2": init.full((cfg.d_model,), 1.0, torch.float32),
-            "mlp": mlp_mod.init_mlp(init, cfg)}
+    if tok == "x":
+        return {"ln": ln, "mlstm": ssm.init_mlstm(init, cfg)}
+    if tok == "s":
+        return {"ln": ln, "slstm": ssm.init_slstm(init, cfg)}
+    p = {"ln1": ln, "attn": attn.init_gqa(init, cfg),
+         "ln2": init.full((cfg.d_model,), 1.0, torch.float32),
+         "mlp": mlp_mod.init_mlp(init, cfg)}
+    if tok == "c":
+        p["ln_x"] = init.full((cfg.d_model,), 1.0, torch.float32)
+        p["cross"] = attn.init_gqa(init, cfg)
+    return p
 
 
 def init_block_cache(init: Init, cfg, tok: str, batch: int, max_len: int):
     check_supported(cfg, tok)
     if tok == "m":
         return ssm.init_mamba2_cache(init, cfg, batch)
-    return attn.init_gqa_cache(init, cfg, batch, max_len)
+    if tok == "x":
+        return ssm.init_mlstm_cache(init, cfg, batch)
+    if tok == "s":
+        return ssm.init_slstm_cache(init, cfg, batch)
+    c = attn.init_gqa_cache(init, cfg, batch, max_len)
+    if tok == "c":
+        shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        c = {"self": c, "cross_k": init.full(shape, 0.0, dtype_of(cfg)),
+             "cross_v": init.full(shape, 0.0, dtype_of(cfg))}
+    return c
 
 
 def block_forward(p, cfg, tok: str, x, positions, *, mode: str = "prefill", cache=None,
-                  kv_len=None):
-    """Apply one residual block.  Returns (x, new_cache)."""
-    if tok == "m":
-        out, nc = ssm.mamba2_forward(p["mamba"], cfg, rms_norm(x, p["ln"], cfg.norm_eps),
-                                     mode=mode, cache=cache)
+                  kv_len=None, enc_out=None):
+    """Apply one residual block.  ``enc_out`` is the encoder output a ``c``
+    block cross-attends to in train and prefill; its decode reads the cross
+    K/V from ``cache``.  Returns (x, new_cache)."""
+    if not _is_attn(tok):
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        if tok == "m":
+            out, nc = ssm.mamba2_forward(p["mamba"], cfg, h, mode=mode, cache=cache)
+        elif tok == "x":
+            out, nc = ssm.mlstm_forward(p["mlstm"], cfg, h, mode=mode, cache=cache)
+        elif tok == "s":
+            out, nc = ssm.slstm_forward(p["slstm"], cfg, h, mode=mode, cache=cache)
+        else:
+            raise NotImplementedError(f"block token {tok!r} is not ported yet")
         return x + out, nc
     check_supported(cfg, tok)
+    self_cache = cache["self"] if tok == "c" and cache is not None else cache
     out, nc = attn.gqa_forward(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions,
-                               mode=mode, cache=cache, kv_len=kv_len)
+                               mode=mode, cache=self_cache, kv_len=kv_len, causal=tok != "e")
     x = x + out
+    if tok == "c":
+        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        if mode == "decode":   # cross K/V were projected once, at prefill
+            qout, _ = attn.gqa_forward(p["cross"], cfg, hx, positions, mode="cross_cached",
+                                       cache={"k": cache["cross_k"], "v": cache["cross_v"]})
+            nc = {"self": nc, "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}
+        else:
+            qout, cross = attn.gqa_forward(p["cross"], cfg, hx, positions, mode="prefill",
+                                           kv_source=enc_out)
+            nc = {"self": nc, "cross_k": cross["k"], "cross_v": cross["v"]} \
+                if mode == "prefill" else None
+        x = x + qout
     x = x + mlp_mod.mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
     return x, nc

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace_hooks
 from . import blocks
 from .common import Init, dtype_of, rms_norm
 
@@ -72,6 +73,9 @@ def _layer(tree, i: int):
 def _store(slot, new) -> None:
     """Write one layer's new cache into its slot of the full cache."""
     for key, val in new.items():
+        if isinstance(val, dict):
+            _store(slot[key], val)
+            continue
         if val is slot[key]:
             continue
         if key in _SEQ_CACHE_KEYS:
@@ -83,7 +87,7 @@ def _store(slot, new) -> None:
 def _backbone(params, cfg, x, positions, *, mode, cache, kv_len):
     unit, n_full, tail = decompose_pattern(cfg)
     shared = params.get("shared_attn")
-    for layer in range(n_full):
+    for layer in trace_hooks.loop("layers", n_full):
         for i, tok in enumerate(unit):
             p = shared if tok == "A" else _layer(params["blocks"][f"u{i}"], layer)
             slot = _layer(cache["blocks"][f"u{i}"], layer)
@@ -164,11 +168,16 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_numpy(cfg, tree, device) -> dict:
-    """Load the reference's ``init_lm`` pytree, as nested dicts of numpy
-    arrays, into the port's parameters on ``device``.  Every leaf keeps its
-    dtype; the tree must have the structure and shapes of :func:`init_lm`."""
+    """Load the reference's ``init_lm`` pytree (``init_whisper``'s for the
+    audio family), as nested dicts of numpy arrays, into the port's
+    parameters on ``device``.  Every leaf keeps its dtype; the tree must have
+    the structure and shapes of :func:`init_lm` (``init_whisper``)."""
     device = torch.device(device)
-    want = init_lm(Init(torch.device("meta")), cfg)
+    if cfg.family == "audio":
+        from .whisper import init_whisper
+        want = init_whisper(Init(torch.device("meta")), cfg)
+    else:
+        want = init_lm(Init(torch.device("meta")), cfg)
 
     def convert(w, t, path):
         if isinstance(w, dict):

@@ -4,14 +4,19 @@
 reference's names:
 
 * ``init_params(seed=0)`` — parameters drawn from a seeded
-  ``torch.Generator`` on the model's device;
+  ``torch.Generator`` on the model's device (on ``meta``: shapes only);
 * ``prefill(params, batch, max_len=None)`` — (last-position logits, cache);
 * ``decode_step(params, token, cache, kv_len)`` — (logits, cache), writing
   the step into ``cache``;
-* ``init_cache(batch, max_len)``.
+* ``init_cache(batch, max_len)``;
+* ``input_specs(shape)`` — the model's inputs for a shape cell as empty
+  tensors on the ``meta`` device (the reference's ``ShapeDtypeStruct``
+  stand-ins; the port has no sharding axes).
 
-The model runs on the card unless ``device`` names another; on CPU tensors
-every kernel op runs its plain PyTorch version.  The whisper branch waits.
+The decoder-only LMs run ``repro_torch.models.lm``, the audio family
+(whisper) ``repro_torch.models.whisper``.  The model runs on the card
+unless ``device`` names another; on CPU tensors every kernel op runs its
+plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -21,9 +26,9 @@ import math
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
-from . import blocks, lm
+from . import blocks, lm, whisper
 from .common import Init
 
 __all__ = ["Model", "build_model", "count_params"]
@@ -34,29 +39,56 @@ class Model:
     cfg: ModelConfig
     device: torch.device
 
+    @property
+    def _audio(self) -> bool:
+        return self.cfg.family == "audio"
+
     def init_params(self, seed: int = 0) -> dict:
         gen = None
         if self.device.type != "meta":
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        return lm.init_lm(Init(self.device, gen), self.cfg)
+        init = Init(self.device, gen)
+        return whisper.init_whisper(init, self.cfg) if self._audio else lm.init_lm(init, self.cfg)
 
     @torch.inference_mode()
     def prefill(self, params, batch, max_len: int | None = None):
+        if self._audio:
+            return whisper.whisper_prefill(params, self.cfg, batch, max_len=max_len)
         return lm.lm_prefill(params, self.cfg, batch, max_len=max_len)
 
     @torch.inference_mode()
     def decode_step(self, params, token, cache, kv_len: int):
+        if self._audio:
+            return whisper.whisper_decode_step(params, self.cfg, token, cache, kv_len)
         return lm.lm_decode_step(params, self.cfg, token, cache, kv_len)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return lm.init_lm_cache(Init(self.device), self.cfg, batch, max_len)
+        init = Init(self.device)
+        if self._audio:
+            return whisper.init_whisper_cache(init, self.cfg, batch, max_len)
+        return lm.init_lm_cache(init, self.cfg, batch, max_len)
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """The model inputs of one shape cell, as empty ``meta`` tensors:
+        ``tokens`` (B, S) int32 (and ``audio_embed`` (B, encoder_seq, d)
+        bf16 for whisper) for train and prefill; ``token`` (B, 1) for
+        decode."""
+        b, s = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+        if shape.kind == "decode":
+            return {"token": torch.empty((b, 1), dtype=torch.int32, device=meta)}
+        specs = {"tokens": torch.empty((b, s), dtype=torch.int32, device=meta)}
+        if self._audio:
+            specs["audio_embed"] = torch.empty((b, self.cfg.encoder_seq, self.cfg.d_model),
+                                               dtype=torch.bfloat16, device=meta)
+        return specs
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:
-    """The LM's serving handle; raises for what is not ported yet."""
-    if cfg.family == "audio":
-        raise NotImplementedError("whisper (encoder-decoder) is not ported yet")
-    for tok in set(cfg.pattern()):
+    """The model's serving handle; raises for what is not ported yet."""
+    if cfg.family == "vlm":
+        raise NotImplementedError("the VLM front end (llava-next) is not ported yet")
+    for tok in set("ec" if cfg.family == "audio" else cfg.pattern()):
         blocks.check_supported(cfg, tok)
     return Model(cfg, resolve_device(device))
 
@@ -64,7 +96,7 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> M
 def count_params(model: Model) -> int:
     """Parameter count, from shapes built on the ``meta`` device (nothing is
     allocated)."""
-    params = lm.init_lm(Init(torch.device("meta")), model.cfg)
+    params = Model(model.cfg, torch.device("meta")).init_params()
 
     def total(tree):
         return sum(total(v) if isinstance(v, dict) else math.prod(v.shape)

@@ -1,8 +1,16 @@
-"""Mamba-2 (``repro.models.ssm``): in_proj packs [z | x | B | C | dt], a
-short depthwise causal conv over x/B/C, softplus dt, per-head decay
-a = exp(-A dt), the SSD scan (kernel B4 on the card), gated RMS norm and
-out_proj.  Decode carries (conv tail, state h) and costs O(1) a token.
-mLSTM and sLSTM wait.
+"""State-space blocks (``repro.models.ssm``).
+
+* Mamba-2: in_proj packs [z | x | B | C | dt], a short depthwise causal
+  conv over x/B/C, softplus dt, per-head decay a = exp(-A dt), the SSD scan
+  (kernel B4 on the card), gated RMS norm and out_proj.  Decode carries
+  (conv tail, state h) and costs O(1) a token.
+* mLSTM (xLSTM's matrix memory): prefill is the SSD scan twice with the
+  input gate as ``in_scale`` (decay -log f, B = k, C = q per head): once
+  over v for the numerator, once over ones for the normalizer; decode
+  updates the (C, n) memory by one step.
+* sLSTM (xLSTM's scalar memory, stabilized exponential gating): a strictly
+  recurrent cell, so prefill is a Python loop over the time steps (the
+  reference's scan); its deferred-gradient backward waits for training.
 """
 
 from __future__ import annotations
@@ -10,10 +18,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import trace_hooks
 from ..kernels.ssd import ops as ssd_ops
 from .common import Init, dtype_of, rms_norm
 
-__all__ = ["init_mamba2", "mamba2_forward", "init_mamba2_cache"]
+__all__ = ["init_mamba2", "mamba2_forward", "init_mamba2_cache",
+           "init_mlstm", "mlstm_forward", "init_mlstm_cache",
+           "init_slstm", "slstm_forward", "init_slstm_cache"]
 
 
 def _mamba_dims(cfg):
@@ -99,3 +110,146 @@ def mamba2_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     y = y.reshape(b, s, d_inner)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], new_cache
+
+
+# ===================================================================== #
+# mLSTM
+# ===================================================================== #
+def _mlstm_dims(cfg):
+    d_inner = cfg.ssm.expand * cfg.d_model
+    return d_inner, cfg.n_heads, d_inner // cfg.n_heads
+
+
+def init_mlstm(init: Init, cfg):
+    d = cfg.d_model
+    d_inner, nh, _ = _mlstm_dims(cfg)
+    dt = dtype_of(cfg)
+
+    def lin(i, o):
+        return init.normal((i, o), i ** -0.5, dt)
+    return {
+        "up": lin(d, 2 * d_inner),              # [x_in | z gate]
+        "wq": lin(d_inner, d_inner),
+        "wk": lin(d_inner, d_inner),
+        "wv": lin(d_inner, d_inner),
+        "w_gates": lin(d_inner, 2 * nh),        # [i | f] per head
+        "norm_w": init.full((d_inner,), 1.0, torch.float32),
+        "down": lin(d_inner, d),
+    }
+
+
+def init_mlstm_cache(init: Init, cfg, batch: int):
+    """Matrix memory C (B, nh, ph_k, ph_v) and normalizer n (B, nh, ph_k)."""
+    _, nh, ph = _mlstm_dims(cfg)
+    return {"C": init.full((batch, nh, ph, ph), 0.0, torch.float32),
+            "n": init.full((batch, nh, ph), 0.0, torch.float32)}
+
+
+def mlstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
+    """x: (B, S, d).  ``prefill`` runs the two SSD scans and returns the
+    final (C, n); ``decode`` (S == 1) steps the memory in ``cache``.
+    Returns (out, new_cache)."""
+    d_inner, nh, ph = _mlstm_dims(cfg)
+    b, s, _ = x.shape
+    up = x @ p["up"]
+    x_in, z = up[..., :d_inner], up[..., d_inner:]
+    q = (x_in @ p["wq"]).reshape(b, s, nh, ph)
+    k = (x_in @ p["wk"]).reshape(b, s, nh, ph) * ph ** -0.5
+    v = (x_in @ p["wv"]).reshape(b, s, nh, ph)
+    gates = (x_in @ p["w_gates"]).float()
+    i_g = torch.sigmoid(gates[..., :nh])                          # (b, s, nh)
+    f_g = torch.sigmoid(gates[..., nh:] + 2.0)
+
+    if mode == "decode":
+        ig, fg = i_g[:, 0], f_g[:, 0]
+        kf, vf, qf = k[:, 0].float(), v[:, 0].float(), q[:, 0].float()
+        C_new = fg[..., None, None] * cache["C"] + ig[..., None, None] * (
+            kf[..., :, None] * vf[..., None, :])
+        n_new = fg[..., None] * cache["n"] + ig[..., None] * kf
+        num = torch.einsum("bhk,bhkp->bhp", qf, C_new)
+        den = torch.einsum("bhk,bhk->bh", qf, n_new).abs().clamp_min(1.0)
+        y = (num / den[..., None])[:, None]
+        new_cache = {"C": C_new, "n": n_new}
+    elif mode == "prefill":
+        dtv = -torch.log(f_g.clamp(1e-6, 1 - 1e-6))
+        A = torch.ones((nh,), dtype=torch.float32, device=x.device)
+        y_num, C_fin = ssd_ops.ssd_scan(v, dtv, A, k, q, chunk=cfg.ssm.chunk, in_scale=i_g)
+        ones = torch.ones((b, s, nh, 1), dtype=v.dtype, device=x.device)
+        y_den, n_fin = ssd_ops.ssd_scan(ones, dtv, A, k, q, chunk=cfg.ssm.chunk, in_scale=i_g)
+        den = y_den[..., 0].float().abs().clamp_min(1.0)
+        y = y_num.float() / den[..., None]
+        new_cache = {"C": C_fin, "n": n_fin[..., 0]}
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    y = y.reshape(b, s, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm_w"], cfg.norm_eps)
+    return y @ p["down"], new_cache
+
+
+# ===================================================================== #
+# sLSTM
+# ===================================================================== #
+def init_slstm(init: Init, cfg):
+    d, nh = cfg.d_model, cfg.n_heads
+    dh = d // nh
+    dt = dtype_of(cfg)
+    return {
+        "w_x": init.normal((d, 4 * d), d ** -0.5, dt),       # z, i, f, o pre-activations
+        "r_h": init.normal((nh, dh, 4 * dh), dh ** -0.5, torch.float32),  # block-diagonal
+        "b": init.full((4 * d,), 0.0, torch.float32),
+        "norm_w": init.full((d,), 1.0, torch.float32),
+        "down": init.normal((d, d), d ** -0.5, dt),
+    }
+
+
+def init_slstm_cache(init: Init, cfg, batch: int):
+    nh = cfg.n_heads
+    dh = cfg.d_model // nh
+    z = (batch, nh, dh)
+    return {"c": init.full(z, 0.0, torch.float32), "n": init.full(z, 0.0, torch.float32),
+            "h": init.full(z, 0.0, torch.float32),
+            "m": init.full((batch, nh), 0.0, torch.float32)}
+
+
+def _slstm_cell(p, cfg, xt, state):
+    """One time step: xt (B, 4d) pre-activations, state of (B, nh, dh)
+    tensors and the (B, nh) stabilizer m; float32 math."""
+    nh = cfg.n_heads
+    dh = cfg.d_model // nh
+    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    rec = torch.einsum("bhd,hdf->bhf", h, p["r_h"])                 # (B, nh, 4dh)
+    pre = xt.reshape(xt.shape[0], nh, 4 * dh).float() + rec
+    z_, i_, f_, o_ = pre.split(dh, dim=-1)
+    # per-head scalar gates (the mean over the head dim keeps them scalar)
+    log_i = i_.mean(-1)
+    log_f = F.logsigmoid(f_.mean(-1) + 1.0)
+    m_new = torch.maximum(log_f + m, log_i)
+    i_s = torch.exp(log_i - m_new)
+    f_s = torch.exp(log_f + m - m_new)
+    c_new = f_s[..., None] * c + i_s[..., None] * torch.tanh(z_)
+    n_new = f_s[..., None] * n + i_s[..., None]
+    h_new = torch.sigmoid(o_) * (c_new / n_new.clamp_min(1.0))
+    return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
+
+
+def slstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
+    """x: (B, S, d).  ``prefill`` runs the cell over the S steps from a zero
+    state and returns the final state; ``decode`` (S == 1) steps the state
+    in ``cache``.  Returns (out, new_cache)."""
+    b, s, d = x.shape
+    pre = x @ p["w_x"] + p["b"].to(x.dtype)
+    if mode == "decode":
+        new_cache = _slstm_cell(p, cfg, pre[:, 0], cache)
+        y = new_cache["h"].reshape(b, 1, d)
+    elif mode == "prefill":
+        state = init_slstm_cache(Init(x.device), cfg, b)
+        hs = []
+        for t in trace_hooks.loop("slstm.time", s):
+            state = _slstm_cell(p, cfg, pre[:, t], state)
+            hs.append(state["h"])
+        y = torch.stack(hs, dim=1).reshape(b, s, d)
+        new_cache = state
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    y = rms_norm(y.to(x.dtype), p["norm_w"], cfg.norm_eps)
+    return y @ p["down"], new_cache

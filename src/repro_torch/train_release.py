@@ -27,7 +27,7 @@ of the parameter bytes; ``<out>/params/`` holds the weights.  Both packages'
 Resumable: ``--ckpt-dir`` keeps trainer checkpoints and the draw counter
 (``draw_count.json``); kill and re-run with the same flags to continue.
 Runs on the card unless ``--device`` names another.  ``--devices > 1`` raises
-as :class:`RLTrainer` does (data parallelism is ROADMAP.md queue A item 2.2).
+as :class:`RLTrainer` does (data parallelism over torch.distributed is not ported yet).
 """
 
 from __future__ import annotations

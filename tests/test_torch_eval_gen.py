@@ -9,8 +9,8 @@ and the eval CLI ``python -m repro_torch.eval``.
 ``generalization`` table field for field (integers and flags exactly,
 floats within 1e-12 relative, timing keys left out);
 ``check_generalization`` finds no problem.  The CLI writes the same payload
-for ``--gen-only`` and refuses the full grid, whose ingest cells the port
-cannot build.
+for ``--gen-only``, and without ``--smoke`` it scores the reference's full
+scenario list, the ingest cell ``ingest/k4`` included.
 """
 
 import json
@@ -70,8 +70,21 @@ def test_cli_gen_only_writes_the_same_payload(tmp_path, capsys):
     assert any(ln.startswith("gen/aggregate,0.0,n=12;") for ln in lines)
 
 
-def test_cli_refuses_the_full_grid():
-    with pytest.raises(SystemExit, match="queue A item 5"):
-        eval_main(["--device", "cpu"])
+def test_cli_full_grid_scores_the_full_scenario_list(monkeypatch):
+    import repro.eval as jeval
+    import repro_torch.eval.__main__ as cli
+
+    class Stop(Exception):
+        pass
+
+    def capture(scenarios, *args, **kwargs):
+        raise Stop([(s.name, s.family, s.n_stages) for s in scenarios])
+
+    monkeypatch.setattr(cli, "run_grid", capture)
+    with pytest.raises(Stop) as got:
+        eval_main(["--device", "cpu", "--no-gen", "--no-hetero"])
+    cells = got.value.args[0]
+    assert cells == [(s.name, s.family, s.n_stages) for s in jeval.scenario_grid()]
+    assert ("ingest/k4", "ingest", 4) in cells
     with pytest.raises(SystemExit):
         eval_main(["--smoke", "--gen-only", "--hetero-only"])

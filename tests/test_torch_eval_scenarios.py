@@ -6,8 +6,10 @@ and the smoke generalization grid equals the reference's graph for graph —
 parents equal, ``flops``/``param_bytes``/``out_bytes`` bit-equal — and every
 ``resolve_system`` equals the reference's field by field, ``mem_capacity``
 included; the full lists name the same cells (the full grid's ingest cell
-too), ``traffic_pool`` and ``hash_seed`` agree, and an ingest scenario's
-``build()`` raises ``NotImplementedError`` (ingest is not ported).
+too), ``traffic_pool`` and ``hash_seed`` agree, and the smoke ingest
+scenario builds the port's ingested graphs of both architectures (the port
+traces its own torch models, so its graphs are not the reference's; their
+parameter mass is).
 """
 
 import dataclasses
@@ -65,10 +67,28 @@ def test_full_lists_name_the_same_cells():
         jeval.INGEST_ARCHS, jeval.SYNTH_FAMILIES, jeval.HETERO_FAMILIES)
 
 
-def test_ingest_scenario_is_not_ported():
-    sc = teval.ingest_scenarios()[0]
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        sc.build()
+def test_smoke_ingest_scenario_builds_the_ingested_graphs():
+    import jax
+    from repro.configs import get_smoke_config as jax_get_smoke_config
+    from repro.models.model import build_model as jax_build_model
+    from repro_torch.core import validate_graph
+    from repro_torch.eval.scenarios import INGEST_SEQ_LEN
+    from repro_torch.ingest import ingest_model
+    sc = teval.ingest_scenarios(smoke=True)[0]
+    assert (sc.name, sc.n_stages, sc.n_nodes, sc.archs) == (
+        "ingest/k4", 4, 12, ("whisper-tiny", "xlstm-350m"))
+    graphs = sc.build()
+    assert [g.model_name for g in graphs] == [f"ingest:{a}:prefill:12" for a in sc.archs]
+    for arch, g in zip(sc.archs, graphs):
+        validate_graph(g)
+        assert 2 <= g.n <= 12 and g.max_in_degree <= 6
+        assert g is ingest_model(arch, 12, smoke=True, seq_len=INGEST_SEQ_LEN).graph
+        shapes = jax.eval_shape(jax_build_model(jax_get_smoke_config(arch)).init_params,
+                                jax.random.PRNGKey(0))
+        assert float(g.param_bytes.sum()) == sum(l.size * l.dtype.itemsize
+                                                 for l in jax.tree.leaves(shapes))
+    assert dataclasses.asdict(sc.resolve_system(graphs)) == dataclasses.asdict(
+        jeval.ingest_scenarios(smoke=True)[0].resolve_system(graphs))
 
 
 @pytest.mark.parametrize("smoke", [True, False])

@@ -124,6 +124,11 @@ def _need_cuda():
     (1, 4, 4, 200, 200, 256, 256, True, "bfloat16"),     # largest head dims, 4 boxes each
     (1, 8, 2, 300, 300, 112, 64, True, "bfloat16"),      # GQA group 4, Dv = 64 != D
     (2, 4, 4, 100, 1000, 112, 112, True, "bfloat16"),    # Sq < Sk, Sq not a multiple of 64
+    # whisper-tiny's shapes (D = 64, 6 heads): the tensor-core template non-causal
+    (2, 6, 6, 1500, 1500, 64, 64, False, "bfloat16"),    # encoder self-attention
+    (2, 6, 6, 64, 1500, 64, 64, False, "bfloat16"),      # decoder cross-attention
+    (2, 6, 6, 64, 64, 64, 64, True, "bfloat16"),         # decoder self-attention
+    (1, 6, 6, 1500, 1500, 64, 64, False, "float32"),     # the f32 unit's encoder
 ])
 def test_kernel_matches_plain_on_cuda(b, hq, hkv, sq, sk, d, dv, causal, dtype):
     _need_cuda()

@@ -74,6 +74,10 @@ def test_port_runs_with_jax_unimportable():
         rec = run_scenario(sc, sched, ExactOracle(device="cpu"))
         assert rec["oracle"]["parity"] and rec["policies"]["respect"]["all_capacity_ok"]
         assert postprocess.repair(g, res[0]["assignment"], 4).shape == (20,)
+        import repro_torch.ingest
+        ing = repro_torch.ingest.ingest_model("whisper-tiny", n_nodes=12)   # smoke config
+        assert ing.report["n_warnings"] == 0 and 2 <= ing.graph.n <= 12
+        assert ing.report["param_bytes_total"] == 433152.0
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -103,6 +103,10 @@ def test_kernel_wrapper_takes_only_cuda_tensors_and_gates_shapes():
     # same for any chunk and N up to 64, and 175 KB at the limit of 128
     assert smem_bytes(64, 64, 64, bf16=True) == 55296 == smem_bytes(16, 8, 128, bf16=True)
     assert smem_bytes(128, 128, 128, bf16=True) == 179200 <= 227 * 1024
+    # tiled template (N or P above 128, either dtype): the (N, 32) state slice,
+    # two (chunk, 64) tiles; 124 KB at the mLSTM's N = 512, 213 KB at chunk 128
+    assert smem_bytes(64, 512, 512) == smem_bytes(64, 512, 1, bf16=True) == 126464
+    assert smem_bytes(128, 512, 512, bf16=True) == 218112 <= 227 * 1024
 
 
 # ---------------------------------------------------------------------- #
@@ -122,6 +126,12 @@ def _need_cuda():
     (1, 300, 6, 24, 3, 40, 64, True, "bfloat16"),     # ragged S, in_scale, odd dims
     (2, 128, 4, 128, 1, 32, 128, False, "bfloat16"),  # chunk and P at the limit
     (1, 256, 2, 128, 1, 128, 128, False, "bfloat16"),  # chunk, N and P at the limit
+    # the tiled template: xlstm-350m's mLSTM (H = G = 4, N = P = 512, and P = 1)
+    (2, 256, 4, 512, 4, 512, 64, True, "bfloat16"),    # numerator
+    (2, 256, 4, 1, 4, 512, 64, True, "bfloat16"),      # normalizer
+    (1, 200, 4, 512, 4, 512, 64, True, "float32"),     # numerator, ragged S
+    (1, 128, 4, 1, 4, 512, 64, True, "float32"),       # normalizer
+    (1, 96, 2, 200, 1, 40, 32, True, "bfloat16"),      # P alone above 128, ragged slices
 ])
 def test_kernel_matches_plain_on_cuda(bt, s, h, p, g, n, chunk, use_scale, dtype):
     _need_cuda()

@@ -9,7 +9,8 @@ shape of the curriculum stream; labels equal the host ``exact_dp`` and the
 cache keys separate solver, budget and system; the sampler's stream is
 deterministic and resumes; the trainer state round-trips through the
 checkpoint manager; a short run improves the reward.  The data-parallel
-test waits for the port's data parallelism (ROADMAP.md queue A item 5).
+test pins the refusal that names the missing work (data parallelism over
+torch.distributed).
 """
 
 import numpy as np
@@ -299,5 +300,5 @@ def test_prefetch_preserves_order_and_propagates_errors():
 
 
 def test_data_parallel_training_waits_for_its_slice(sys4):
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    with pytest.raises(NotImplementedError, match="data parallelism over torch.distributed"):
         RLTrainer(n_stages=4, system=sys4, hidden=16, n_devices=4, device=CPU)
