@@ -133,6 +133,37 @@ Run from the repository root:  python3 chip_smoke.py
    dependency-valid;
 20. the eval's ingest/k4 cell (run_scenario with a CUDA ExactOracle, 12
    nodes) equal in every non-timing field to the same cell on the CPU.
+21. (last, after 10) the LM zoo's training path (python -m repro_torch.train_lm's
+   functions: TrainLoop over make_train_fn, examples/train_lm.py's
+   TrainConfig with two microbatches) at full width with seeded random
+   weights, the launch counters reset just before and read just after each:
+   whisper-tiny (bf16, B = 8, 1500 zero frames, 128 tokens, 6 steps; 12 B3
+   launches a microbatch forward, flash_fwd_bf16 by profiler name) and
+   xlstm-350m (bf16, 24 layers, B = 2, S = 256, 3 steps; 24 B4 launches a
+   microbatch forward, ssd_scan_tiled by name); each run saved halfway and
+   resumed there through TrainLoop (whisper's also against an uninterrupted
+   run), finite losses, every gradient leaf non-zero in the first
+   microbatch, ms a step and tokens/s, and one profiled step's split over
+   the lm.* ranges with the device's idle share (xlstm: one xs unit),
+   run last (item 24);
+22. the three SMOKE archs in float32 through the kernels' float32 templates,
+   three steps each against tests/golden/torch_lm_train_steps.json (the JAX
+   package's), and one full-width float32 unit of whisper (ec) and of xlstm
+   (xs), the loss and every gradient leaf, kernel path against plain path;
+23. B3 and B4 under autograd at zamba2-7b's prefill shapes, whisper-tiny's
+   three (at its training microbatch) and xlstm-350m's two, a GQA and a
+   Dv != D case: B3's lse against the plain version's, B4's y and h_final
+   against the plain version's, each autograd Function's input gradients
+   against plain autograd (B4's Function recomputes the plain scan in its
+   backward, so that comparison checks its wiring), B3's device time with
+   and without the lse, the flash backward beside scaled_dot_product_attention's
+   forward + backward, B4's recompute backward beside B4's forward, each with
+   its bound (run first in the phase, before 22 and 21);
+24. (last of all) one profiled train step of whisper-tiny and of one
+   full-width xs unit of xlstm-350m: the lm.* split, the device's idle
+   share, B3's bf16 / B4's tiled template by kernel name (a window that
+   shows fewer than the counted launches is profiled again, up to three
+   times, as device_ms does).
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -1504,8 +1535,10 @@ def ssd_work(bt, s, h, p, g, n, q, itemsize, in_scale: bool) -> tuple[float, flo
     return nbytes, scan_flops(bt, s, h, p, n, q)
 
 
-def plain_flash(q, k, v, *, causal=True, scale=None):
-    from repro_torch.kernels.flash.ref import reference_attention
+def plain_flash(q, k, v, *, causal=True, scale=None, return_lse=False):
+    from repro_torch.kernels.flash.ref import attention_with_lse, reference_attention
+    if return_lse:
+        return attention_with_lse(q, k, v, causal=causal, scale=scale)
     return reference_attention(q, k, v, causal=causal, scale=scale)
 
 
@@ -1517,14 +1550,17 @@ def plain_ssd(x, dt, A, B, C, *, chunk, in_scale=None):
 
 def plain_kernels():
     """The zoo ops' plain versions in place of their CUDA launches (same
-    padding and layout code around them), for comparison only."""
+    padding and layout code around them, and the same autograd Functions
+    under grad), for comparison only."""
     import contextlib
     from unittest import mock
 
     from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import vjp
     from repro_torch.kernels.ssd import ops as ssd_ops
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(flash_ops, "flash_attention_cuda", plain_flash))
+    stack.enter_context(mock.patch.object(vjp, "flash_attention_cuda", plain_flash))
     stack.enter_context(mock.patch.object(ssd_ops, "ssd_scan_cuda", plain_ssd))
     return stack
 
@@ -2138,6 +2174,481 @@ def ingest_phase(card: str) -> None:
           f"{flags}; oracle parity {rec['oracle']['parity']}", flush=True)
 
 
+# ---------------------------------------------------------------------- #
+# the LM zoo's training path: whisper-tiny (B3) and xlstm-350m (B4) train
+# ---------------------------------------------------------------------- #
+LM_TRAIN_GOLDEN = ROOT / "tests" / "golden" / "torch_lm_train_steps.json"
+# (batch, tokens, steps) of the full-width runs (examples/train_lm.py's TrainConfig:
+# microbatches 2, lr 1e-3, warmup 10, weight decay 0.01); whisper also takes 1500 frames.
+# xlstm's S is cut from its served 1024: the sLSTM's eager loop sets the step's time
+LM_TRAIN = {"whisper-tiny": (8, 128, 6), "xlstm-350m": (2, 256, 3)}
+# a microbatch's forward: whisper 4 encoder + 4 decoder self + 4 cross B3 launches (the bf16
+# template); xlstm 12 mLSTM layers x 2 scans, B4's tiled template; the backwards launch neither
+LM_TRAIN_PER_MB = {"whisper-tiny": ("flash_fwd", "flash_fwd_bf16", 12),
+                   "xlstm-350m": ("ssd_scan", "ssd_scan_tiled", 24)}
+# relative, as tests/test_torch_lm_train.py holds the CPU to the same file
+TOL_LM_GOLDEN = {"loss": 1e-4, "grad_norm": 1e-3, "leaf_norm": 1e-4}
+# x max(1, |x|): the loss and every gradient leaf of a float32 unit, kernel path against plain
+# path, and B4's Function against plain autograd (measured at most 8.6e-08 on an H100)
+TOL_LM_UNIT = 3e-6
+# B3's float32 lse against the plain version's (measured at most 1.43e-06 absolute)
+TOL_LSE = (5e-5, 0.0)
+# x max(1, max|g|): bf16 dq, dk, dv of the Function against plain autograd, which keeps P and
+# dS in float32 where the Function (as the reference) rounds them to bf16 for the products
+# (measured at most 6.2e-03: under one bf16 step of 2^-7)
+TOL_FLASH_GRAD = 5e-2
+
+
+def flash_bwd_work(b, hq, hkv, sq, sk, d, dv, itemsize, causal) -> tuple[float, float]:
+    """(bytes, flops) of the flash backward: q, k, v, o, dO and the float32
+    lse read once, dq, dk, dv written once; five products over the kept
+    (query, key) pairs (S recomputed, dV, dP, dQ, dK: 2.5x the forward's)."""
+    from repro_torch.kernels.flash.kernel import attention_flops
+    flops = 2.5 * attention_flops(b, hq, sq, sk, d, dv, causal)
+    nbytes = itemsize * b * (2 * hq * sq * d + 2 * hkv * sk * (d + dv) + 2 * hq * sq * dv) \
+        + 4 * b * hq * sq
+    return nbytes, flops
+
+
+def grads_within(got: dict, want: dict, tol: float) -> float:
+    """Largest |got - want| / max(1, max|want|) over the leaves; fails
+    above ``tol``."""
+    from repro_torch.launch import named_leaves
+    worst = 0.0
+    for (n, g), (m, w) in zip(named_leaves(got), named_leaves(want)):
+        check(n == m, f"gradient trees differ at {n} / {m}")
+        e = float((g.float() - w.float()).abs().max()) / max(1.0, float(w.float().abs().max()))
+        check(e <= tol, f"{n}: kernel path and plain path gradients differ ({e:.3e} > {tol})")
+        worst = max(worst, e)
+    return worst
+
+
+def lm_train_phase(card: str) -> list[dict]:
+    """The LM zoo's training path on the card (see the module docstring,
+    items 21-23): B3/B4 under autograd at the paths' shapes first (their
+    device times want a profiler that has not yet traced a whole step), then
+    agreement, then full-width training through TrainLoop.  The profiled
+    steps come last in the script (``lm_train_split_phase``)."""
+    import signal
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import vjp
+    from repro_torch.kernels.flash.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash.ref import attention_with_lse, reference_attention
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    from repro_torch.launch import make_optimizer, make_train_fn, named_leaves, value_and_grad
+    from repro_torch.models.model import build_model, count_params
+    from repro_torch.train_lm import batch_fn_for, make_loop, train_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    root = ROOT / "build" / "chip_smoke_lm"
+    shutil.rmtree(root, ignore_errors=True)
+    counted: dict[str, int] = {}
+
+    # ---- (c) B3 and B4 under autograd at the paths' shapes ------------- #
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    flash_row = None
+    for label, b, hq, hkv, sq, sk, d, dv, causal in (
+            ("zamba2-7b prefill", 2, 32, 32, 2048, 2048, 112, 112, True),
+            ("whisper-tiny encoder", 4, 6, 6, 1500, 1500, 64, 64, False),
+            ("whisper-tiny cross", 4, 6, 6, 128, 1500, 64, 64, False),
+            ("whisper-tiny decoder self", 4, 6, 6, 128, 128, 64, 64, True),
+            ("GQA group 4", 1, 32, 8, 1000, 1000, 112, 112, True),
+            ("Dv != D", 2, 32, 32, 1000, 1000, 112, 64, True)):
+        q = randn(b, sq, hq, d).transpose(1, 2)          # the path's layout
+        k = randn(b, sk, hkv, d).transpose(1, 2)
+        v = randn(b, sk, hkv, dv).transpose(1, 2)
+        dout = randn(b, hq, sq, dv)
+        scale = d ** -0.5
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, return_lse=True)
+        want_out, want_lse = attention_with_lse(q, k, v, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        atol, rtol = TOL_LSE
+        lse_err = float((lse - want_lse).abs().max())
+        check(bool(((lse - want_lse).abs() <= atol + rtol * want_lse.abs()).all()),
+              f"flash lse {label}: kernel and plain version differ ({lse_err:.3e})")
+        out_err = float((out.float() - want_out.float()).abs().max())
+        check(bool(((out.float() - want_out.float()).abs()
+                    <= TOL_BF16_OUT[0] + TOL_BF16_OUT[1] * want_out.float().abs()).all()),
+              f"flash {label} with lse: output differs from the plain version ({out_err:.3e})")
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(flash_ops.flash_attention(*leaves, causal=causal), leaves, dout)
+        plain = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(reference_attention(*plain, causal=causal), plain, dout)
+        gerr = 0.0
+        for nm, g, w in zip("qkv", got, want):
+            e = float((g.float() - w.float()).abs().max()) / max(1.0, float(w.float().abs().max()))
+            check(e <= TOL_FLASH_GRAD, f"flash {label}: d{nm} of the Function against plain "
+                  f"autograd {e:.3e} (tolerance {TOL_FLASH_GRAD})")
+            gerr = max(gerr, e)
+        del plain, want
+        row = f"flash {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} bf16 " \
+              f"{'causal' if causal else 'non-causal'} on {card}: lse max |err| {lse_err:.3e} " \
+              f"(tolerance atol, rtol {TOL_LSE}), out {out_err:.3e}; dq, dk, dv against plain " \
+              f"autograd {gerr:.3e} x max(1, max|g|) (tolerance {TOL_FLASH_GRAD})"
+        if label.startswith(("zamba2", "whisper")):
+            fwd = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal, scale=scale),
+                            "flash_fwd_bf16", iters=10)
+            fwd_lse = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                                             return_lse=True),
+                                "flash_fwd_bf16", iters=10)
+            block = flash_ops.BLOCK_K
+            bwd_ms = cuda_ms(lambda: vjp.flash_backward(q, k, v, out, lse, dout, causal=causal,
+                                                        scale=scale, block_k=block), iters=3)
+            bwd_128 = cuda_ms(lambda: vjp.flash_backward(q, k, v, out, lse, dout, causal=causal,
+                                                         scale=scale, block_k=128), iters=3)
+            ours = cuda_ms(lambda: torch.autograd.grad(
+                flash_ops.flash_attention(*leaves, causal=causal), leaves, dout), iters=3)
+            sdpa = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+                *leaves, is_causal=causal), leaves, dout), iters=5)
+            b_ms, b_by = bound(*flash_bwd_work(b, hq, hkv, sq, sk, d, dv, 2, causal),
+                               BF16_FLOPS_PER_S)
+            plain_lse_ms = cuda_ms(lambda: attention_with_lse(q, k, v, causal=causal,
+                                                              scale=scale), iters=3)
+            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                               iters=10)
+            fb_ms, fb_by = bound(*flash_work(b, hq, hkv, sq, sk, d, dv, 2, causal),
+                                 BF16_FLOPS_PER_S)
+            row += (f"; B3 device {fwd:.4f} ms without lse, {fwd_lse:.4f} ms with it (plain "
+                    f"{plain_lse_ms:.3f} ms, forward bound {fb_ms:.5f} ms ({fb_by})); the flash "
+                    f"backward {bwd_ms:.3f} ms with key blocks of {block} ({bwd_128:.3f} ms with "
+                    f"128; bound {b_ms:.5f} ms ({b_by})), forward + backward "
+                    f"{ours:.3f} ms against scaled_dot_product_attention's {sdpa:.3f} ms (CUDA "
+                    f"events)")
+            if label == "whisper-tiny encoder":
+                flash_row = {"name": "flash_fwd (whisper-tiny encoder, train: with lse)",
+                             "route": "cuda", "source": FLASH_SRC,
+                             "replaces": "src/repro/kernels/flash/kernel.py:43",
+                             "launches": None,    # the training run's, below
+                             "max_abs_err": max(lse_err, out_err), "ms": fwd_lse,
+                             "plain_ms": plain_lse_ms, "bound_ms": fb_ms, "bound_by": fb_by,
+                             "library_ms": sdpa_fwd}
+        print(row, flush=True)
+        del q, k, v, out, lse, leaves, got
+        torch.cuda.empty_cache()
+
+    ssd_row = None
+    for label, bt, s, h, p, g, n, chunk, scaled in (
+            ("zamba2-7b prefill", 2, 2048, 112, 64, 2, 64, 64, False),
+            ("xlstm-350m numerator", 1, 256, 4, 512, 4, 512, 64, True),
+            ("xlstm-350m normalizer", 1, 256, 4, 1, 4, 512, 64, True)):
+        x = randn(bt, s, h, p)
+        Bm, Cm = randn(bt, s, g, n) * n ** -0.5, randn(bt, s, g, n)
+        dt = F.softplus(torch.randn((bt, s, h), generator=gen, device="cuda") * 0.5 - 2.0)
+        A = torch.exp(0.2 * torch.randn((h,), generator=gen, device="cuda"))
+        sc = torch.rand((bt, s, h), generator=gen, device="cuda") if scaled else None
+        dy, dh = randn(bt, s, h, p), torch.randn((bt, h, n, p), generator=gen, device="cuda")
+        ins = [x, dt, A, Bm, Cm] + ([sc] if scaled else [])
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+
+        def fwd(leaves=leaves, scaled=scaled, chunk=chunk):
+            return ssd_ops.ssd_scan(*leaves[:5], chunk=chunk,
+                                    in_scale=leaves[5] if scaled else None)
+        y, hf = fwd()
+        plain = [t.detach().clone().requires_grad_(True) for t in ins]
+        wy, wh = ssd_chunked(*plain[:5], chunk=chunk, in_scale=plain[5] if scaled else None)
+        wy = wy.to(x.dtype)
+        # B4's own outputs at these shapes, against the plain version's
+        errs = {}
+        for nm, o, w, (atol, rtol) in (("y", y, wy, TOL_BF16_OUT), ("h_final", hf, wh,
+                                                                      TOL_SSD_STATE)):
+            d = (o.detach().float() - w.detach().float()).abs()
+            errs[nm] = float(d.max())
+            check(bool((d <= atol + rtol * w.detach().float().abs()).all()),
+                  f"ssd {label}: B4's {nm} differs from the plain version ({errs[nm]:.3e}, "
+                  f"tolerance atol, rtol {(atol, rtol)})")
+        # the Function's wiring (padding, in_scale, a None h_final cotangent's zero): its
+        # backward recomputes this same plain scan, so the two agree by construction
+        got = torch.autograd.grad((y, hf), leaves, (dy, dh), retain_graph=True)
+        want = torch.autograd.grad((wy, wh), plain, (dy, dh))
+        gerr = 0.0
+        for nm, gg, w in zip(("x", "dt", "A", "B", "C", "in_scale"), got, want):
+            e = float((gg.float() - w.float()).abs().max()) / max(1.0, float(w.float().abs().max()))
+            check(e <= TOL_LM_UNIT, f"ssd {label}: d{nm} of the Function against plain autograd "
+                  f"{e:.3e} (tolerance {TOL_LM_UNIT})")
+            gerr = max(gerr, e)
+        template = "ssd_scan_tiled" if max(n, p) > 128 else "ssd_scan_bf16"
+        # the Function's forward launches exactly this kernel; over 0.2 ms, so CUDA events
+        # (reported_ms's rule; late in the script the profiler's windows lose kernels)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: fwd(ins), iters=20)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad((y, hf), leaves, (dy, dh),
+                                                     retain_graph=True), iters=3)
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: ssd_chunked(*ins[:5], chunk=chunk,
+                                                   in_scale=sc if scaled else None), iters=2)
+        nbytes, flops = ssd_work(bt, s, h, p, g, n, chunk, 2, scaled)
+        f_ms, f_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        b_ms, b_by = bound(2 * nbytes, 2 * flops, BF16_FLOPS_PER_S)
+        print(f"ssd {label} Bt={bt} S={s} H={h} P={p} G={g} N={n} chunk {chunk} bf16 on {card}: "
+              f"B4's y max |err| {errs['y']:.3e} (tolerance atol, rtol {TOL_BF16_OUT}), h_final "
+              f"{errs['h_final']:.3e} (tolerance {TOL_SSD_STATE}) against the plain version; "
+              f"the Function's wiring: its gradients against plain autograd of the same plain "
+              f"scan {gerr:.3e} x max(1, max|g|) (tolerance {TOL_LM_UNIT}); B4 {template} "
+              f"{fwd_ms:.4f} ms (CUDA events; bound "
+              f"{f_ms:.5f} ms, {f_by}), the recompute backward {bwd_ms:.3f} ms (CUDA events; "
+              f"bound {b_ms:.5f} ms, {b_by}: the gradients' products, twice the scan's), plain "
+              f"forward {plain_ms:.3f} ms", flush=True)
+        if label == "xlstm-350m numerator":
+            ssd_row = {"name": "ssd_scan (xlstm-350m numerator, train)", "route": "cuda",
+                       "source": SSD_SRC, "replaces": "src/repro/kernels/ssd/kernel.py:41",
+                       "launches": None, "max_abs_err": max(errs.values()), "ms": fwd_ms,
+                       "plain_ms": plain_ms, "bound_ms": f_ms, "bound_by": f_by,
+                       "library_ms": None}
+        del leaves, plain, got, want, y, hf
+        torch.cuda.empty_cache()
+
+    # ---- (b) agreement: the float32 SMOKE steps against the golden file  #
+    golden = json.loads(LM_TRAIN_GOLDEN.read_text())
+    conf = golden["config"]
+    for arch, rec in golden["archs"].items():
+        cfg = get_smoke_config(arch).scaled(dtype=conf["dtype"])
+        model = build_model(cfg)
+        params = model.init_params(seed=conf["seed"], host=True)   # the file's weights
+        tcfg = train_config(conf["total_steps"])
+        opt = make_optimizer(tcfg)
+        step_fn, state = make_train_fn(model, tcfg, opt), opt.init(params)
+        sha = hashlib.sha256()
+        for _, leaf in named_leaves(params):
+            sha.update(leaf.detach().float().cpu().numpy().astype("<f4").tobytes())
+        check(sha.hexdigest() == rec["init_sha256"],
+              f"{arch} smoke f32: the host-drawn weights differ from the golden file's")
+        # the file's tokens (another numpy may draw another Zipf stream; said below)
+        stream = TokenStream(cfg.vocab_size, conf["seq"], conf["batch"],
+                             seed=conf["stream_seed"])
+        same_stream = all(stream.batch_at(i)["tokens"].tolist() == st["tokens"]
+                          for i, st in enumerate(rec["steps"]))
+
+        def batch_fn(step, cfg=cfg, rec=rec):
+            tokens = torch.tensor(rec["steps"][step]["tokens"], dtype=torch.int32, device="cuda")
+            out = {"tokens": tokens}
+            if cfg.family == "audio":
+                out["audio_embed"] = torch.zeros((tokens.shape[0], cfg.encoder_seq, cfg.d_model),
+                                                 dtype=torch.bfloat16, device="cuda")
+            return out
+        before = dict(kbuild.LAUNCHES)
+        errs = {"loss": 0.0, "grad_norm": 0.0, "leaf_norm": 0.0}
+        first: list = []         # step 1 profiled: which templates ran
+        names = kernel_names(lambda: first.append(step_fn(params, state, batch_fn(0))))
+        for step, want in enumerate(rec["steps"]):
+            params, state, metrics = first.pop() if first else step_fn(params, state,
+                                                                         batch_fn(step))
+            for k in ("loss", "grad_norm"):
+                errs[k] = max(errs[k], abs(float(metrics[k]) / want[k] - 1))
+            check(int(metrics["step"]) == want["step"], f"{arch}: step count")
+        for n, t in named_leaves(params):
+            w = rec["leaf_norms"][n]
+            got = float(np.linalg.norm(t.detach().double().cpu().numpy().ravel()))
+            errs["leaf_norm"] = max(errs["leaf_norm"], abs(got - w) / max(w, 1e-30))
+        ran = {k: kbuild.LAUNCHES[k] - before[k] for k in ("flash_fwd", "ssd_scan")}
+        f32 = {t: sum(t in nm for nm in names) for t in ("flash_fwd_f32", "flash_fwd_bf16",
+                                                          "ssd_scan_f32", "ssd_scan_bf16",
+                                                          "ssd_scan_tiled")}
+        check(all(errs[k] <= TOL_LM_GOLDEN[k] for k in errs),
+              f"{arch} smoke f32: golden steps differ {errs} (tolerances {TOL_LM_GOLDEN})")
+        # by name only what ran not: late in the script a window may lose its first kernels
+        check(any(ran.values()) and not f32["flash_fwd_bf16"] and not f32["ssd_scan_bf16"]
+              and not f32["ssd_scan_tiled"], f"{arch} smoke f32: launches {ran}, templates {f32}")
+        print(f"{arch} SMOKE float32, {len(rec['steps'])} steps on {card} against "
+              f"tests/golden/torch_lm_train_steps.json: loss {errs['loss']:.2e}, grad_norm "
+              f"{errs['grad_norm']:.2e}, leaf norms {errs['leaf_norm']:.2e} relative "
+              f"(tolerances {TOL_LM_GOLDEN}); initial weights' sha256 equal; TokenStream "
+              f"(numpy {np.__version__}) draws the file's tokens: {same_stream}; launches {ran}, "
+              f"step 1's templates by profiler name {f32}", flush=True)
+        del model, params, state
+
+    # ---- (b) agreement: full-width float32 units, kernel path vs plain  #
+    for arch, kw, b, s, want_k in (
+            ("whisper-tiny", {"encoder_layers": 1, "n_layers": 1}, 2, 64, {"flash_fwd": 3}),
+            ("xlstm-350m", {"n_layers": 2}, 1, 256, {"ssd_scan": 2})):
+        cfg = get_config(arch).scaled(dtype="float32", **kw)
+        model = build_model(cfg)
+        params = model.init_params(seed=1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")}
+        if cfg.family == "audio":
+            batch["audio_embed"] = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                               device="cuda")
+        before = dict(kbuild.LAUNCHES)
+        loss, grads = value_and_grad(model.loss, params, batch)
+        mid = dict(kbuild.LAUNCHES)
+        with plain_kernels():
+            ploss, pgrads = value_and_grad(model.loss, params, batch)
+        torch.cuda.synchronize()
+        ran = {k: mid[k] - before[k] for k in ("flash_fwd", "ssd_scan") if mid[k] > before[k]}
+        check(ran == want_k and kbuild.LAUNCHES == mid,
+              f"{arch} f32 train unit: launches {ran}, expected {want_k}")
+        lerr = abs(float(loss) - float(ploss)) / max(1.0, abs(float(ploss)))
+        check(lerr <= TOL_LM_UNIT, f"{arch} f32 train unit: loss {float(loss)} against the plain "
+              f"path's {float(ploss)}")
+        gerr = grads_within(grads, pgrads, TOL_LM_UNIT)
+        unit = "ec" if cfg.encoder_layers else cfg.pattern()
+        print(f"{arch} f32 train unit ({unit}, d_model {cfg.d_model}), B={b} S={s}: kernel path "
+              f"vs plain path on the card, loss {float(loss):.6f} ({lerr:.2e} relative), every "
+              f"one of {len(named_leaves(grads))} gradient leaves within {gerr:.3e} x max(1, "
+              f"max|g|) (tolerance {TOL_LM_UNIT}); launches {ran}", flush=True)
+        del model, params, grads, pgrads
+        torch.cuda.empty_cache()
+
+    # ---- (a) full-width training through TrainLoop + make_train_fn ----- #
+    for arch, (b, s, steps) in LM_TRAIN.items():
+        cfg = get_config(arch)
+        kern, template, per_mb = LM_TRAIN_PER_MB[arch]
+        model = build_model(cfg)
+        params0 = model.init_params(seed=0)
+        batch_fn = batch_fn_for(cfg, TokenStream(cfg.vocab_size, s, b, seed=0), model.device)
+        mb = {k: v[: b // 2] for k, v in batch_fn(0).items()}
+        loss0, grads = value_and_grad(model.loss, params0, mb)
+        bad = [n for n, g in named_leaves(grads)
+               if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0]
+        check(bool(torch.isfinite(loss0)) and not bad,
+              f"{arch}: first microbatch's loss {float(loss0)}, zero or non-finite gradients {bad}")
+        n_leaves = len(named_leaves(grads))
+        del grads
+        # the path, counted: half the steps, a save, a resume for the rest
+        ckpt = root / arch
+        for k in kbuild.LAUNCHES:
+            kbuild.LAUNCHES[k] = 0
+        loop = make_loop(cfg, steps=steps // 2, batch=b, seq=s, ckpt_dir=ckpt,
+                         save_every=steps // 2, metrics_path=ckpt / "metrics.jsonl",
+                         params=params0, log_every=1)
+        loop.run()
+        loop2 = make_loop(cfg, steps=steps, batch=b, seq=s, ckpt_dir=ckpt, save_every=steps,
+                          metrics_path=ckpt / "metrics.jsonl", params=params0, log_every=1)
+        out = loop2.run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kbuild.LAUNCHES.items() if v}
+        counted[arch] = launches.get(kern, 0)
+        recs = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in recs]
+        check(loop2.start_step == steps // 2 and out["final_step"] == steps
+              and [r["step"] for r in recs] == list(range(1, steps + 1)),
+              f"{arch}: resume at {loop2.start_step}, final step {out['final_step']}, logged "
+              f"steps {[r['step'] for r in recs]}")
+        check(all(np.isfinite(losses)), f"{arch}: losses {losses}")
+        check(launches == {kern: steps * 2 * per_mb},
+              f"{arch}: launches {launches}, expected {steps * 2 * per_mb} {kern} "
+              f"({per_mb} a microbatch forward)")
+        times = list(loop.timer.history) + list(loop2.timer.history)
+        med = statistics.median(times)
+        print(f"{arch} trained on {card}: full config ({count_params(model)} parameters, "
+              f"{cfg.dtype}), B={b} S={s}" + (f" + {cfg.encoder_seq} frames" if cfg.encoder_layers
+                                              else "")
+              + f", {steps} steps through TrainLoop (saved at step {steps // 2}, resumed there), "
+              f"microbatches 2: losses {[round(x, 4) for x in losses]}; launches {launches} "
+              f"({per_mb} a microbatch forward); all {n_leaves} gradient leaves non-zero and "
+              f"finite in the first microbatch; {med * 1e3:.1f} ms a step = "
+              f"{b * s / med:.0f} tokens/s (host clock around synchronized steps, median of "
+              f"{len(times)}; steps {[round(t * 1e3, 1) for t in times]} ms)", flush=True)
+        if arch == "whisper-tiny":   # an uninterrupted run gives the same steps
+            loop3 = make_loop(cfg, steps=steps, batch=b, seq=s, ckpt_dir=root / f"{arch}-whole",
+                              save_every=steps, metrics_path=root / f"{arch}-whole.jsonl",
+                              params=params0, log_every=steps)
+            loop3.run()
+            whole = [json.loads(line)["loss"]
+                     for line in (root / f"{arch}-whole.jsonl").read_text().splitlines()]
+            same = all(torch.equal(x, y) for (_, x), (_, y) in
+                       zip(named_leaves(loop3.params), named_leaves(loop2.params)))
+            err = max(abs(x - y) / abs(y) for x, y in zip(losses, whole))
+            check(err <= 1e-6, f"{arch}: resumed losses {losses}, uninterrupted {whole}")
+            print(f"{arch} resume against an uninterrupted run: losses within {err:.2e} "
+                  f"relative, final parameters bit-equal: {same}", flush=True)
+            del loop3
+        del loop, loop2, model, params0
+        torch.cuda.empty_cache()
+    for sig, h in handlers.items():     # TrainLoop installed its preemption flag
+        signal.signal(sig, h)
+
+    flash_row["launches"], ssd_row["launches"] = counted["whisper-tiny"], counted["xlstm-350m"]
+    shutil.rmtree(root, ignore_errors=True)
+    rows = [flash_row, ssd_row]
+    print(f"lm train phase on {card}: {time.perf_counter() - t_phase:.1f} s; launches on the "
+          f"training paths {counted}", flush=True)
+    return rows
+
+
+def lm_train_split_phase(card: str) -> None:
+    """One profiled train step of each full-width training run (module
+    docstring, item 24): its split over the lm.* ranges, the device's idle
+    share, and B3's or B4's template by kernel name.  Last in the script: a
+    profile of ~50k kernels leaves later profiler windows without kernels."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import make_optimizer, make_train_fn
+    from repro_torch.models.model import build_model
+    from repro_torch.train_lm import batch_fn_for, train_config
+
+    for arch, (b, s, steps) in LM_TRAIN.items():
+        cfg = get_config(arch)
+        kern, template, per_mb = LM_TRAIN_PER_MB[arch]
+        # one profiled step: the lm.* ranges, the device's idle share, kernels by name
+        label = f"{arch} step B={b} S={s}"
+        if arch != "whisper-tiny":   # one of the 12 xs units (a whole step: ~400k launches)
+            cfg, label = cfg.scaled(n_layers=2), f"{arch} one xs unit, step B={b} S={s}"
+        pm = build_model(cfg)
+        pparams = pm.init_params(seed=0)
+        pbatch = batch_fn_for(cfg, TokenStream(cfg.vocab_size, s, b, seed=0), pm.device)(0)
+        tcfg = train_config(steps)
+        opt = make_optimizer(tcfg)
+        step_fn = make_train_fn(pm, tcfg, opt)
+        pstate = opt.init(pparams)
+        before = kbuild.LAUNCHES[kern]
+        step_fn(pparams, pstate, pbatch)              # warm
+        torch.cuda.synchronize()
+
+        def two_steps():    # the second is read: a late window may lose its first kernels
+            step_fn(pparams, pstate, pbatch)
+            torch.cuda.synchronize()
+            step_fn(pparams, pstate, pbatch)
+        want_ran, seen = 2 * (per_mb if arch == "whisper-tiny" else 2), []
+        for attempt in range(3):    # as device_ms: a window short of kernels is profiled again
+            kernels, ranges = profile_ranges(two_steps, "lm.")
+            first_end = min(en for nm, _, en in ranges if nm == "lm.optimizer")
+            ranges = [r for r in ranges if r[1] > first_end]
+            kernels = [k for k in kernels if k[1] >= ranges[0][1]]
+            ran = sum(template in nm for nm, _, _ in kernels)
+            seen.append(ran)
+            if ran == want_ran:
+                break
+        check(ran == want_ran and kbuild.LAUNCHES[kern] - before == (1 + 2 * len(seen)) * want_ran,
+              f"{label}: {seen} {template} kernels by profiler name in the second profiled "
+              f"step of {len(seen)} windows, expected {want_ran}")
+        split: dict[str, float] = {}
+        for name, st, en in ranges:
+            split[name] = split.get(name, 0.0) + (en - st) / 1e3
+        t0 = min(st for _, st, _ in ranges)
+        total = (max(en for _, _, en in ranges) - t0) / 1e3
+        busy, window = busy_window([(st, en) for _, st, en in kernels])
+        kms = sum(en - st for nm, st, en in kernels if template in nm) / 1e3
+        print(f"{label} split on {card}, from the second of two profiled steps (the lm.* ranges, "
+              f"host clock; "
+              f"{total:.1f} ms from the first range's start to the last's end): "
+              + ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
+              + f"; device: {len(kernels)} kernels, busy {busy / 1e3:.2f} ms of a "
+              f"{window / 1e3:.2f} ms window (idle {100 * (1 - busy / window):.1f}%), "
+              f"{template} {ran} launches {kms:.3f} ms (profiler windows' counts {seen})",
+              flush=True)
+        del pm, pparams, pstate, pbatch
+        torch.cuda.empty_cache()
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -2486,6 +2997,12 @@ def run() -> dict:
           f"respect-v1 path ran B1 templates {ran} (counted {counted}), expected only "
           f"{n_buckets} ptr_decode_cluster")
     del sched
+
+    # ---- last: the LM zoo's training path, whisper-tiny and xlstm-350m;
+    # after its runs and profiles the profiler's windows lose kernels,
+    # which the B2 replays above count exactly ----------------------------- #
+    kernels += lm_train_phase(card)
+    lm_train_split_phase(card)
     return {"kernels": kernels, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "card": card}
 
@@ -2502,7 +3019,8 @@ def main() -> int:
         return 2
     if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
             and SEEDED_GOLDEN.exists() and TRAIN_GOLDEN.exists() and EVAL_BENCH.exists()
-            and INGEST_BENCH.exists() and INGEST_HASHES.exists()):
+            and INGEST_BENCH.exists() and INGEST_HASHES.exists()
+            and LM_TRAIN_GOLDEN.exists()):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))

@@ -5,6 +5,11 @@
                             #  "treedef": "PyTreeDef({...})"}
     <dir>/arr_0000.bin ...  # one raw little-endian buffer per leaf
 
+A bfloat16 leaf is stored as its raw two-byte words under the dtype name
+``bfloat16``, as the reference writes it (numpy has no bfloat16 of its
+own: in memory such a leaf is a numpy array of :data:`BF16`, a 2-byte
+record).
+
 Leaf names are dict keys joined by slashes, in sorted key order (JAX's
 ``tree_flatten_with_path`` order), so a tree of nested dicts rebuilds from
 the manifest alone and the reference's readers (``repro.checkpoint``) read
@@ -34,13 +39,34 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["CheckpointManager", "flatten_leaves", "is_checkpoint_dir", "load_pytree",
+__all__ = ["BF16", "CheckpointManager", "flatten_leaves", "is_checkpoint_dir", "load_pytree",
            "load_pytree_dict", "read_leaves", "save_pytree"]
+
+#: the host copy of a bfloat16 leaf: its raw 16-bit words
+BF16 = np.dtype([("bfloat16", "<u2")])
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16)
+    return t.numpy()
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype == BF16:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == BF16 else str(arr.dtype)
 
 
 def flatten_leaves(tree: dict, prefix: str = "") -> list[tuple[str, np.ndarray]]:
     """(slash-joined name, numpy array) of every leaf of a tree of nested
-    dicts, keys sorted at each level; tensor leaves are copied to the host."""
+    dicts, keys sorted at each level; tensor leaves are copied to the host
+    (a bfloat16 one as an array of :data:`BF16`)."""
     out = []
     for k in sorted(tree):
         v = tree[k]
@@ -49,7 +75,7 @@ def flatten_leaves(tree: dict, prefix: str = "") -> list[tuple[str, np.ndarray]]
         if isinstance(v, dict):
             out += flatten_leaves(v, f"{prefix}{k}/")
         elif isinstance(v, torch.Tensor):
-            out.append((prefix + str(k), v.detach().cpu().numpy()))
+            out.append((prefix + str(k), _numpy(v)))
         else:
             out.append((prefix + str(k), np.asarray(v)))
     return out
@@ -77,7 +103,7 @@ def save_pytree(tree: dict, directory: str | Path) -> None:
         fname = f"arr_{i:04d}.bin"
         (tmp / fname).write_bytes(arr.tobytes())
         manifest["leaves"].append({"name": name, "file": fname, "shape": list(arr.shape),
-                                   "dtype": str(arr.dtype)})
+                                   "dtype": _dtype_name(arr)})
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     if directory.exists():
         shutil.rmtree(directory)
@@ -85,7 +111,8 @@ def save_pytree(tree: dict, directory: str | Path) -> None:
 
 
 def _read_array(path: Path, entry: dict) -> np.ndarray:
-    arr = np.frombuffer(path.read_bytes(), dtype=np.dtype(entry["dtype"]))
+    dtype = BF16 if entry["dtype"] == "bfloat16" else np.dtype(entry["dtype"])
+    arr = np.frombuffer(path.read_bytes(), dtype=dtype)
     return arr.reshape(entry["shape"])
 
 
@@ -109,7 +136,7 @@ def load_pytree_dict(directory: str | Path) -> dict:
         d = out
         for p in parts[:-1]:
             d = d.setdefault(p, {})
-        d[parts[-1]] = torch.from_numpy(arr.copy())
+        d[parts[-1]] = _tensor(arr)
     return out
 
 
@@ -136,7 +163,7 @@ def load_pytree(directory: str | Path, target: dict) -> dict:
                 if tuple(arr.shape) != tuple(v.shape):
                     raise ValueError(f"shape mismatch for {name}: checkpoint {arr.shape} "
                                      f"vs {tuple(v.shape)}")
-                out[k] = torch.from_numpy(arr.copy()).to(device=v.device, dtype=v.dtype)
+                out[k] = _tensor(arr).to(device=v.device, dtype=v.dtype)
         return out
 
     return rec(target, "")
@@ -146,7 +173,7 @@ def _host_copy(tree):
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy().copy()
+        return _numpy(tree).copy()
     return None if tree is None else np.array(tree)
 
 

@@ -7,7 +7,7 @@ import dataclasses
 from typing import Optional
 
 __all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "ShapeConfig", "SHAPES",
-           "shape_applicable"]
+           "shape_applicable", "TrainConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +105,27 @@ def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]
         return False, ("pure full-attention arch: 512k dense decode is "
                        "outside the cell's intent (sub-quadratic archs only)")
     return True, ""
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer knobs carried alongside the model config (the reference's
+    fields).  ``remat`` has no effect: the port trains without activation
+    rematerialization, as the reference's LM example does.
+    ``grad_compression`` compresses the gradients of data parallelism, which
+    the port does not have: any value but None raises."""
+    microbatches: int = 8
+    remat: bool = True
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    max_grad_norm: float = 1.0
+    grad_compression: Optional[str] = None   # None | "int8"
+    master_fp32: bool = False
+
+    def __post_init__(self):
+        if self.grad_compression is not None:
+            raise NotImplementedError(
+                f"grad_compression={self.grad_compression!r}: the port has no data "
+                "parallelism (ROADMAP queue A item 3)")

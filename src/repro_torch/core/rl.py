@@ -409,10 +409,8 @@ class TrainState:
     best_baseline_reward: torch.Tensor  # () float32
 
     def tree(self) -> dict:
-        o = self.opt_state
         return {"0": param_tree(self.params), "1": param_tree(self.baseline_params),
-                "2": {"0": o.step, "1": o.mu, "2": o.nu, "3": o.master},
-                "3": self.step, "4": self.best_baseline_reward}
+                "2": self.opt_state.tree(), "3": self.step, "4": self.best_baseline_reward}
 
     def load_tree(self, tree: dict) -> None:
         """Take every leaf of ``tree`` (the shape of :meth:`tree`), the
@@ -420,8 +418,7 @@ class TrainState:
         with torch.no_grad():
             for net, sub in ((self.params, tree["0"]), (self.baseline_params, tree["1"])):
                 optim.tree_map(lambda p, q: p.copy_(q), param_tree(net), sub)
-        o = tree["2"]
-        self.opt_state = optim.OptState(step=o["0"], mu=o["1"], nu=o["2"], master=o.get("3"))
+        self.opt_state = optim.OptState.from_tree(tree["2"])
         self.step = tree["3"]
         self.best_baseline_reward = tree["4"]
 

@@ -36,7 +36,9 @@ order the calls ran (a topological order), under the reference's rules:
   dead code (the prefill's cache writes).
 
 The same calls run on the CPU and on the card, so the same records, and the
-same graph hash, come out of both.  ``kind="train"`` waits for the losses.
+same graph hash, come out of both.  ``kind="train"`` raises: the recorder
+sits at the torch-function level, where autograd's backward operations are
+not seen, so a train step's records need a recorder at the dispatch level.
 """
 
 from __future__ import annotations
@@ -416,8 +418,8 @@ def trace_model(arch: str, *, smoke: bool = True, kind: str = "prefill", batch: 
         raise ValueError(f"kind must be one of {TRACE_KINDS}, got {kind!r}")
     if kind == "train":
         raise NotImplementedError(
-            "tracing the train loss waits for the port's losses (layer_norm, "
-            "softmax_cross_entropy, lm_loss) and the flash backward")
+            "tracing a train step waits for a dispatch-level recorder: this one sits at the "
+            "torch-function level, where autograd's backward operations are not seen")
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, device="meta")

@@ -29,7 +29,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "KERNELS", "BUILD_DIR", "KernelError", "build_kernels",
+import torch
+
+__all__ = ["LAUNCHES", "KERNELS", "BUILD_DIR", "KernelError", "build_kernels", "refuse_grad",
            "load_function", "check"]
 
 
@@ -160,3 +162,13 @@ def check(name: str, code: int) -> None:
         lib = next(lib for (nm, _), lib in _libs.items() if nm == name)
         msg = lib.kernel_error_string(code).decode()
         raise KernelError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
+
+
+def refuse_grad(name: str, hint: str, *tensors) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad: a
+    kernel's output carries no autograd history, so a loss built on it
+    would lose every gradient through it without an error.  ``hint`` says
+    where the differentiable route is."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, and the kernel's output carries "
+                           f"no gradient; {hint}")

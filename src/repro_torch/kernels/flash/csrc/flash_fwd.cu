@@ -10,6 +10,13 @@
 // kernel's guard does.  Inputs are float32 or bfloat16; the output has q's
 // type.
 //
+// For training, both templates also write each row's log-sum-exp
+// lse = m + log(l) (natural log, float32, (B, Hq, Sq) contiguous) when the
+// caller passes a buffer: the residual the backward recomputes the
+// probabilities from (repro/kernels/flash/vjp.py:_fwd_chunked).  A row with
+// every key masked gets m = -inf, as there.  Serving passes none, and the
+// kernels then do the same work as without it.
+//
 // Bound on the H100: operations.  A causal prefill does about
 // 2 Sq Sk (D + Dv) / 2 flops per (batch, head) against (Sq D + Sk (D + Dv) +
 // Sq Dv) elements moved, far above the card's operations-per-byte balance at
@@ -79,6 +86,7 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Sq) or null
   long long sqb, sqh, sqs;  // element strides of q over batch, head, sequence
   long long skb, skh, sks;
   long long svb, svh, svs;
@@ -110,6 +118,7 @@ __global__ void __launch_bounds__(FL_THREADS) flash_fwd_f32_kernel(FlashParams p
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int q0 = blockIdx.x * FL_BQ;
+  float* lse = p.lse ? p.lse + ((long long)b * p.Hq + h) * p.Sq : nullptr;
   const int off = p.Sk - p.Sq;  // query i sits at key position i + off
   const float* q = (const float*)p.q + b * p.sqb + h * p.sqh;
   const float* k = (const float*)p.k + b * p.skb + hk * p.skh;
@@ -219,6 +228,7 @@ __global__ void __launch_bounds__(FL_THREADS) flash_fwd_f32_kernel(FlashParams p
     const int qi = q0 + r0 + i;
     if (qi >= p.Sq) continue;
     const float denom = l[i] > 0.0f ? l[i] : 1.0f;
+    if (lse != nullptr && tc == 0) lse[qi] = m[i] + logf(denom);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tc + 16 * j;
@@ -259,6 +269,7 @@ static int fl_dispatch_f32(const FlashParams& p, int B, int device, void* stream
 
 struct FlashBf16Params {
   void* o;
+  float* lse;          // (B, Hq, Sq) or null
   long long sob, soh, sos;
   int Hq, Hkv, Sq, Sk, D, Dv, causal;
   float scale_log2;    // scale * log2(e): the softmax runs on exp2
@@ -558,13 +569,17 @@ __global__ void __launch_bounds__(FB_THREADS, VC <= 2 ? 2 : 1)
   }
 
   __nv_bfloat16* out = (__nv_bfloat16*)p.o + b * p.sob + h * p.soh;
-  const float inv0 = 1.0f / (l0 > 0.0f ? l0 : 1.0f), inv1 = 1.0f / (l1 > 0.0f ? l1 : 1.0f);
+  const float den0 = l0 > 0.0f ? l0 : 1.0f, den1 = l1 > 0.0f ? l1 : 1.0f;
+  const float inv0 = 1.0f / den0, inv1 = 1.0f / den1;
   const bool pairs = (p.Dv & 1) == 0;   // the wrapper's output: 4-byte aligned pairs
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qi = q0 + r0 + 8 * half;
     if (qi >= p.Sq) continue;
     const float inv = half ? inv1 : inv0;
+    if (p.lse != nullptr && tq == 0)   // m is in log2 units: back to natural ones
+      p.lse[((long long)b * p.Hq + h) * p.Sq + qi] =
+          (half ? m1 : m0) * 0.6931471805599453f + logf(half ? den1 : den0);
     __nv_bfloat16* row = out + qi * p.sos;
 #pragma unroll
     for (int vc = 0; vc < VC; ++vc)
@@ -655,13 +670,14 @@ static int fb_launch(const CUtensorMap (&maps)[3], const FlashBf16Params& p, int
   return (int)cudaGetLastError();
 }
 
-static int fb_dispatch(const void* q, const void* k, const void* v, void* o,
+static int fb_dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                        const long long* s, int B, int Hq, int Hkv, int Sq, int Sk, int D,
                        int Dv, int causal, float scale, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   FlashBf16Params p;
   p.o = o;
+  p.lse = lse;
   p.sob = s[9], p.soh = s[10], p.sos = s[11];
   p.Hq = Hq, p.Hkv = Hkv, p.Sq = Sq, p.Sk = Sk, p.D = D, p.Dv = Dv, p.causal = causal;
   p.scale_log2 = scale * 1.4426950408889634f;
@@ -679,27 +695,29 @@ static int fb_dispatch(const void* q, const void* k, const void* v, void* o,
 }
 
 // q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv), o (B, Hq, Sq, Dv),
-// each with its innermost dimension contiguous; strides holds the element
+// each with its innermost dimension contiguous; lse (B, Hq, Sq) float32
+// contiguous, or null for no log-sum-exp output; strides holds the element
 // strides over (batch, head, sequence) of q, k, v and o, in that order.
 // bfloat16 inputs (is_bf16) take the tensor-core template and need 16-byte
 // aligned bases and strides that are multiples of 8 elements; float32 inputs
 // take the CUDA-core template.  Launches on the given stream; returns a CUDA
 // error code (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                                const long long* strides, int B, int Hq, int Hkv, int Sq,
-                                int Sk, int D, int Dv, int causal, float scale, int is_bf16,
-                                int device, void* stream) {
+                                float* lse, const long long* strides, int B, int Hq, int Hkv,
+                                int Sq, int Sk, int D, int Dv, int causal, float scale,
+                                int is_bf16, int device, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || Sq > Sk ||
       D <= 0 || D > FL_MAX_D || Dv <= 0 || Dv > FL_MAX_D)
     return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return fb_dispatch(q, k, v, o, strides, B, Hq, Hkv, Sq, Sk, D, Dv, causal, scale, device,
+    return fb_dispatch(q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Sk, D, Dv, causal, scale, device,
                        stream);
   FlashParams p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.sqb = strides[0], p.sqh = strides[1], p.sqs = strides[2];
   p.skb = strides[3], p.skh = strides[4], p.sks = strides[5];
   p.svb = strides[6], p.svh = strides[7], p.svs = strides[8];

@@ -3,19 +3,30 @@
 ``flash_attention`` launches the CUDA kernel for CUDA tensors (or raises)
 and runs the plain PyTorch version for CPU tensors; on ``meta`` tensors (a
 shapes-only ingest trace) it returns the output's shape as one kernel
-operation (:func:`repro_torch.trace_hooks.kernel`).  ``decode_attention``
-stays plain on both, as in the reference (a single query against the
-cache is a memory-bound gather and reduction that needs no kernel of its
-own).  The flash backward waits for training.
+operation (:func:`repro_torch.trace_hooks.kernel`).  In grad mode, with an
+input that requires grad, it goes through the flash backward's autograd
+Function (:mod:`repro_torch.kernels.flash.vjp`) on both devices, with key
+blocks of :data:`BLOCK_K`.  The block changes only the order of the sums
+and the backward's peak memory; with more than 128 keys, 512 (the
+reference's Pallas route's) runs the backward 1.3-4.9x faster than 128 on
+the card (``chip_smoke.py`` times both at the training paths' shapes).
+``decode_attention`` stays plain on both, as in the reference (a single
+query against the cache is a memory-bound gather and reduction that needs
+no kernel of its own).
 """
 
 from __future__ import annotations
 
+import torch
+
 from ... import trace_hooks
 from .kernel import attention_flops, flash_attention_cuda
 from .ref import reference_attention
+from .vjp import flash_mha
 
-__all__ = ["flash_attention", "decode_attention"]
+__all__ = ["flash_attention", "decode_attention", "BLOCK_K"]
+
+BLOCK_K = 512
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
@@ -23,6 +34,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     (B, Hq, Sq, Dv) in q's dtype."""
     if scale is None:
         scale = float(q.shape[-1] ** -0.5)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_mha(q, k, v, causal, scale, min(BLOCK_K, k.shape[2]))
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
     if q.is_meta:

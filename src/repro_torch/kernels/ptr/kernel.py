@@ -59,19 +59,14 @@ def _f32(x: torch.Tensor, name: str, shape: tuple) -> torch.Tensor:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """Raise when grad mode is on and any of ``tensors`` requires grad.
-
-    The kernels' outputs carry no autograd history: a loss built on one
-    would lose every gradient through it without an error.  So the kernel
-    wrappers (and, for the same contract on the CPU, their plain routes)
-    refuse such inputs; differentiate through the plain PyTorch decode
-    (:meth:`repro_torch.core.ptrnet.PointerNet.decode` with its default
-    ``logits_fn``) and call the kernels under ``torch.no_grad()``."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: an input requires grad, and the kernel's output carries no gradient; "
-            "differentiate through PointerNet.decode's plain logits_fn, or call it under "
-            "torch.no_grad()")
+    """:func:`repro_torch.kernels.build.refuse_grad` for the pointer
+    kernels: their wrappers (and, for the same contract on the CPU, their
+    plain routes) refuse grad-requiring inputs; differentiate through the
+    plain PyTorch decode (:meth:`repro_torch.core.ptrnet.PointerNet.decode`
+    with its default ``logits_fn``) and call the kernels under
+    ``torch.no_grad()``."""
+    build.refuse_grad(name, "differentiate through PointerNet.decode's plain logits_fn, or call "
+                      "it under torch.no_grad()", *tensors)
 
 
 def load_launcher():

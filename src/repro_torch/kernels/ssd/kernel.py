@@ -6,7 +6,9 @@ For N and P up to :data:`MAX_DIM`, bfloat16 inputs go to the kernel's
 tensor-core template, float32 inputs to its CUDA-core template; N or P
 above it (up to :data:`MAX_TILED_DIM`: the mLSTM's 512) go to its tiled
 template, in either type.  Each has its own shared-memory layout
-(:func:`smem_bytes`).
+(:func:`smem_bytes`).  The wrapper refuses inputs that require grad in
+grad mode: its outputs carry no autograd history, so differentiable calls
+go through ``ops.ssd_scan``, whose autograd Function has the backward.
 """
 
 from __future__ import annotations
@@ -70,6 +72,8 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int, in_scale=None):
     Returns y (Bt, S, H, P) in x's dtype and h_final (Bt, H, N, P) float32."""
     if not x.is_cuda:
         raise ValueError("ssd_scan_cuda takes CUDA tensors")
+    build.refuse_grad("ssd_scan_cuda", "call ops.ssd_scan, whose autograd Function has the "
+                      "backward, or run under torch.no_grad()", x, dt, A, B, C, in_scale)
     bt, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if tuple(B.shape) != (bt, s, g, n) or tuple(C.shape) != (bt, s, g, n):

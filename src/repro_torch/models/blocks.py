@@ -74,9 +74,12 @@ def init_block_cache(init: Init, cfg, tok: str, batch: int, max_len: int):
 
 def block_forward(p, cfg, tok: str, x, positions, *, mode: str = "prefill", cache=None,
                   kv_len=None, enc_out=None):
-    """Apply one residual block.  ``enc_out`` is the encoder output a ``c``
-    block cross-attends to in train and prefill; its decode reads the cross
-    K/V from ``cache``.  Returns (x, new_cache)."""
+    """Apply one residual block.  ``mode``: ``train`` (full sequence, no
+    cache: the new cache is None), ``prefill`` (full sequence, returns the
+    block's cache) or ``decode`` (one step against ``cache``).  ``enc_out``
+    is the encoder output a ``c`` block cross-attends to in train and
+    prefill; its decode reads the cross K/V from ``cache``.  Returns (x,
+    new_cache)."""
     if not _is_attn(tok):
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         if tok == "m":

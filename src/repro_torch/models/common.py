@@ -1,15 +1,22 @@
-"""Shared model building blocks: parameter draws, RMS norm, rotary.
+"""Shared model building blocks: parameter draws, RMS and layer norms,
+rotary, and the token-mean cross-entropy of the losses.
 
-Forward only (serving); ``layer_norm`` and the loss wait for training.
+The reference's RMS norm has a custom VJP only to keep the residual
+gradient in the activation dtype under XLA; autograd through the cast back
+to ``x``'s dtype gives that here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-__all__ = ["DTYPES", "dtype_of", "Init", "rms_norm", "rotary_embedding", "apply_rotary"]
+from ..core import prng
+
+__all__ = ["DTYPES", "dtype_of", "Init", "KeyStream", "rms_norm", "layer_norm", "rotary_embedding",
+           "apply_rotary", "softmax_cross_entropy"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -18,13 +25,29 @@ def dtype_of(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
+class KeyStream:
+    """Threefry draws on the host, the same bits on every machine (and
+    ``jax.random``'s, :mod:`repro_torch.core.prng`): the ``i``-th normal
+    draw of an init is ``normal(fold_in(PRNGKey(seed), i), shape)``."""
+
+    def __init__(self, seed: int):
+        self.base = prng.PRNGKey(seed)
+        self.count = 0
+
+    def normal(self, shape) -> np.ndarray:
+        key = prng.fold_in(self.base, self.count)
+        self.count += 1
+        return prng.normal(key, tuple(shape))
+
+
 @dataclasses.dataclass(frozen=True)
 class Init:
-    """Where parameters are made: the device, the seeded generator, and a
-    leading shape (``(n,)`` for a stack of ``n`` layers).  On the ``meta``
-    device nothing is drawn or allocated."""
+    """Where parameters are made: the device, the seeded generator (a
+    ``torch.Generator`` on that device, or a host :class:`KeyStream`), and
+    a leading shape (``(n,)`` for a stack of ``n`` layers).  On the
+    ``meta`` device nothing is drawn or allocated."""
     device: torch.device
-    generator: torch.Generator | None = None
+    generator: torch.Generator | KeyStream | None = None
     lead: tuple = ()
 
     def stacked(self, n: int) -> "Init":
@@ -35,8 +58,11 @@ class Init:
         shape = (*self.lead, *shape)
         if self.device.type == "meta":
             return torch.empty(shape, dtype=dtype, device=self.device)
-        x = torch.randn(shape, generator=self.generator, dtype=torch.float32,
-                        device=self.device)
+        if isinstance(self.generator, KeyStream):
+            x = torch.from_numpy(self.generator.normal(shape)).to(self.device)
+        else:
+            x = torch.randn(shape, generator=self.generator, dtype=torch.float32,
+                            device=self.device)
         return x.mul_(scale).to(dtype)
 
     def full(self, shape, value: float, dtype: torch.dtype) -> torch.Tensor:
@@ -48,6 +74,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     xf = x.float()
     inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return (xf * inv * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm with float32 statistics (biased variance), cast back to
+    ``x``'s dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
 
 
 def rotary_embedding(positions: torch.Tensor, head_dim: int, theta: float = 1e4):
@@ -66,3 +103,16 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     target = (1,) * (x1.ndim - 3) + (cos.shape[0], 1, cos.shape[-1])
     cos, sin = cos.reshape(target), sin.reshape(target)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross-entropy in float32: logits (..., V), integer labels
+    (...); with ``mask`` the mean over the masked-in tokens (at least one
+    in the denominator)."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None].long())[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

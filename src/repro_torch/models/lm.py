@@ -11,7 +11,8 @@ stacks.
 
 Caches are filled in place: prefill writes each layer's cache into a cache
 of ``max_len`` (default S) and decode writes its new entries into the cache
-it is given, which it returns.
+it is given, which it returns.  Training (``lm_loss``) runs the blocks in
+``mode="train"`` with no cache.
 """
 
 from __future__ import annotations
@@ -21,10 +22,10 @@ import torch
 
 from .. import trace_hooks
 from . import blocks
-from .common import Init, dtype_of, rms_norm
+from .common import Init, dtype_of, rms_norm, softmax_cross_entropy
 
 __all__ = [
-    "decompose_pattern", "init_lm", "init_lm_cache", "lm_forward", "lm_prefill",
+    "decompose_pattern", "init_lm", "init_lm_cache", "lm_forward", "lm_loss", "lm_prefill",
     "pad_cache_to", "lm_decode_step", "params_from_numpy",
 ]
 
@@ -71,7 +72,10 @@ def _layer(tree, i: int):
 
 
 def _store(slot, new) -> None:
-    """Write one layer's new cache into its slot of the full cache."""
+    """Write one layer's new cache into its slot of the full cache (none in
+    training)."""
+    if slot is None:
+        return
     for key, val in new.items():
         if isinstance(val, dict):
             _store(slot[key], val)
@@ -90,13 +94,13 @@ def _backbone(params, cfg, x, positions, *, mode, cache, kv_len):
     for layer in trace_hooks.loop("layers", n_full):
         for i, tok in enumerate(unit):
             p = shared if tok == "A" else _layer(params["blocks"][f"u{i}"], layer)
-            slot = _layer(cache["blocks"][f"u{i}"], layer)
+            slot = None if cache is None else _layer(cache["blocks"][f"u{i}"], layer)
             x, nc = blocks.block_forward(p, cfg, tok, x, positions, mode=mode,
                                          cache=slot if mode == "decode" else None,
                                          kv_len=kv_len)
             _store(slot, nc)
     for i, tok in enumerate(tail):
-        slot = cache["tail"][f"t{i}"]
+        slot = None if cache is None else cache["tail"][f"t{i}"]
         x, nc = blocks.block_forward(params["tail"][f"t{i}"], cfg, tok, x, positions, mode=mode,
                                      cache=slot if mode == "decode" else None, kv_len=kv_len)
         _store(slot, nc)
@@ -109,8 +113,8 @@ def _logits(params, cfg, x):
 
 
 def lm_forward(params, cfg, tokens, *, mode, cache, kv_len=None):
-    """Embed, run every block (filling ``cache``), final norm.  tokens
-    (B, S) int on the parameters' device."""
+    """Embed, run every block (filling ``cache``; None in ``train``), final
+    norm.  tokens (B, S) int on the parameters' device."""
     x = params["embed"][tokens]
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
@@ -118,6 +122,19 @@ def lm_forward(params, cfg, tokens, *, mode, cache, kv_len=None):
         positions = positions + kv_len
     x = _backbone(params, cfg, x, positions, mode=mode, cache=cache, kv_len=kv_len)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def lm_loss(params, cfg, batch):
+    """Next-token cross-entropy over ``batch["tokens"]`` (B, S), with the
+    optional ``batch["loss_mask"]`` (B, S) weighting the predicted tokens
+    (the reference's ``lm_loss``; the text region is the whole sequence, as
+    the port builds no VLM)."""
+    tokens = batch["tokens"].to(params["embed"].device)
+    x = lm_forward(params, cfg, tokens, mode="train", cache=None)
+    logits = _logits(params, cfg, x[:, :-1, :])
+    mask = batch.get("loss_mask")
+    mask = None if mask is None else mask.to(tokens.device)[:, 1:]
+    return softmax_cross_entropy(logits, tokens[:, 1:], mask)
 
 
 def lm_prefill(params, cfg, batch, *, max_len: int | None = None):

@@ -1,10 +1,15 @@
-"""The Model facade (``repro.models.model``) for the LM zoo's serving path.
+"""The Model facade (``repro.models.model``) for the LM zoo's serving and
+training paths.
 
 ``build_model(cfg, device=None)`` returns a :class:`Model` with the
 reference's names:
 
-* ``init_params(seed=0)`` — parameters drawn from a seeded
-  ``torch.Generator`` on the model's device (on ``meta``: shapes only);
+* ``init_params(seed=0, host=False)`` — parameters drawn from a seeded
+  ``torch.Generator`` on the model's device (on ``meta``: shapes only), or
+  with ``host=True`` from threefry on the host (the same weights on every
+  machine; slow: for smoke sizes);
+* ``loss(params, batch)`` — the scalar train loss (float32), differentiable
+  through autograd: B3 and B4 run under their autograd Functions;
 * ``prefill(params, batch, max_len=None)`` — (last-position logits, cache);
 * ``decode_step(params, token, cache, kv_len)`` — (logits, cache), writing
   the step into ``cache``;
@@ -29,7 +34,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from . import blocks, lm, whisper
-from .common import Init
+from .common import Init, KeyStream
 
 __all__ = ["Model", "build_model", "count_params"]
 
@@ -43,12 +48,21 @@ class Model:
     def _audio(self) -> bool:
         return self.cfg.family == "audio"
 
-    def init_params(self, seed: int = 0) -> dict:
+    def init_params(self, seed: int = 0, host: bool = False) -> dict:
         gen = None
-        if self.device.type != "meta":
+        if host:
+            gen = KeyStream(seed)
+        elif self.device.type != "meta":
             gen = torch.Generator(device=self.device).manual_seed(seed)
         init = Init(self.device, gen)
         return whisper.init_whisper(init, self.cfg) if self._audio else lm.init_lm(init, self.cfg)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """The train loss of ``batch`` (``tokens`` (B, S), and for whisper
+        ``audio_embed`` (B, encoder_seq, d); optionally ``loss_mask``)."""
+        if self._audio:
+            return whisper.whisper_loss(params, self.cfg, batch)
+        return lm.lm_loss(params, self.cfg, batch)
 
     @torch.inference_mode()
     def prefill(self, params, batch, max_len: int | None = None):

@@ -10,13 +10,23 @@
   updates the (C, n) memory by one step.
 * sLSTM (xLSTM's scalar memory, stabilized exponential gating): a strictly
   recurrent cell, so prefill is a Python loop over the time steps (the
-  reference's scan); its deferred-gradient backward waits for training.
+  reference's scan).  ``train`` runs the loop in :class:`SlstmScan`, the
+  twin of the reference's ``_slstm_scan``: its cell is the reference's
+  ``_cell_math`` (the stabilizer m a constant for the gradient, the
+  normalizer floored by a strict ``where(n > 1)``), and its backward is the
+  reference's deferred-weight-gradient recursion over the time steps,
+  ending in one contraction for the recurrent weights' gradient.  Prefill
+  and decode step the same cell.
+
+``mode="train"`` runs the full sequence and writes no cache (every block
+returns None as its cache).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from .. import trace_hooks
 from ..kernels.ssd import ops as ssd_ops
@@ -24,7 +34,7 @@ from .common import Init, dtype_of, rms_norm
 
 __all__ = ["init_mamba2", "mamba2_forward", "init_mamba2_cache",
            "init_mlstm", "mlstm_forward", "init_mlstm_cache",
-           "init_slstm", "slstm_forward", "init_slstm_cache"]
+           "init_slstm", "slstm_forward", "init_slstm_cache", "SlstmScan", "slstm_scan"]
 
 
 def _mamba_dims(cfg):
@@ -72,8 +82,9 @@ def _causal_conv(x, w, b, tail=None):
 
 def mamba2_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     """x: (B, S, d).  ``prefill`` runs the SSD scan and returns the cache
-    (conv tail, final state); ``decode`` (S == 1) takes one recurrent step
-    from ``cache``.  Returns (out, new_cache)."""
+    (conv tail, final state); ``train`` the same scan, with no cache;
+    ``decode`` (S == 1) takes one recurrent step from ``cache``.  Returns
+    (out, new_cache)."""
     d_inner, nh, g, n, ph = _mamba_dims(cfg)
     b, s, _ = x.shape
 
@@ -100,9 +111,9 @@ def mamba2_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
         h_new = a[..., None, None] * cache["state"] + Bh[..., None] * dx[:, :, None, :]
         y = torch.einsum("bhn,bhnp->bhp", Ch.float(), h_new).reshape(b, s, nh, ph)
         new_cache = {"conv": new_tail, "state": h_new}
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         y, h_final = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=cfg.ssm.chunk)
-        new_cache = {"conv": new_tail, "state": h_final}
+        new_cache = {"conv": new_tail, "state": h_final} if mode == "prefill" else None
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -147,8 +158,8 @@ def init_mlstm_cache(init: Init, cfg, batch: int):
 
 def mlstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     """x: (B, S, d).  ``prefill`` runs the two SSD scans and returns the
-    final (C, n); ``decode`` (S == 1) steps the memory in ``cache``.
-    Returns (out, new_cache)."""
+    final (C, n); ``train`` the same scans, with no cache; ``decode``
+    (S == 1) steps the memory in ``cache``.  Returns (out, new_cache)."""
     d_inner, nh, ph = _mlstm_dims(cfg)
     b, s, _ = x.shape
     up = x @ p["up"]
@@ -170,7 +181,7 @@ def mlstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
         den = torch.einsum("bhk,bhk->bh", qf, n_new).abs().clamp_min(1.0)
         y = (num / den[..., None])[:, None]
         new_cache = {"C": C_new, "n": n_new}
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         dtv = -torch.log(f_g.clamp(1e-6, 1 - 1e-6))
         A = torch.ones((nh,), dtype=torch.float32, device=x.device)
         y_num, C_fin = ssd_ops.ssd_scan(v, dtv, A, k, q, chunk=cfg.ssm.chunk, in_scale=i_g)
@@ -178,7 +189,7 @@ def mlstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
         y_den, n_fin = ssd_ops.ssd_scan(ones, dtv, A, k, q, chunk=cfg.ssm.chunk, in_scale=i_g)
         den = y_den[..., 0].float().abs().clamp_min(1.0)
         y = y_num.float() / den[..., None]
-        new_cache = {"C": C_fin, "n": n_fin[..., 0]}
+        new_cache = {"C": C_fin, "n": n_fin[..., 0]} if mode == "prefill" else None
     else:
         raise ValueError(f"unknown mode {mode!r}")
     y = y.reshape(b, s, d_inner).to(x.dtype)
@@ -211,31 +222,107 @@ def init_slstm_cache(init: Init, cfg, batch: int):
             "m": init.full((batch, nh), 0.0, torch.float32)}
 
 
-def _slstm_cell(p, cfg, xt, state):
-    """One time step: xt (B, 4d) pre-activations, state of (B, nh, dh)
-    tensors and the (B, nh) stabilizer m; float32 math."""
-    nh = cfg.n_heads
-    dh = cfg.d_model // nh
-    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
-    rec = torch.einsum("bhd,hdf->bhf", h, p["r_h"])                 # (B, nh, 4dh)
+def _cell_math(xt, c, n, h, m, r_h, nh: int, dh: int):
+    """One time step (the reference's ``_cell_math``): xt (B, 4d)
+    pre-activations, (c, n, h) of (B, nh, dh) and the (B, nh) stabilizer m;
+    float32 math.  The stabilizer ``m_new`` is detached and the normalizer
+    floored by a strict ``where(n > 1)`` (``maximum`` would split the
+    gradient at a tie n == 1, which happens whenever i_s == 1).  Returns
+    (c, n, h, m)."""
+    rec = torch.einsum("bhd,hdf->bhf", h, r_h)                       # (B, nh, 4dh)
     pre = xt.reshape(xt.shape[0], nh, 4 * dh).float() + rec
     z_, i_, f_, o_ = pre.split(dh, dim=-1)
     # per-head scalar gates (the mean over the head dim keeps them scalar)
     log_i = i_.mean(-1)
     log_f = F.logsigmoid(f_.mean(-1) + 1.0)
-    m_new = torch.maximum(log_f + m, log_i)
+    m_new = torch.maximum(log_f + m, log_i).detach()
     i_s = torch.exp(log_i - m_new)
     f_s = torch.exp(log_f + m - m_new)
     c_new = f_s[..., None] * c + i_s[..., None] * torch.tanh(z_)
     n_new = f_s[..., None] * n + i_s[..., None]
-    h_new = torch.sigmoid(o_) * (c_new / n_new.clamp_min(1.0))
-    return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
+    h_new = torch.sigmoid(o_) * (c_new / torch.where(n_new > 1.0, n_new, 1.0))
+    return c_new, n_new, h_new, m_new
+
+
+def _slstm_cell(p, cfg, xt, state):
+    """One serving step of :func:`_cell_math` on a state dict."""
+    nh = cfg.n_heads
+    c, n, h, m = _cell_math(xt, state["c"], state["n"], state["h"], state["m"], p["r_h"],
+                            nh, cfg.d_model // nh)
+    return {"c": c, "n": n, "h": h, "m": m}
+
+
+class SlstmScan(torch.autograd.Function):
+    """(pre (B, S, 4d), r_h (nh, dh, 4 dh), nh) -> hs (B, S, nh, dh) float32
+    from a zero state.  The forward runs :func:`_cell_math` over the steps
+    and keeps every step's (c, n, h, m) — the reference recomputes them in
+    its backward; they are the same values, so the backward here reads
+    them instead.  The backward is the reference's ``_slstm_scan_bwd``:
+    the sequential recursion over (dc, dn, dh) from the last step saves
+    each step's pre-activation gradient, and the recurrent weights'
+    gradient is one ``einsum`` over the whole history."""
+
+    @staticmethod
+    def forward(ctx, pre, r_h, nh: int):
+        b, s = pre.shape[:2]
+        dh = pre.shape[-1] // (4 * nh)
+        c = torch.zeros((s + 1, b, nh, dh), dtype=torch.float32, device=pre.device)
+        n, h = torch.zeros_like(c), torch.zeros_like(c)
+        m = torch.zeros((s + 1, b, nh), dtype=torch.float32, device=pre.device)
+        for t in range(s):
+            c[t + 1], n[t + 1], h[t + 1], m[t + 1] = _cell_math(
+                pre[:, t], c[t], n[t], h[t], m[t], r_h, nh, dh)
+        ctx.save_for_backward(pre, r_h, c, n, h, m)
+        ctx.nh = nh
+        return h[1:].transpose(0, 1).contiguous()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dhs):
+        pre, r_h, c, n, h, m = ctx.saved_tensors
+        nh = ctx.nh
+        b, s = pre.shape[:2]
+        dh = pre.shape[-1] // (4 * nh)
+        dc = torch.zeros((b, nh, dh), dtype=torch.float32, device=pre.device)
+        dn, dh_carry = torch.zeros_like(dc), torch.zeros_like(dc)
+        dpres = torch.empty((s, b, nh, 4 * dh), dtype=torch.float32, device=pre.device)
+        dhs = dhs.float()
+        for t in reversed(range(s)):
+            cp, np_, hp, mp = c[t], n[t], h[t], m[t]
+            cn, nn, mn = c[t + 1], n[t + 1], m[t + 1]
+            pre_t = pre[:, t].reshape(b, nh, 4 * dh).float() + torch.einsum("bhd,hdf->bhf", hp, r_h)
+            z_, i_, f_, o_ = pre_t.split(dh, dim=-1)
+            f_arg = f_.mean(-1) + 1.0
+            i_s = torch.exp(i_.mean(-1) - mn)
+            f_s = torch.exp(F.logsigmoid(f_arg) + mp - mn)
+            z_v, o_v = torch.tanh(z_), torch.sigmoid(o_)
+            denom = torch.clamp_min(nn, 1.0)
+            dh_t = dhs[:, t] + dh_carry
+            dc_t = dc + dh_t * o_v / denom
+            dn_t = dn - torch.where(nn > 1.0, dh_t * o_v * cn / (denom * denom), 0.0)
+            di_s = (dc_t * z_v).sum(-1) + dn_t.sum(-1)
+            df_s = (dc_t * cp).sum(-1) + (dn_t * np_).sum(-1)
+            dpre = dpres[t]
+            dpre[..., :dh] = dc_t * i_s[..., None] * (1.0 - z_v * z_v)
+            dpre[..., dh: 2 * dh] = (di_s * i_s / dh)[..., None]
+            dpre[..., 2 * dh: 3 * dh] = (df_s * f_s * torch.sigmoid(-f_arg) / dh)[..., None]
+            dpre[..., 3 * dh:] = dh_t * (cn / denom) * o_v * (1.0 - o_v)
+            dh_carry = torch.einsum("bhf,hdf->bhd", dpre, r_h)
+            dc, dn = dc_t * f_s[..., None], dn_t * f_s[..., None]
+        dr_h = torch.einsum("sbhd,sbhf->hdf", h[:-1], dpres)
+        return dpres.transpose(0, 1).reshape(pre.shape).to(pre.dtype), dr_h, None
+
+
+def slstm_scan(pre, r_h, nh: int):
+    """The sLSTM's training scan through :class:`SlstmScan`."""
+    return SlstmScan.apply(pre, r_h, nh)
 
 
 def slstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     """x: (B, S, d).  ``prefill`` runs the cell over the S steps from a zero
-    state and returns the final state; ``decode`` (S == 1) steps the state
-    in ``cache``.  Returns (out, new_cache)."""
+    state and returns the final state; ``train`` runs :class:`SlstmScan`,
+    with no cache; ``decode`` (S == 1) steps the state in ``cache``.
+    Returns (out, new_cache)."""
     b, s, d = x.shape
     pre = x @ p["w_x"] + p["b"].to(x.dtype)
     if mode == "decode":
@@ -249,6 +336,8 @@ def slstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
             hs.append(state["h"])
         y = torch.stack(hs, dim=1).reshape(b, s, d)
         new_cache = state
+    elif mode == "train":
+        y, new_cache = slstm_scan(pre, p["r_h"], cfg.n_heads).reshape(b, s, d), None
     else:
         raise ValueError(f"unknown mode {mode!r}")
     y = rms_norm(y.to(x.dtype), p["norm_w"], cfg.norm_eps)

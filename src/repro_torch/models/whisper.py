@@ -8,7 +8,8 @@ blocks (``c``).  Prefill projects each layer's cross K/V once and caches
 them beside the self-attention K/V; decode attends over both caches.  The
 reference's layer scans become Python loops over per-layer slices of the
 stacked parameters, and caches are filled in place (``repro_torch.models.lm``).
-``whisper_loss`` waits for training.
+``whisper_loss`` is the decoder's next-token cross-entropy, the blocks run
+in ``mode="train"`` with no cache.
 """
 
 from __future__ import annotations
@@ -17,10 +18,11 @@ import torch
 
 from .. import trace_hooks
 from . import blocks
-from .common import Init, dtype_of, rms_norm
+from .common import Init, dtype_of, rms_norm, softmax_cross_entropy
 from .lm import _layer, _store
 
-__all__ = ["init_whisper", "init_whisper_cache", "whisper_prefill", "whisper_decode_step"]
+__all__ = ["init_whisper", "init_whisper_cache", "whisper_loss", "whisper_prefill",
+           "whisper_decode_step"]
 
 
 def init_whisper(init: Init, cfg):
@@ -52,12 +54,25 @@ def _encode(params, cfg, audio_embed):
 
 def _decode_stack(params, cfg, x, positions, enc_out, *, mode, cache, kv_len):
     for layer in trace_hooks.loop("decoder", cfg.n_layers):
-        slot = _layer(cache, layer)
+        slot = None if cache is None else _layer(cache, layer)
         x, nc = blocks.block_forward(_layer(params["decoder"], layer), cfg, "c", x, positions,
                                      mode=mode, cache=slot if mode == "decode" else None,
                                      kv_len=kv_len, enc_out=enc_out)
         _store(slot, nc)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def whisper_loss(params, cfg, batch):
+    """Encode ``batch["audio_embed"]`` (B, encoder_seq, d), run the decoder
+    over ``batch["tokens"]`` (B, S) and return the next-token
+    cross-entropy (the reference's ``whisper_loss``)."""
+    device = params["embed"].device
+    tokens = batch["tokens"].to(device)
+    enc_out = _encode(params, cfg, batch["audio_embed"].to(device))
+    x = _decode_stack(params, cfg, params["embed"][tokens],
+                      torch.arange(tokens.shape[1], device=device), enc_out, mode="train",
+                      cache=None, kv_len=None)
+    return softmax_cross_entropy(x[:, :-1, :] @ params["embed"].T, tokens[:, 1:])
 
 
 def whisper_prefill(params, cfg, batch, *, max_len: int | None = None):

@@ -49,6 +49,16 @@ class OptState:
     nu: Any
     master: Any = None
 
+    def tree(self) -> dict:
+        """The state under the reference's checkpoint leaf names: ``0`` the
+        step, ``1`` mu, ``2`` nu, ``3`` master (a None is an empty
+        subtree)."""
+        return {"0": self.step, "1": self.mu, "2": self.nu, "3": self.master}
+
+    @classmethod
+    def from_tree(cls, tree: dict) -> "OptState":
+        return cls(step=tree["0"], mu=tree.get("1"), nu=tree.get("2"), master=tree.get("3"))
+
 
 def _lr_fn(lr):
     if callable(lr):

@@ -175,8 +175,8 @@ def test_full_trace_totals_match_bench_ingest(arch):
         seen.add(r.name)
 
 
-def test_train_trace_waits_for_the_losses():
-    with pytest.raises(NotImplementedError, match="losses"):
+def test_train_trace_waits_for_a_dispatch_level_recorder():
+    with pytest.raises(NotImplementedError, match="dispatch-level recorder"):
         trace_model("whisper-tiny", kind="train")
     with pytest.raises(ValueError):
         trace_model("whisper-tiny", kind="decode")

@@ -43,7 +43,7 @@ def test_cuda_sources_call_no_library_kernels():
             assert not pattern.search(code), f"{path.name}: {line.strip()}"
 
 
-def test_port_runs_with_jax_unimportable():
+def test_port_runs_with_jax_unimportable(tmp_path):
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None          # any import of jax now raises
@@ -78,11 +78,19 @@ def test_port_runs_with_jax_unimportable():
         ing = repro_torch.ingest.ingest_model("whisper-tiny", n_nodes=12)   # smoke config
         assert ing.report["n_warnings"] == 0 and 2 <= ing.graph.n <= 12
         assert ing.report["param_bytes_total"] == 433152.0
+        import json
+        from repro_torch.train_lm import main as train_lm
+        assert train_lm(["--arch", "whisper-tiny", "--device", "cpu", "--steps", "1",
+                         "--batch", "2", "--seq", "16", "--ckpt-dir", TMP + "/ck",
+                         "--metrics", TMP + "/m.jsonl"]) == 0
+        rec = json.loads(open(TMP + "/m.jsonl").read())
+        assert rec["step"] == 1 and np.isfinite(rec["loss"]) and rec["grad_norm"] > 0
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
     """)
-    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+    out = subprocess.run([sys.executable, "-c", f"TMP = {str(tmp_path)!r}\n" + script],
+                         capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
                          cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
