@@ -163,7 +163,32 @@ Run from the repository root:  python3 chip_smoke.py
    full-width xs unit of xlstm-350m: the lm.* split, the device's idle
    share, B3's bf16 / B4's tiled template by kernel name (a window that
    shows fewer than the counted launches is profiled again, up to three
-   times, as device_ms does).
+   times, as device_ms does);
+25. (after 15-17) the rest of the LM zoo served in bf16 with seeded random
+   weights, one model at a time, each freed before the next, the launch
+   counters reset just before and read just after each: minicpm3-4b (MLA,
+   62 layers, d_model 2560; B = 2, S = 1024), llava-next-mistral-7b (32
+   layers; B = 1, 1152 patch embeddings + 128 tokens), qwen3-14b (qk_norm,
+   40 layers; B = 2, S = 1024), each with 8 greedy decode steps, and the
+   two MoE archs at full width cut in depth to fit the card's 80 GB,
+   qwen3-moe-235b-a22b (4 of 94 layers; B = 2, S = 512) and kimi-k2-1t-a32b
+   (1 of 61; B = 1, S = 512), 4 decode steps each (ZOO_ARCHS); one B3 launch
+   a layer a prefill, none in decode, all of them the bf16 template by
+   profiler name; prefill and decode tokens/s and a prefill's device split;
+26. a float32 unit of each held to the plain path: one full-width layer of
+   the three dense archs (logits, greedy tokens; minicpm3's holds B3 at
+   D = 96, Dv = 64), one full-width MoE block of each MoE arch with its
+   routes compared (a flip is printed with its gate margin and is a fault
+   above TOL_MOE_FLIP) and its output on the tokens whose routes agree;
+27. B3 at each of the five archs' prefill shapes held to its plain version
+   and timed (kernel, plain version, scaled_dot_product_attention, bound);
+28. (after 18-20) the pod-scale partitioner: partition_model of the ten
+   archs at train_4k, 8 stages, mesh slice 64 with compiler, exact and
+   respect (respect-v1 on the card, one B1 cluster launch a graph, the
+   launch counters reset just before and read just after), every
+   assignment equal to tests/golden/torch_partitions.json (the JAX
+   package's), the bottleneck ratios and solve times printed; B1 at the
+   largest bucket of these graphs held to its plain version and timed.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -171,6 +196,7 @@ the repository.  The last line is the JSON device record.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import json
@@ -230,44 +256,69 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+LEAD_IN = 4096   # spin kernels that open every profiled window (profiled())
+
+
+@contextlib.contextmanager
+def profiled():
+    """A torch.profiler window over the host and the card that opens with
+    LEAD_IN one-cycle spin kernels.  Late in a long process a window loses
+    its first kernels (on an H100, a few more with each earlier window of
+    the process; neither torch's events nor the raw kineto results hold
+    them), so the spin kernels are lost in their place; device_kernels()
+    leaves them out of what the window reports."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def device_kernels(prof) -> list:
+    """The device kernels of a profiled() window, its lead-in left out."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+
+
 def device_ms(fn, name: str, iters: int, attempts: int = 3) -> float:
     """Mean device time, in ms, of the kernels whose name holds ``name``:
     the profiler's kernel durations of the last ``iters`` of ``2 iters + 2``
     calls of ``fn`` (one such kernel a call), without the host's enqueue
     between launches.  The profiler may miss the first kernels of a window
-    (it has missed three 0.3 ms ones in a row); a window that still shows
-    fewer than ``iters`` is profiled again, up to ``attempts`` times."""
+    (it has missed three 0.3 ms ones in a row, and late in a long run 13 of
+    22 in each of three windows); a window that still shows fewer than
+    ``iters`` is profiled again with twice the calls, up to ``attempts``
+    times."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    seen = []
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(2 * iters + 2):
+    seen, calls = [], []
+    for attempt in range(attempts):
+        calls.append(2 ** (attempt + 1) * iters + 2)
+        with profiled() as prof:
+            for _ in range(calls[-1]):
                 fn()
             torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA and name in e.name)
+        spans = sorted((e.time_range.start, e.time_range.elapsed_us())
+                       for e in device_kernels(prof) if name in e.name)
         if len(spans) >= iters:
             return sum(us for _, us in spans[-iters:]) / iters / 1e3
         seen.append(len(spans))
-    raise SmokeFailure(f"profiler saw {seen} {name} kernels in {attempts} windows of "
-                       f"{2 * iters + 2} calls")
+    raise SmokeFailure(f"profiler saw {seen} {name} kernels in windows of {calls} calls")
 
 
 def profile_kernels(fn) -> list[tuple[str, float, float]]:
     """(name, start, end), in microseconds and by start, of every device
     kernel one profiled call of ``fn`` ran."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA), key=lambda k: k[1])
+    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in device_kernels(prof)),
+                  key=lambda k: k[1])
 
 
 def kernel_names(fn) -> list[str]:
@@ -1053,18 +1104,13 @@ def profile_ranges(fn, prefix: str):
     start.  The ranges' device-side annotations are not kernels."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         fn()
         torch.cuda.synchronize()
-    kernels, ranges = [], []
-    for e in prof.events():
-        span = (e.name, e.time_range.start, e.time_range.end)
-        if e.name.startswith(prefix):
-            if e.device_type == DeviceType.CPU:
-                ranges.append(span)
-        elif e.device_type == DeviceType.CUDA:
-            kernels.append(span)
+    kernels = [(e.name, e.time_range.start, e.time_range.end) for e in device_kernels(prof)
+               if not e.name.startswith(prefix)]
+    ranges = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.name.startswith(prefix) and e.device_type == DeviceType.CPU]
     return sorted(kernels, key=lambda k: k[1]), sorted(ranges, key=lambda k: k[1])
 
 
@@ -1571,15 +1617,13 @@ def device_split(label: str, card: str, fn) -> list[str]:
     rest), with the device's busy and idle share of the kernels' window.
     Returns the names of the device kernels it ran."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         host = time.perf_counter() - t0
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     if not kern:
         print(f"{label} time split: the profiler saw no device time (not measured)", flush=True)
         return []
@@ -1621,22 +1665,26 @@ def wall(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def serve_rates(label: str, card: str, model, params, batch: dict, max_len: int) -> None:
+def serve_rates(label: str, card: str, model, params, batch: dict, max_len: int,
+                steps: int = DECODE_STEPS) -> None:
     """Print prefill tokens/s (median of 3) and greedy decode tokens/s over
-    DECODE_STEPS steps of ``model`` on ``batch`` (host clock, synchronized)."""
+    ``steps`` steps of ``model`` on ``batch`` (host clock, synchronized);
+    the VLM's patches count as prompt positions."""
     b, s = batch["tokens"].shape
+    if "patches" in batch:
+        s += batch["patches"].shape[1]
     t_pre = wall(lambda: model.prefill(params, batch, max_len=max_len), reps=3)
     logits, cache = model.prefill(params, batch, max_len=max_len)
 
     def decode():
         tok = logits.argmax(-1)
-        for t in range(DECODE_STEPS):
+        for t in range(steps):
             tok = model.decode_step(params, tok, cache, s + t)[0].argmax(-1)
     t_dec = wall(decode, reps=1)
     print(f"{label} B={b} S={s} on {card}: prefill {t_pre * 1e3:.1f} ms = "
-          f"{b * s / t_pre:.0f} tokens/s (median of 3); decode {DECODE_STEPS} steps "
-          f"{t_dec * 1e3:.1f} ms = {b * DECODE_STEPS / t_dec:.1f} tokens/s "
-          f"({t_dec / DECODE_STEPS * 1e3:.2f} ms a step)", flush=True)
+          f"{b * s / t_pre:.0f} tokens/s (median of 3); decode {steps} steps "
+          f"{t_dec * 1e3:.1f} ms = {b * steps / t_dec:.1f} tokens/s "
+          f"({t_dec / steps * 1e3:.2f} ms a step)", flush=True)
 
 
 def zoo_phase(card: str) -> list[dict]:
@@ -2084,6 +2132,246 @@ def served_models_phase(card: str) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------- #
+# the rest of the zoo served: MLA, the VLM front end, qk_norm GQA, MoE (B3)
+# ---------------------------------------------------------------------- #
+# arch: (layers kept, or None for all; batch; prompt tokens; patches; decode steps).
+# The two MoE archs keep what fits the card's 80 GB in bf16 beside the
+# embedding and head: qwen3-moe 4 of 94 layers (4.8 GB of experts a layer),
+# kimi-k2 1 of 61 (33.8 GB of experts a layer).
+ZOO_ARCHS = {
+    "minicpm3-4b": (None, 2, 1024, 0, 8),
+    "llava-next-mistral-7b": (None, 1, 128, 1152, 8),
+    "qwen3-14b": (None, 2, 1024, 0, 8),
+    "qwen3-moe-235b-a22b": (4, 2, 512, 0, 4),
+    "kimi-k2-1t-a32b": (1, 1, 512, 0, 4),
+}
+TOL_MOE_FLIP = 1e-4   # a float32 route may flip only at a k-th/(k+1)-th gate margin below this
+
+
+def zoo_batch(cfg, b: int, s: int, n_patches: int, dtype, gen) -> dict:
+    """Seeded prompt tokens (and the VLM stub's patch embeddings) on the card."""
+    import torch
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")}
+    if n_patches:
+        out["patches"] = torch.randn((b, n_patches, cfg.d_model), generator=gen,
+                                     device="cuda").to(dtype)
+    return out
+
+
+def moe_block_f32(arch: str, cfg, b: int, s: int, gen) -> str:
+    """One full-width MoE block of ``arch`` in float32 on one seeded input,
+    through B3's float32 template and through the plain version: routes
+    equal (a flip is reported with its gate margin and is a fault above
+    TOL_MOE_FLIP), the block's output within TOL_ZOO_F32 x max(1, |out|) on
+    the tokens whose routes agree.  Returns the printed line."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import blocks, mlp
+    from repro_torch.models.common import Init
+
+    c32 = cfg.scaled(dtype="float32")
+    p = blocks.init_block(Init(torch.device("cuda"), gen), c32, "a")
+    x = torch.randn((b, s, c32.d_model), generator=gen, device="cuda")
+    pos = torch.arange(s, device="cuda")
+    real = mlp.moe_route
+
+    def run(plain: bool):
+        routes = []
+
+        def spy(pp, cc, xf):
+            out = real(pp, cc, xf)
+            routes.append(out)
+            return out
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(mlp, "moe_route", spy))
+            if plain:
+                stack.enter_context(plain_kernels())
+            y, _ = blocks.block_forward(p, c32, "a", x, pos, mode="prefill")
+        torch.cuda.synchronize()
+        return y, routes[0]
+
+    before = kbuild.LAUNCHES["flash_fwd"]
+    got, (gates, _, top_e) = run(False)
+    check(kbuild.LAUNCHES["flash_fwd"] == before + 1, f"{arch} f32 MoE block: B3 did not launch")
+    want, (_, _, want_e) = run(True)
+    k = c32.moe.top_k
+    flipped = (top_e.sort(-1).values != want_e.sort(-1).values).any(-1)
+    srt = torch.topk(gates, k + 1, dim=-1).values
+    margin = srt[:, k - 1] - srt[:, k]
+    flip_margins = [float(m) for m in margin[flipped]]
+    check(all(m <= TOL_MOE_FLIP for m in flip_margins),
+          f"{arch} f32 MoE block: routes flipped at gate margins {flip_margins} "
+          f"(a flip above {TOL_MOE_FLIP} is a fault)")
+    keep = ~flipped.reshape(b, s)
+    err = float((got - want)[keep].abs().max())
+    scale = float(want[keep].abs().max())
+    check(err <= TOL_ZOO_F32 * max(1.0, scale),
+          f"{arch} f32 MoE block: kernel path and plain path differ (max |err| {err:.3e}, "
+          f"|out| {scale:.3f})")
+    line = (f"{arch} f32 MoE block (full width, {c32.moe.n_experts} experts top {k}), B={b} "
+            f"S={s}: kernel path vs plain path on the card, routes of {b * s} tokens: "
+            f"{len(flip_margins)} flipped" + (f" at gate margins {flip_margins}" if flip_margins
+                                              else "") +
+            f" (smallest k-th/(k+1)-th margin {float(margin.min()):.3e}; a flip above "
+            f"{TOL_MOE_FLIP} is a fault), block output max |err| {err:.3e} (|out| up to "
+            f"{scale:.3f}, tolerance {TOL_ZOO_F32} x max(1, |out|))")
+    del p, x, got, want, gates
+    torch.cuda.empty_cache()
+    return line
+
+
+def zoo_archs_phase(card: str) -> list[dict]:
+    """minicpm3-4b (MLA), llava-next-mistral-7b (1152 patches + 128 tokens),
+    qwen3-14b (qk_norm) at full width and depth, qwen3-moe-235b-a22b and
+    kimi-k2-1t-a32b at full width and ZOO_ARCHS' depth, served in bf16 on
+    the card, one after the other, each freed before the next; their
+    launches counted; one float32 unit (MoE: block) of each held to the
+    plain path; B3 at each one's shape held to its plain version and timed
+    (see the module docstring, items 25-27)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.models.model import build_model, count_params
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for arch, (layers, b, s, n_patches, steps) in ZOO_ARCHS.items():
+        full = get_config(arch)
+        cfg = full if layers is None else full.scaled(n_layers=layers)
+        model = build_model(cfg)
+        n_params = count_params(model)
+        cut = ("full depth" if layers is None else
+               f"cut to {layers} of {full.n_layers} layers (the card's 80 GB)")
+        t0 = time.perf_counter()
+        params = model.init_params(seed=0)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        batch = zoo_batch(cfg, b, s, n_patches, torch.bfloat16, gen)
+        seq = s + n_patches
+        max_len = seq + steps
+        n_attn = cfg.pattern().count("a")
+        # ---- the path, counted: prefill then greedy decode ------------- #
+        for key in kbuild.LAUNCHES:
+            kbuild.LAUNCHES[key] = 0
+        logits, cache = model.prefill(params, batch, max_len=max_len)
+        torch.cuda.synchronize()
+        pre = dict(kbuild.LAUNCHES)
+        outs, tok = [logits], logits.argmax(-1)
+        for t in range(steps):
+            logits, cache = model.decode_step(params, tok, cache, seq + t)
+            outs.append(logits)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        dec = {key: kbuild.LAUNCHES[key] - pre[key] for key in pre}
+        pre = {key: n for key, n in pre.items() if n}
+        out = torch.cat(outs, dim=1).float()
+        print(f"{arch} served on {card}: d_model {cfg.d_model}, {cfg.n_layers} layers ({cut}), "
+              f"bf16, {n_params} parameters ({2 * n_params / 1e9:.2f} GB) drawn in {t_init:.2f} s, "
+              f"B={b} S={s}" + (f" after {n_patches} patches" if n_patches else "")
+              + f": prefill launches {pre}, {steps} decode steps launches "
+              f"{ {key: n for key, n in dec.items() if n} }; logits {tuple(out.shape)}", flush=True)
+        check(pre == {"flash_fwd": n_attn},
+              f"{arch} prefill: launches {pre}, expected {n_attn} flash_fwd (one a layer)")
+        check(not any(dec.values()), f"{arch} decode launched kernels {dec}")
+        check(out.shape == (b, steps + 1, cfg.vocab_size) and bool(torch.isfinite(out).all()),
+              f"{arch}: logits not finite or misshapen")
+        launched = pre["flash_fwd"]
+        del cache, logits, outs, out
+        serve_rates(f"{arch} serve", card, model, params, batch, max_len, steps=steps)
+        # bf16 runs the tensor-core template, and only that; a profiler
+        # window that shows fewer launches than were counted is read again,
+        # up to three times (late in the run windows lose their first kernels)
+        for _ in range(3):
+            names = device_split(f"{arch} prefill B={b} S={seq}", card,
+                                 lambda: model.prefill(params, batch, max_len=max_len))
+            ran = {key: sum(key in n for n in names) for key in ("flash_fwd_bf16",
+                                                                 "flash_fwd_f32")}
+            if not names or ran["flash_fwd_bf16"] == n_attn:
+                break
+        if names:
+            check(ran == {"flash_fwd_bf16": n_attn, "flash_fwd_f32": 0},
+                  f"{arch} bf16 prefill ran flash templates {ran}")
+        del params, model, batch
+        torch.cuda.empty_cache()
+
+        # ---- float32: one unit (MoE: one block), kernels vs plain ------ #
+        if cfg.moe is not None:
+            print(moe_block_f32(arch, full, b, s, gen), flush=True)
+        else:
+            c32 = full.scaled(n_layers=1, dtype="float32")
+            m32 = build_model(c32)
+            p32 = m32.init_params(seed=1)
+            b32 = zoo_batch(c32, b, s, n_patches, torch.float32, gen)
+            before = dict(kbuild.LAUNCHES)
+            got, _ = m32.prefill(p32, b32)
+            mid = dict(kbuild.LAUNCHES)
+            with plain_kernels():
+                ref, _ = m32.prefill(p32, b32)
+            torch.cuda.synchronize()
+            check(mid["flash_fwd"] == before["flash_fwd"] + 1 and kbuild.LAUNCHES == mid,
+                  f"{arch} f32 unit: unexpected launches")
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            check(err <= TOL_ZOO_F32 * max(1.0, scale)
+                  and torch.equal(got.argmax(-1), ref.argmax(-1)),
+                  f"{arch} f32 unit: kernel path and plain path differ (max |err| {err:.3e}, "
+                  f"|logits| {scale:.3f})")
+            print(f"{arch} f32 unit (1 layer, d_model {c32.d_model}), B={b} S={seq}: kernel path "
+                  f"vs plain path on the card, logits max |err| {err:.3e} (|logits| up to "
+                  f"{scale:.3f}, tolerance {TOL_ZOO_F32} x max(1, |logits|)), greedy tokens "
+                  "equal", flush=True)
+            del m32, p32, b32, got, ref
+            torch.cuda.empty_cache()
+
+        # ---- B3 at this arch's prefill shape, against its plain version  #
+        if cfg.attention == "mla":
+            hq = hkv = cfg.n_heads
+            d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+        else:
+            hq, hkv = cfg.n_heads, cfg.n_kv_heads
+            d = dv = cfg.resolved_head_dim
+        # the path's layout: (B, S, H, D) activations viewed as (B, H, S, D)
+        q, k, v = (torch.randn((b, seq, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+                   .transpose(1, 2) for h, w in ((hq, d), (hkv, d), (hkv, dv)))
+
+        def call(q=q, k=k, v=v):
+            return flash_ops.flash_attention(q, k, v, causal=True, scale=d ** -0.5)
+        got = call()
+        with plain_kernels():
+            ref = call()
+            plain_ms = cuda_ms(call, iters=3)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        err = float(diff.max())
+        ok = bool((diff <= TOL_BF16_OUT[0] + TOL_BF16_OUT[1] * ref.float().abs()).all())
+        check(ok, f"flash {arch}: kernel and plain version differ (max |err| {err:.3e})")
+        ev_ms = cuda_ms(call, iters=10)
+        dev_ms = device_ms(call, "flash_fwd_bf16", iters=10)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=hq != hkv), iters=10)
+        b_ms, b_by = bound(*flash_work(b, hq, hkv, seq, seq, d, dv, 2), BF16_FLOPS_PER_S)
+        print(f"flash_fwd {arch} B={b} Hq={hq} Hkv={hkv} S={seq} D={d} Dv={dv} bf16 causal on "
+              f"{card}: max |err| {err:.3e} (tolerance atol, rtol {TOL_BF16_OUT}); kernel "
+              f"{ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
+              flush=True)
+        rows.append({"name": f"flash_fwd ({arch})", "route": "cuda", "source": FLASH_SRC,
+                     "replaces": "src/repro/kernels/flash/kernel.py:43", "launches": launched,
+                     "max_abs_err": err, "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        del q, k, v, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ingest_phase(card: str) -> None:
     """Ingest both models' full configs, schedule them through B1 and score
     the eval's ingest/k4 cell on the card, each held to the CPU (see the
@@ -2172,6 +2460,118 @@ def ingest_phase(card: str) -> None:
     print(f"eval {sc.name} on {card} ({t_cell:.2f} s; B1 {ran['ptr_decode_cluster']} launches): "
           f"every non-timing field equal to the CPU's; respect (model, gap, match, valid) "
           f"{flags}; oracle parity {rec['oracle']['parity']}", flush=True)
+
+
+# ---------------------------------------------------------------------- #
+# the pod-scale partitioner: the ten archs' block graphs through B1
+# ---------------------------------------------------------------------- #
+PARTITIONS = ROOT / "tests" / "golden" / "torch_partitions.json"
+
+
+def partitioner_phase(card: str) -> list[dict]:
+    """``partition_model`` of the ten archs at the golden file's settings
+    (train_4k, 8 stages, mesh slice 64) with each of its methods, respect-v1
+    through B1 on the card; assignments held to
+    tests/golden/torch_partitions.json (the JAX package's); B1 at the
+    largest bucket held to its plain version and timed (see the module
+    docstring, item 28)."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.core import RespectScheduler
+    from repro_torch.core.batching import bucketize, pack_padded
+    from repro_torch.core.partitioner import model_graph, partition_model
+    from repro_torch.kernels.ptr import ops
+    from repro_torch.kernels.ptr.decode import TEMPLATES, decode_batch, decode_batch_reference
+
+    gold = json.loads(PARTITIONS.read_text())
+    meta = gold["meta"]
+    shape, k, mesh = SHAPES[meta["shape"]], meta["n_stages"], meta["mesh_slice"]
+    sched = RespectScheduler.from_release()            # device: cuda
+    check(sched.release["params_sha256"] == meta["release_params_sha256"],
+          "partitioner: the release is not the one the golden file was written with")
+
+    def partition_all():
+        out = {}
+        for arch in ARCH_IDS:
+            for method in meta["methods"]:
+                t0 = time.perf_counter()
+                assign, ev, g = partition_model(
+                    get_config(arch), shape, k, method=method, mesh_slice=mesh,
+                    scheduler=sched if method == "respect" else None)
+                out[arch, method] = (assign, ev, g, time.perf_counter() - t0)
+        return out
+
+    # ---- the path, counted: every arch and method, respect through B1 -- #
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    res = partition_all()
+    launches = dict(ops.LAUNCHES)
+    for arch in ARCH_IDS:
+        for method in meta["methods"]:
+            assign, _, g, _ = res[arch, method]
+            check([int(a) for a in assign] == gold["archs"][arch][method]["assignment"],
+                  f"partition {arch} {method}: the assignment differs from {PARTITIONS.name}")
+        bott = {m: res[arch, m][1].bottleneck_s for m in meta["methods"]}
+        solve = {m: res[arch, m][3] * 1e3 for m in meta["methods"]}
+        print(f"partition {arch} ({g.n} nodes, k={k}, mesh slice {mesh}) on {card}: bottleneck "
+              f"compiler/exact {bott['compiler'] / bott['exact']:.4f}, compiler/respect "
+              f"{bott['compiler'] / bott['respect']:.4f}; solve ms (host clock, first call): "
+              + ", ".join(f"{m} {t:.2f}" for m, t in solve.items())
+              + "; assignments equal the golden file", flush=True)
+    print(f"partitioner launches {launches}", flush=True)
+    check(launches["ptr_decode_cluster"] == len(ARCH_IDS)
+          and launches["ptr_decode_block"] == 0 and launches["ptr_step"] == 0,
+          f"partitioner: launches {launches}, expected {len(ARCH_IDS)} ptr_decode_cluster "
+          "(one a graph: PodSystem is uniform)")
+    for _ in range(3):   # a window that shows fewer launches than counted is read again
+        sched.clear_cache()
+        names = kernel_names(lambda: [partition_model(get_config(arch), shape, k,
+                                                      method="respect", mesh_slice=mesh,
+                                                      scheduler=sched) for arch in ARCH_IDS])
+        ran = {t: sum(t in n for n in names) for t in TEMPLATES.values()}
+        if ran["ptr_decode_cluster"] == len(ARCH_IDS):
+            break
+    check(ran == {"ptr_decode_cluster": len(ARCH_IDS), "ptr_decode_block": 0},
+          f"partitioner ran B1 templates {ran} by profiler name")
+
+    # ---- B1 at the largest bucket of these graphs, against plain ------- #
+    graphs = [model_graph(get_config(arch), shape, mesh) for arch in ARCH_IDS]
+    by_bucket = bucketize(graphs)
+    n = max(by_bucket)
+    gs = [graphs[i] for i in by_bucket[n]]
+    net, D = sched.net, sched.max_deg
+    batch = pack_padded(gs, max_deg=D).to("cuda")
+    with torch.inference_mode():
+        C, (h0, c0), emb = net.encode(batch.feats, batch.n_valid)
+        args = (net, C, emb, h0, c0, batch.parent_mat, batch.n_valid)
+        before = dict(ops.LAUNCHES)
+        k_out = decode_batch(*args)
+        p_out = decode_batch_reference(*args)
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["ptr_decode_cluster"] == before["ptr_decode_cluster"] + 1,
+              "partitioner B1 check: the cluster template did not launch")
+        valid = torch.arange(n, device="cuda")[None, :] < batch.n_valid[:, None].long()
+        check(torch.equal(torch.where(valid, k_out[0], -1), torch.where(valid, p_out[0], -1)),
+              f"partitioner B1 bucket {n}: orders differ from the plain version")
+        err = max(float((k_out[1] - p_out[1]).abs().max()), float((k_out[2] - p_out[2]).abs().max()))
+        check(err <= TOL_LOGP, f"partitioner B1 bucket {n}: logp/entropy error {err:.3e}")
+        ev_ms = cuda_ms(lambda: decode_batch(*args), iters=5)
+        dev_ms = device_ms(lambda: decode_batch(*args), "ptr_decode_cluster", iters=5)
+        plain_ms = cuda_ms(lambda: decode_batch_reference(*args), iters=2)
+    b_ms, b_by = bound(*decode_work(gs, k_out[0].cpu().numpy(), n, net.hidden, D))
+    print(f"ptr_decode partitioner bucket {n}, B={len(gs)} "
+          f"({', '.join(ARCH_IDS[i] for i in by_bucket[n])}) H={net.hidden} "
+          f"(ptr_decode_cluster) on {card}: kernel {ev_ms:.4f} ms (CUDA events; device "
+          f"{dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), orders "
+          f"equal, max |err| logp/ent {err:.2e} (tolerance {TOL_LOGP})", flush=True)
+    del sched, net
+    return [{"name": "ptr_decode_cluster (partitioner)", "route": "cuda",
+             "source": "src/repro_torch/kernels/ptr/csrc/ptr_decode.cu",
+             "replaces": "src/repro/kernels/ptr/decode.py:84",
+             "launches": launches["ptr_decode_cluster"], "max_abs_err": err,
+             "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None}]
 
 
 # ---------------------------------------------------------------------- #
@@ -2940,7 +3340,10 @@ def run() -> dict:
 
     # ---- whisper-tiny and xlstm-350m served; ingest, schedule_model ---- #
     kernels += served_models_phase(card)
+    # ---- the rest of the zoo served (B3); the partitioner (B1) ---------- #
+    kernels += zoo_archs_phase(card)
     ingest_phase(card)
+    kernels += partitioner_phase(card)
 
     # ---- the heterogeneous batch: B2 at the path's own masks, time split  #
     # after the zoo, with the other profiles of whole batches (see below)
@@ -3020,7 +3423,7 @@ def main() -> int:
     if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
             and SEEDED_GOLDEN.exists() and TRAIN_GOLDEN.exists() and EVAL_BENCH.exists()
             and INGEST_BENCH.exists() and INGEST_HASHES.exists()
-            and LM_TRAIN_GOLDEN.exists()):
+            and LM_TRAIN_GOLDEN.exists() and PARTITIONS.exists()):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))

@@ -1,12 +1,15 @@
 """Core of the port: graph IR, cost model, embedding, the threefry PRNG,
-pointer network, segmentation DP and repair, the host solvers, batching and
-the scheduler facade."""
+pointer network, segmentation DP and repair, the host solvers, batching,
+the scheduler facade, and the pod-scale partitioner (``core.partitioner``:
+the LM zoo's block graphs cut into pipeline stages)."""
 
 from .batching import greedy_order, sample_order
 from .costmodel import (
     CAPACITY_PENALTY_S,
+    EDGETPU,
     SYS_FEAT_DIM,
     PipelineSystem,
+    PodSystem,
     ScheduleEval,
     evaluate_schedule,
 )

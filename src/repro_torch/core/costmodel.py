@@ -23,6 +23,8 @@ from .graph import CompGraph
 
 __all__ = [
     "PipelineSystem",
+    "EDGETPU",
+    "PodSystem",
     "evaluate_schedule",
     "ScheduleEval",
     "SYS_FEAT_DIM",
@@ -120,6 +122,23 @@ class PipelineSystem:
             feats[9] = 1.0
             feats[10:13] = (logs.min(), logs.max(), logs.std())
         return feats
+
+
+EDGETPU = PipelineSystem(n_stages=4)
+
+
+def PodSystem(n_stages: int) -> PipelineSystem:
+    """The reference's pod-scale pipeline (``core/partitioner.py``'s system):
+    a ring of TPU v5e stages, its ICI link and an HBM residency budget.
+    Uniform, so a schedule on it decodes through B1."""
+    return PipelineSystem(
+        n_stages=n_stages,
+        compute_rate=197e12,        # bf16 FLOP/s per chip
+        compute_eff=0.5,
+        link_bw=50e9,               # bytes/s per ICI link
+        cache_bytes=16e9 * 0.7,     # HBM minus activation/headroom budget
+        fixed_overhead_s=5.0e-6,
+    )
 
 
 @dataclasses.dataclass

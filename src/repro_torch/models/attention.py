@@ -12,19 +12,26 @@ Layouts follow the reference (``repro.models.attention``):
 * cross-attention (whisper's decoder) takes its keys and values from
   ``kv_source`` (the encoder output), without rotary, and is never causal;
   in prefill it returns the projected cross K/V as its cache, and decode
-  (``mode="cross_cached"``) attends over them with the plain attention.
-
-MLA waits.
+  (``mode="cross_cached"``) attends over them with the plain attention;
+* MLA (DeepSeek-V2 / MiniCPM3) caches the compressed latents {"ckv": (B,
+  Smax, kv_lora), "krope": (B, Smax, rope_dim)}.  Train and prefill
+  materialize per-head K (the latent's ``k_nope`` beside the shared
+  ``k_rope``) and V and run the flash op with D = nope + rope, Dv = v_head;
+  decode is the reference's absorbed formulation (q_nope through W_uk, the
+  scores against the latent cache), plain, in float32.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..kernels.flash import ops as flash_ops
 from .common import Init, apply_rotary, dtype_of, rms_norm, rotary_embedding
 
-__all__ = ["init_gqa", "gqa_forward", "init_gqa_cache"]
+__all__ = ["init_gqa", "gqa_forward", "init_gqa_cache", "init_mla", "init_mla_cache",
+           "mla_forward"]
 
 
 def init_gqa(init: Init, cfg):
@@ -114,3 +121,81 @@ def gqa_forward(p, cfg, x, positions, *, mode: str = "prefill", cache=None, kv_l
     else:
         raise ValueError(f"unknown mode {mode!r}")
     return _out(p, out), new_cache
+
+
+# --------------------------------------------------------------------- #
+# MLA
+# --------------------------------------------------------------------- #
+def init_mla(init: Init, cfg):
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = dtype_of(cfg)
+    return {
+        "wq_a": init.normal((d, qr), d ** -0.5, dt),
+        "q_norm": init.full((qr,), 1.0, torch.float32),
+        "wq_b": init.normal((qr, h * (dn + dr)), qr ** -0.5, dt),
+        "wkv_a": init.normal((d, kvr + dr), d ** -0.5, dt),
+        "kv_norm": init.full((kvr,), 1.0, torch.float32),
+        "wk_b": init.normal((kvr, h * dn), kvr ** -0.5, dt),
+        "wv_b": init.normal((kvr, h * dv), kvr ** -0.5, dt),
+        "wo": init.normal((h * dv, d), (h * dv) ** -0.5, dt),
+    }
+
+
+def init_mla_cache(init: Init, cfg, batch: int, max_len: int):
+    dt = dtype_of(cfg)
+    return {"ckv": init.full((batch, max_len, cfg.kv_lora_rank), 0.0, dt),
+            "krope": init.full((batch, max_len, cfg.qk_rope_head_dim), 0.0, dt)}
+
+
+def _mla_project_q(p, cfg, x, positions):
+    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr) with rotary)."""
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    b, s, _ = x.shape
+    q = (rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]).reshape(b, s, h, dn + dr)
+    cos, sin = rotary_embedding(positions, dr, cfg.rope_theta)
+    return q[..., :dn], apply_rotary(q[..., dn:], cos, sin)
+
+
+def mla_forward(p, cfg, x, positions, *, mode: str = "prefill", cache=None, kv_len=None):
+    """Modes as :func:`gqa_forward`'s (no cross-attention).  The prefill cache
+    is the latents {"ckv", "krope"} at length S; decode writes the step's
+    latents into ``cache`` at ``kv_len`` in place.  Returns (out, new_cache)."""
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_project_q(p, cfg, x, positions)
+    kv = x @ p["wkv_a"]
+    ckv = rms_norm(kv[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    cos, sin = rotary_embedding(positions, dr, cfg.rope_theta)
+    k_rope = apply_rotary(kv[..., None, kvr:], cos, sin)[:, :, 0, :]
+
+    if mode == "decode":
+        cache["ckv"][:, kv_len: kv_len + s] = ckv
+        cache["krope"][:, kv_len: kv_len + s] = k_rope
+        # absorbed scores: q_nope through W_uk gives queries in the latent space
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(),
+                             p["wk_b"].reshape(kvr, h, dn).float())
+        ck, kr = cache["ckv"].float(), cache["krope"].float()
+        scores = (torch.einsum("bshr,btr->bhst", q_lat, ck)
+                  + torch.einsum("bshr,btr->bhst", q_rope.float(), kr)) / math.sqrt(dn + dr)
+        valid = torch.arange(ck.shape[1], device=x.device) < kv_len + s
+        attn = torch.softmax(scores.masked_fill(~valid, float("-inf")), dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", attn, ck)
+        out = torch.einsum("bshr,rhv->bshv", ctx, p["wv_b"].reshape(kvr, h, dv).float())
+        out, new_cache = out.to(x.dtype), cache
+    elif mode in ("train", "prefill"):
+        # materialized per-head K and V, each built contiguous in (B, S, H, D)
+        # so that the flash op reads them as they are
+        k = torch.cat([(ckv @ p["wk_b"]).reshape(b, s, h, dn),
+                       k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+        v = (ckv @ p["wv_b"]).reshape(b, s, h, dv)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                        causal=True, scale=float((dn + dr) ** -0.5)).transpose(1, 2)
+        new_cache = {"ckv": ckv, "krope": k_rope} if mode == "prefill" else None
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return out.reshape(b, s, h * dv) @ p["wo"], new_cache

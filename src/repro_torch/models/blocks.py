@@ -1,6 +1,7 @@
 """Residual blocks keyed by pattern tokens (``repro.models.blocks``):
 
-* ``a`` — pre-norm GQA attention + dense SwiGLU MLP;
+* ``a`` — pre-norm attention (MLA when ``cfg.attention == "mla"``, else
+  GQA) + MoE when ``cfg.moe`` is set, else the dense SwiGLU MLP;
 * ``A`` — the same block with SHARED parameters across its call sites
   (zamba2);
 * ``m`` — pre-norm Mamba-2;
@@ -8,9 +9,8 @@
 * ``s`` — pre-norm sLSTM;
 * ``e`` — encoder block (bidirectional attention + SwiGLU MLP; whisper);
 * ``c`` — decoder block with cross-attention to the encoder output
-  (whisper): causal self-attention, cross-attention, MLP.
-
-MLA and MoE wait.
+  (whisper): causal self-attention, cross-attention, MLP (``e`` and ``c``
+  blocks are always GQA with a dense MLP).
 """
 
 from __future__ import annotations
@@ -31,11 +31,17 @@ def _is_attn(tok: str) -> bool:
     return tok in ("a", "A", "e", "c")
 
 
+def _use_mla(cfg, tok: str) -> bool:
+    return cfg.attention == "mla" and tok in ("a", "A")
+
+
+def _use_moe(cfg, tok: str) -> bool:
+    return cfg.moe is not None and tok not in ("c", "e")
+
+
 def check_supported(cfg, tok: str) -> None:
     if tok not in TOKENS:
         raise NotImplementedError(f"block token {tok!r} is not ported yet (ported: {TOKENS})")
-    if tok in ("a", "A") and (cfg.attention != "gqa" or cfg.moe is not None):
-        raise NotImplementedError("MLA and MoE blocks are not ported yet")
 
 
 def init_block(init: Init, cfg, tok: str):
@@ -47,9 +53,10 @@ def init_block(init: Init, cfg, tok: str):
         return {"ln": ln, "mlstm": ssm.init_mlstm(init, cfg)}
     if tok == "s":
         return {"ln": ln, "slstm": ssm.init_slstm(init, cfg)}
-    p = {"ln1": ln, "attn": attn.init_gqa(init, cfg),
+    p = {"ln1": ln,
+         "attn": attn.init_mla(init, cfg) if _use_mla(cfg, tok) else attn.init_gqa(init, cfg),
          "ln2": init.full((cfg.d_model,), 1.0, torch.float32),
-         "mlp": mlp_mod.init_mlp(init, cfg)}
+         "mlp": mlp_mod.init_moe(init, cfg) if _use_moe(cfg, tok) else mlp_mod.init_mlp(init, cfg)}
     if tok == "c":
         p["ln_x"] = init.full((cfg.d_model,), 1.0, torch.float32)
         p["cross"] = attn.init_gqa(init, cfg)
@@ -64,6 +71,8 @@ def init_block_cache(init: Init, cfg, tok: str, batch: int, max_len: int):
         return ssm.init_mlstm_cache(init, cfg, batch)
     if tok == "s":
         return ssm.init_slstm_cache(init, cfg, batch)
+    if _use_mla(cfg, tok):
+        return attn.init_mla_cache(init, cfg, batch, max_len)
     c = attn.init_gqa_cache(init, cfg, batch, max_len)
     if tok == "c":
         shape = (batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -93,8 +102,13 @@ def block_forward(p, cfg, tok: str, x, positions, *, mode: str = "prefill", cach
         return x + out, nc
     check_supported(cfg, tok)
     self_cache = cache["self"] if tok == "c" and cache is not None else cache
-    out, nc = attn.gqa_forward(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), positions,
-                               mode=mode, cache=self_cache, kv_len=kv_len, causal=tok != "e")
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if _use_mla(cfg, tok):
+        out, nc = attn.mla_forward(p["attn"], cfg, h, positions, mode=mode, cache=self_cache,
+                                   kv_len=kv_len)
+    else:
+        out, nc = attn.gqa_forward(p["attn"], cfg, h, positions, mode=mode, cache=self_cache,
+                                   kv_len=kv_len, causal=tok != "e")
     x = x + out
     if tok == "c":
         hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
@@ -108,5 +122,7 @@ def block_forward(p, cfg, tok: str, x, positions, *, mode: str = "prefill", cach
             nc = {"self": nc, "cross_k": cross["k"], "cross_v": cross["v"]} \
                 if mode == "prefill" else None
         x = x + qout
-    x = x + mlp_mod.mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x, nc
+    hm = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if _use_moe(cfg, tok):
+        return x + mlp_mod.moe_forward(p["mlp"], cfg, hm), nc
+    return x + mlp_mod.mlp_forward(p["mlp"], hm), nc

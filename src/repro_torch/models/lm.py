@@ -13,6 +13,11 @@ Caches are filled in place: prefill writes each layer's cache into a cache
 of ``max_len`` (default S) and decode writes its new entries into the cache
 it is given, which it returns.  Training (``lm_loss``) runs the blocks in
 ``mode="train"`` with no cache.
+
+VLM (llava-next): ``batch["patches"]`` (B, n_patches, d), the stub front
+end's precomputed patch embeddings, are prefixed to the embedded text
+tokens; the loss scores the text region only, and decode positions continue
+from ``kv_len``, which counts the prefix.
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ __all__ = [
     "pad_cache_to", "lm_decode_step", "params_from_numpy",
 ]
 
-# cache leaves with a sequence axis (padded by pad_cache_to)
-_SEQ_CACHE_KEYS = {"k", "v"}
+# cache leaves with a sequence axis (padded by pad_cache_to): GQA K/V and the
+# MLA latents
+_SEQ_CACHE_KEYS = {"k", "v", "ckv", "krope"}
 
 
 def decompose_pattern(cfg):
@@ -112,39 +118,57 @@ def _logits(params, cfg, x):
     return x @ head
 
 
-def lm_forward(params, cfg, tokens, *, mode, cache, kv_len=None):
-    """Embed, run every block (filling ``cache``; None in ``train``), final
-    norm.  tokens (B, S) int on the parameters' device."""
-    x = params["embed"][tokens]
-    s = x.shape[1]
-    positions = torch.arange(s, device=x.device)
+def _n_prefix(cfg, batch) -> int:
+    """Positions before the text: the vision stub's patches, if given."""
+    return batch["patches"].shape[1] if cfg.frontend == "vision_stub" and "patches" in batch \
+        else 0
+
+
+def _embed_inputs(params, cfg, batch):
+    """Token embeddings, with the vision stub's patches prefixed.  Returns
+    (x (B, n_prefix + S, d), n_prefix)."""
+    device = params["embed"].device
+    x = params["embed"][batch["tokens"].to(device)]
+    n_prefix = _n_prefix(cfg, batch)
+    if n_prefix:
+        x = torch.cat([batch["patches"].to(device, x.dtype), x], dim=1)
+    return x, n_prefix
+
+
+def lm_forward(params, cfg, batch, *, mode, cache, kv_len=None):
+    """Embed (``batch["tokens"]`` (B, S) and, for the VLM, its ``patches``),
+    run every block (filling ``cache``; None in ``train``), final norm.
+    Returns (x, n_prefix)."""
+    x, n_prefix = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
     if mode == "decode":
         positions = positions + kv_len
     x = _backbone(params, cfg, x, positions, mode=mode, cache=cache, kv_len=kv_len)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), n_prefix
 
 
 def lm_loss(params, cfg, batch):
-    """Next-token cross-entropy over ``batch["tokens"]`` (B, S), with the
-    optional ``batch["loss_mask"]`` (B, S) weighting the predicted tokens
-    (the reference's ``lm_loss``; the text region is the whole sequence, as
-    the port builds no VLM)."""
-    tokens = batch["tokens"].to(params["embed"].device)
-    x = lm_forward(params, cfg, tokens, mode="train", cache=None)
-    logits = _logits(params, cfg, x[:, :-1, :])
+    """Next-token cross-entropy over the text region of ``batch["tokens"]``
+    (B, S) (after the VLM's patch prefix), with the optional
+    ``batch["loss_mask"]`` (B, S) weighting the predicted tokens (the
+    reference's ``lm_loss``)."""
+    x, n_prefix = lm_forward(params, cfg, batch, mode="train", cache=None)
+    tokens = batch["tokens"].to(x.device)
+    logits = _logits(params, cfg, x[:, n_prefix:-1, :])
     mask = batch.get("loss_mask")
-    mask = None if mask is None else mask.to(tokens.device)[:, 1:]
+    mask = None if mask is None else mask.to(x.device)[:, 1:]
     return softmax_cross_entropy(logits, tokens[:, 1:], mask)
 
 
 def lm_prefill(params, cfg, batch, *, max_len: int | None = None):
     """Full-sequence pass that also emits the serving cache.  Returns
     (logits of the last position (B, 1, V), cache with attention entries
-    right-padded to ``max_len``, default S)."""
-    tokens = batch["tokens"].to(params["embed"].device)
-    b, s = tokens.shape
-    cache = init_lm_cache(Init(tokens.device), cfg, b, max(max_len or s, s))
-    x = lm_forward(params, cfg, tokens, mode="prefill", cache=cache)
+    right-padded to ``max_len``, default the prompt's length, patches
+    included)."""
+    b, s = batch["tokens"].shape
+    s += _n_prefix(cfg, batch)
+    cache = init_lm_cache(Init(params["embed"].device), cfg, b, max(max_len or s, s))
+    x, _ = lm_forward(params, cfg, batch, mode="prefill", cache=cache)
     return _logits(params, cfg, x[:, -1:, :]), cache
 
 
@@ -167,10 +191,11 @@ def pad_cache_to(cache, max_len: int):
 
 
 def lm_decode_step(params, cfg, token, cache, kv_len: int):
-    """token: (B, 1) int; kv_len: count of filled cache entries.  Writes the
-    step's entries into ``cache``.  Returns (logits (B, 1, V), cache)."""
-    token = token.to(params["embed"].device)
-    x = lm_forward(params, cfg, token, mode="decode", cache=cache, kv_len=int(kv_len))
+    """token: (B, 1) int; kv_len: count of filled cache entries (the VLM's
+    patches included).  Writes the step's entries into ``cache``.  Returns
+    (logits (B, 1, V), cache)."""
+    x, _ = lm_forward(params, cfg, {"tokens": token}, mode="decode", cache=cache,
+                      kv_len=int(kv_len))
     return _logits(params, cfg, x), cache
 
 

@@ -18,6 +18,10 @@ reference's names:
   tensors on the ``meta`` device (the reference's ``ShapeDtypeStruct``
   stand-ins; the port has no sharding axes).
 
+``count_params``, ``active_params`` and ``analytic_flops`` (6·N·D training,
+2·N·D inference, N the parameters a token touches) count on the ``meta``
+device, as the reference's roofline and partitioner do.
+
 The decoder-only LMs run ``repro_torch.models.lm``, the audio family
 (whisper) ``repro_torch.models.whisper``.  The model runs on the card
 unless ``device`` names another; on CPU tensors every kernel op runs its
@@ -36,7 +40,7 @@ from ..device import resolve_device
 from . import blocks, lm, whisper
 from .common import Init, KeyStream
 
-__all__ = ["Model", "build_model", "count_params"]
+__all__ = ["Model", "build_model", "count_params", "active_params", "analytic_flops"]
 
 
 @dataclasses.dataclass
@@ -85,13 +89,19 @@ class Model:
     def input_specs(self, shape: ShapeConfig) -> dict:
         """The model inputs of one shape cell, as empty ``meta`` tensors:
         ``tokens`` (B, S) int32 (and ``audio_embed`` (B, encoder_seq, d)
-        bf16 for whisper) for train and prefill; ``token`` (B, 1) for
-        decode."""
+        bf16 for whisper; for the VLM ``patches`` (B, n_patches, d) bf16
+        and ``tokens`` (B, S - n_patches)) for train and prefill; ``token``
+        (B, 1) for decode."""
         b, s = shape.global_batch, shape.seq_len
         meta = torch.device("meta")
         if shape.kind == "decode":
             return {"token": torch.empty((b, 1), dtype=torch.int32, device=meta)}
+        if self.cfg.family == "vlm":
+            s -= self.cfg.n_patches
         specs = {"tokens": torch.empty((b, s), dtype=torch.int32, device=meta)}
+        if self.cfg.family == "vlm":
+            specs["patches"] = torch.empty((b, self.cfg.n_patches, self.cfg.d_model),
+                                           dtype=torch.bfloat16, device=meta)
         if self._audio:
             specs["audio_embed"] = torch.empty((b, self.cfg.encoder_seq, self.cfg.d_model),
                                                dtype=torch.bfloat16, device=meta)
@@ -100,8 +110,6 @@ class Model:
 
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:
     """The model's serving handle; raises for what is not ported yet."""
-    if cfg.family == "vlm":
-        raise NotImplementedError("the VLM front end (llava-next) is not ported yet")
     for tok in set("ec" if cfg.family == "audio" else cfg.pattern()):
         blocks.check_supported(cfg, tok)
     return Model(cfg, resolve_device(device))
@@ -116,3 +124,22 @@ def count_params(model: Model) -> int:
         return sum(total(v) if isinstance(v, dict) else math.prod(v.shape)
                    for v in tree.values())
     return total(params)
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters a token touches (MoE: its top-k experts, not all of them)."""
+    total = count_params(Model(cfg, torch.device("meta")))
+    if cfg.moe is None:
+        return total
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    expert_p = 3 * cfg.d_model * cfg.moe.d_ff_expert
+    n_moe_layers = cfg.pattern().count("a")
+    return total - n_moe_layers * expert_p * e + n_moe_layers * expert_p * k
+
+
+def analytic_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS: 6·N·D for training, 2·N·D for an inference forward (N =
+    active parameters, D = tokens)."""
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    mult = 6.0 if shape.kind == "train" else 2.0
+    return mult * active_params(cfg) * tokens

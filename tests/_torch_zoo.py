@@ -1,4 +1,5 @@
-"""Shared by ``tests/test_torch_whisper.py`` and ``tests/test_torch_xlstm.py``:
+"""Shared by ``tests/test_torch_whisper.py``, ``tests/test_torch_xlstm.py`` and
+``tests/test_torch_zoo_archs.py``:
 one smoke model of the JAX package and its port with the same weights (the
 reference's own ``init_params`` carried across by ``params_from_numpy``),
 driven through prefill and greedy decode side by side."""
@@ -38,10 +39,11 @@ def batch(cfg, b: int, s: int, seed: int = 0) -> dict:
 
 def drive(jm, jparams, model, params, inputs: dict, steps: int):
     """Prefill (max_len S + steps) and ``steps`` greedy decode steps in both
-    packages, each fed the reference's tokens.  Returns ([(port logits,
-    reference logits)] for the prefill and each step, port cache, reference
-    cache)."""
-    s = inputs["tokens"].shape[1]
+    packages, each fed the reference's tokens; S counts the VLM's
+    ``patches`` before the prompt, so decode starts at kv_len = S.  Returns
+    ([(port logits, reference logits)] for the prefill and each step, port
+    cache, reference cache)."""
+    s = inputs["tokens"].shape[1] + (inputs["patches"].shape[1] if "patches" in inputs else 0)
     dt = getattr(jnp, model.cfg.dtype)
     jin = {k: jnp.asarray(v, dt if v.dtype == np.float32 else None) for k, v in inputs.items()}
     tin = {k: torch.from_numpy(v) if v.dtype != np.float32 else

@@ -129,6 +129,9 @@ def _need_cuda():
     (2, 6, 6, 64, 1500, 64, 64, False, "bfloat16"),      # decoder cross-attention
     (2, 6, 6, 64, 64, 64, 64, True, "bfloat16"),         # decoder self-attention
     (1, 6, 6, 1500, 1500, 64, 64, False, "float32"),     # the f32 unit's encoder
+    # minicpm3's MLA: D = nope + rope = 96 (two 64-column boxes, the second
+    # half zero-filled), Dv = 64, Hq = Hkv = 40
+    (1, 40, 40, 1024, 1024, 96, 64, True, "bfloat16"),
 ])
 def test_kernel_matches_plain_on_cuda(b, hq, hkv, sq, sk, d, dv, causal, dtype):
     _need_cuda()

@@ -17,9 +17,12 @@ then 3 decode steps, both models fed the reference's greedy tokens:
   atol = 2e-3, rtol = 2e-2 (measured 9.5e-4).  This case guards the bf16
   casts; the float32 cases are the ones that catch a wrong model.
 
-Also: the full zamba2-7b parameter count on the meta device, the registry,
-and the entry points' device rule.  The ``cuda`` test runs only on a card.
+Also: the full zamba2-7b parameter count on the meta device, the registry
+(the reference's ten archs, in its order), and the entry points' device
+rule.  The ``cuda`` test runs only on a card.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,11 +30,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as jax_arch_ids
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro.models.model import build_model as jax_build_model
 from repro.models.model import count_params as jax_count_params
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels import build
 from repro_torch.models.lm import pad_cache_to, params_from_numpy
 from repro_torch.models.model import build_model, count_params
@@ -139,9 +143,10 @@ def test_param_layouts_are_the_reference_defaults(heads):
             {k: tuple(v.shape) for k, v in jshared[part].items()}
 
 
-def test_registry_lists_only_ported_archs():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen3-32b")
+def test_registry_lists_the_reference_archs():
+    assert ARCH_IDS == jax_arch_ids
+    assert dataclasses.asdict(get_config("qwen3-32b")) == \
+        dataclasses.asdict(jax_get_config("qwen3-32b"))
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
 
