@@ -188,7 +188,37 @@ Run from the repository root:  python3 chip_smoke.py
    launch counters reset just before and read just after), every
    assignment equal to tests/golden/torch_partitions.json (the JAX
    package's), the bottleneck ratios and solve times printed; B1 at the
-   largest bucket of these graphs held to its plain version and timed.
+   largest bucket of these graphs held to its plain version and timed;
+29. (last, after 24) data parallelism: two gloo ranks sharing the card
+   (repro_torch.core.rl.train_data_parallel, spawned by
+   repro_torch.parallel.data.run_ranks after the kernels are built) take the
+   three golden train steps, each rank its slice of the global pack and of
+   the global key split, held to tests/golden/torch_train_steps.json as in
+   item 13 (integers equal, parameters within TOL_TRAIN_PARAM), the ranks'
+   parameters equal, one B1 launch a step on each rank by the ranks' own
+   counters; then a 2-rank run of bucket-32 steps beside the same steps in
+   one process, ms a step on the host clock (a correctness rig, not scaling:
+   both ranks share one card);
+30. compressed_all_reduce on two gloo ranks on the card over random trees of
+   respect-v1's gradient shapes against the same on two CPU ranks: int8
+   payloads, int32 totals and scales equal, means and error feedback within
+   TOL_COMPRESS;
+31. python -m repro_torch.train_respect --devices 2 (gloo, one card) for 4
+   steps with a save and an eval (the baseline decision broadcast from
+   rank 0) at 2 and 4, then a resume to step 6; the agent it writes loads
+   into RespectScheduler and schedules the Table-I graphs;
+32. qwen3-14b at full width (40 layers, d_model 5120, bf16, seeded weights)
+   cut into 4 stages by the respect cut at train_4k (partition_table of
+   repro_torch.pipeline_demo: one B1 launch, counted), run by
+   PipelineRunner with 4 microbatches of 1 x 2048 tokens, the launch
+   counters reset just before and read just after one pipelined forward
+   (160 flash_fwd: 40 layers x 4 microbatches); pipelined against
+   sequential three times (TOL_PIPE, 0 expected), wall time of each,
+   the device's idle share and the flash_fwd_bf16 kernels by profiler name
+   in each, the bubble share, peak allocated bytes; B3 at the path's shape
+   held to its plain version and timed (kernel, plain, SDPA, bound);
+33. a float32 unit of 4 full-width qwen3-14b layers in 2 stages, kernel path
+   against plain path within TOL_ZOO_F32 x max(1, |x|).
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -200,6 +230,7 @@ import contextlib
 import copy
 import hashlib
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -3049,6 +3080,337 @@ def lm_train_split_phase(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# data and pipeline parallelism (items 29-33)
+# --------------------------------------------------------------------- #
+DP_RANKS = 2                    # gloo ranks on the one card
+DP_TIMED_STEPS = 6              # bucket-32 steps timed in each run (the first is a warm-up)
+PIPE_ARCH = "qwen3-14b"
+PIPE = dict(n_stages=4, n_micro=4, b_mb=1, seq=2048)   # the cut and the microbatches
+PIPE_REPEATS = 3                # pipelined against sequential, this many times
+TOL_PIPE = 1e-3                 # the reference's pipelined-vs-sequential bound (0 expected)
+PIPE_UNIT = dict(n_layers=4, stages=[[0, 1], [2, 3]], n_micro=2, seq=1024)   # float32 unit
+TOL_COMPRESS = 1e-6             # x max |mean|: means and errors on the card against the CPU's
+TRAIN_RESPECT_ARGS = ["--devices", "2", "--backend", "gloo", "--share-device",
+                      "--save-every", "2", "--eval-every", "2"]
+
+
+def _leaf_diff(a: dict, b: dict) -> float:
+    import numpy as np
+    from repro_torch.checkpoint.manager import flatten_leaves
+    la, lb = flatten_leaves(a), flatten_leaves(b)
+    check([n for n, _ in la] == [n for n, _ in lb], "parameter trees differ")
+    return max(float(np.abs(x.astype(np.float64) - y).max()) for (_, x), (_, y) in zip(la, lb))
+
+
+def data_parallel_phase(card: str) -> None:
+    """(a) two gloo ranks on the card reproduce the golden train steps, and
+    a timed 2-rank run beside the single-process step; (b) the compressed
+    all-reduce on two ranks against its CPU result; (c) the train_respect
+    twin on two ranks, stopped and resumed (items 29-31)."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import flatten_leaves
+    from repro_torch.core import (DagSampler, PipelineSystem, RespectScheduler,
+                                  build_model_graph, prng, validate_monotone)
+    from repro_torch.core import rl
+    from repro_torch.core.ptrnet import param_tree, params_to_numpy
+    from repro_torch.optim import compress
+    from repro_torch.parallel.data import run_ranks
+
+    gold = json.loads(TRAIN_GOLDEN.read_text())
+    c = gold["meta"]["config"]
+    system = PipelineSystem(c["n_stages"])
+    root = prng.PRNGKey(c["key_seed"])
+    trainer_kw = dict(system=system, hidden=c["hidden"], lr=c["lr"], seed=c["seed"],
+                      stage_counts=tuple(c["stage_counts"]))
+    stream = DagSampler(seed=c["seed"], n=tuple(c["n"])).packed_stream(
+        c["batch"], c["n_stages"], system=system, batches_per_epoch=TRAIN_DRAWS, epochs=1,
+        batch_divisor=DP_RANKS)
+    packs = list(stream)
+    steps = len(gold["steps"])
+    keys = [prng.fold_in(root, i) for i in range(len(packs))]
+
+    # ---- (a) the golden steps on 2 ranks, counted in the ranks --------- #
+    t0 = time.perf_counter()
+    out = rl.train_data_parallel(packs[:steps], keys[:steps], DP_RANKS, backend="gloo",
+                                 device="cuda", share_device=True, n_stages=c["n_stages"],
+                                 record=True, timeout_s=600, **trainer_kw)
+    t_run = time.perf_counter() - t0
+    errs = {"reward": 0.0, "rel": 0.0, "param": 0.0, "norm": 0.0}
+    for i, (pack, want) in enumerate(zip(packs, gold["steps"])):
+        valid = pack.valid_mask()
+        roll = {f: np.concatenate([o["rollouts"][i][f] for o in out])
+                for f in out[0]["rollouts"][i]}
+        got = {"bucket_n": pack.bucket_n, "batch": pack.batch,
+               "n_valid_sha256": int_digest(pack.n_valid),
+               "label_assign_sha256": int_digest(pack.label_assign),
+               "metrics": out[0]["metrics"][i]}
+        for p in ("sample", "baseline"):
+            got[f"{p}_order_sha256"] = int_digest(np.where(valid.numpy(), roll[f"{p}_order"], -1))
+            got[f"{p}_assign_sha256"] = int_digest(roll[f"{p}_assign"])
+            got[f"{p}_rewards_sha256"] = f32_digest(roll[f"{p}_rewards"])
+        after = dict(flatten_leaves(out[0]["params_by_step"][i]))
+        e = golden_errors(want, got, after)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+    for o in out:
+        check(_leaf_diff(o["params"], out[0]["params"]) == 0.0,
+              f"data parallel: rank {o['rank']}'s parameters differ from rank 0's")
+        check(o["launches"]["ptr_decode_cluster"] == steps and o["launches"]["ptr_step"] == 0,
+              f"data parallel rank {o['rank']}: launches {o['launches']}, expected one "
+              f"ptr_decode_cluster a step ({steps})")
+    print(f"data parallel golden on {card}: {DP_RANKS} gloo ranks sharing cuda:0 took the first "
+          f"{steps} steps of tests/golden/torch_train_steps.json ({t_run:.1f} s with the ranks' "
+          "start): labels, sampled and baseline orders, assignments and per-graph rewards equal "
+          f"(each rank's slice); max error reward means {errs['reward']:.2e} (tolerance "
+          f"{TOL_TRAIN_REWARD}), loss/entropy/advantage/grad_norm {errs['rel']:.2e} relative "
+          f"({TOL_TRAIN_REL}), leaf norms {errs['norm']:.2e} ({TOL_TRAIN_REL}), parameter "
+          f"entries {errs['param']:.2e} ({TOL_TRAIN_PARAM}); ranks' parameters equal; B1 "
+          f"launches by rank {[o['launches']['ptr_decode_cluster'] for o in out]} "
+          f"(one a step each)", flush=True)
+
+    # ---- ms a step at bucket 32, two ranks beside one process ------------ #
+    b32 = next(p for p in packs if p.bucket_n == 32)
+    timed_keys = [prng.fold_in(root, 100 + i) for i in range(DP_TIMED_STEPS)]
+    dp = rl.train_data_parallel([b32] * DP_TIMED_STEPS, timed_keys, DP_RANKS, backend="gloo",
+                                device="cuda", share_device=True, n_stages=c["n_stages"],
+                                timeout_s=600, **trainer_kw)
+    single = rl.RLTrainer(**trainer_kw)
+    t_single = []
+    for k in timed_keys:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single.train_step(b32, k, n_stages=c["n_stages"])
+        torch.cuda.synchronize()
+        t_single.append(time.perf_counter() - t0)
+    d = _leaf_diff(dp[0]["params"], params_to_numpy(single.params))
+    check(d <= TOL_TRAIN_PARAM, f"data parallel bucket 32: parameters {d:.3e} from the "
+          f"single-process run's (tolerance {TOL_TRAIN_PARAM})")
+    ms_dp = [1e3 * statistics.median(o["step_s"][1:]) for o in dp]
+    ms_one = 1e3 * statistics.median(t_single[1:])
+    print(f"data parallel step on {card} (a correctness rig, not scaling: {DP_RANKS} gloo ranks "
+          f"share one card and its host): bucket 32, B = {b32.batch} ({b32.batch // DP_RANKS} a "
+          f"rank), {DP_TIMED_STEPS - 1} steps after a warm-up: {ms_dp[0]:.2f} ms a step (rank 0, "
+          f"median; rank 1 {ms_dp[1]:.2f}) against {ms_one:.2f} ms in one process (host clock, "
+          f"synchronized); parameters after {DP_TIMED_STEPS} steps {d:.2e} from the "
+          "single-process run's", flush=True)
+    del single
+
+    # ---- (b) the compressed all-reduce over respect-v1's gradient shapes  #
+    net = RespectScheduler.from_release(device="cpu").net
+    rng = np.random.default_rng(7)
+    stacked = optim_tree_numpy(param_tree(net), lambda a: (rng.normal(size=(DP_RANKS,) + a.shape)
+                                                         * 1e-2).astype(np.float32))
+    t0 = time.perf_counter()
+    on_card = run_ranks(compress.compressed_all_reduce_rows, DP_RANKS, backend="gloo",
+                        device="cuda", share_device=True, timeout_s=300, args=(stacked, None))
+    t_card = time.perf_counter() - t0
+    on_cpu = run_ranks(compress.compressed_all_reduce_rows, DP_RANKS, backend="gloo",
+                       device="cpu", timeout_s=300, args=(stacked, None))
+    worst = {"mean": 0.0, "err": 0.0}
+    for a, b in zip(on_card, on_cpu):
+        for part in ("q", "total", "scale"):
+            check(_leaf_diff(a[part], b[part]) == 0.0,
+                  f"compressed all-reduce: {part} on the card differs from the CPU's")
+        for part in worst:
+            worst[part] = max(worst[part], _leaf_diff(a[part], b[part]))
+    scale = max(float(np.abs(x).max()) for _, x in flatten_leaves(on_cpu[0]["mean"]))
+    check(max(worst.values()) <= TOL_COMPRESS * scale,
+          f"compressed all-reduce: means/errors {worst} from the CPU's (|mean| up to {scale:.3e})")
+    n_leaf = len(flatten_leaves(stacked))
+    print(f"compressed all-reduce on {card}: {DP_RANKS} gloo ranks on cuda:0 over respect-v1's "
+          f"{n_leaf} gradient leaves ({sum(x[0].size for _, x in flatten_leaves(stacked))} "
+          f"floats a rank; {t_card:.1f} s with the ranks' start): int8 payloads, int32 totals and "
+          f"scales equal the CPU ranks'; means max |diff| {worst['mean']:.2e}, error feedback "
+          f"{worst['err']:.2e} (tolerance {TOL_COMPRESS} x |mean| {scale:.3e})", flush=True)
+
+    # ---- (c) python -m repro_torch.train_respect on 2 ranks, resumed ----- #
+    work = ROOT / "build" / "train_respect_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    common = [sys.executable, "-m", "repro_torch.train_respect", *TRAIN_RESPECT_ARGS,
+              "--ckpt-dir", str(work / "ckpt"), "--out", str(work / "agent"),
+              "--label-cache", str(work / "labels"), "--metrics", str(work / "metrics.jsonl")]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for steps_to in (4, 6):
+        t0 = time.perf_counter()
+        proc = subprocess.run(common + ["--steps", str(steps_to)], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=900)
+        dt = time.perf_counter() - t0
+        check(proc.returncode == 0, f"train_respect --steps {steps_to} exited "
+              f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
+        print(f"train_respect --devices 2 --steps {steps_to} on {card} ({dt:.1f} s): "
+              + " | ".join(lines[-4:]), flush=True)
+        if steps_to == 6:
+            check(any(ln.startswith("[resume] restored trainer checkpoint at step 4")
+                      for ln in lines), "train_respect did not resume at step 4")
+    logged = [json.loads(ln)["step"] for ln in (work / "metrics.jsonl").read_text().splitlines()]
+    check(logged == list(range(1, 7)), f"train_respect logged steps {logged}")
+    sched = RespectScheduler.load(work / "agent")
+    golden = json.loads(GOLDEN.read_text())
+    table1 = [build_model_graph(nm) for nm in golden["models"]]
+    res = sched.schedule_many(table1, STAGES, use_cache=False)
+    check(all(validate_monotone(g, r["assignment"], STAGES) for g, r in zip(table1, res)),
+          "train_respect's agent: an invalid Table-I schedule")
+    print(f"train_respect agent on {card}: loaded into RespectScheduler (hidden "
+          f"{sched.hidden}) and scheduled the {len(table1)} Table-I graphs at k = {STAGES}, "
+          "every schedule valid", flush=True)
+
+
+def optim_tree_numpy(tree: dict, fn) -> dict:
+    """``fn`` of each leaf of a tree of tensors, as numpy."""
+    return {k: optim_tree_numpy(v, fn) if isinstance(v, dict) else fn(v.detach().cpu().numpy())
+            for k, v in tree.items()}
+
+
+def pipeline_phase(card: str) -> list[dict]:
+    """(d) qwen3-14b at full width as a four-stage pipeline on the card, cut
+    by the respect cut at train_4k (B1), against its sequential forward;
+    B3 at the path's shape; (e) a float32 unit of 4 layers in 2 stages,
+    kernel path against plain path (items 32-33)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import RespectScheduler
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.parallel.pipeline import PipelineRunner
+    from repro_torch.pipeline_demo import layer_stages, partition_table, print_table
+
+    torch.cuda.empty_cache()
+    cfg = get_config(PIPE_ARCH)
+    n_stages, n_micro, b_mb, seq = (PIPE[k] for k in ("n_stages", "n_micro", "b_mb", "seq"))
+    sched = RespectScheduler.from_release()
+    for k in kbuild.LAUNCHES:
+        kbuild.LAUNCHES[k] = 0
+    rows = partition_table(cfg, SHAPES["train_4k"], n_stages, sched)
+    cut = dict(kbuild.LAUNCHES)
+    print_table(rows, n_stages)
+    check(cut["ptr_decode_cluster"] == 1 and sum(cut.values()) == 1,
+          f"respect cut of {PIPE_ARCH}: launches {cut}, expected one ptr_decode_cluster")
+    assign = next(a for m, a, _ in rows if m == "respect")
+    stages = layer_stages(cfg, assign, n_stages)
+    del sched
+    runner = PipelineRunner(cfg, stages, n_micro=n_micro)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = runner.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    slots = n_stages * runner.l_max
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((n_micro, b_mb, seq, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    n_flash = cfg.n_layers * n_micro
+    # ---- the path, counted: one pipelined forward ----------------------- #
+    for k in kbuild.LAUNCHES:
+        kbuild.LAUNCHES[k] = 0
+    with torch.no_grad():
+        y = runner.forward(params, x)
+    torch.cuda.synchronize()
+    ran = {k: n for k, n in kbuild.LAUNCHES.items() if n}
+    check(ran == {"flash_fwd": n_flash},
+          f"{PIPE_ARCH} pipeline: launches {ran}, expected {n_flash} flash_fwd "
+          f"({cfg.n_layers} layers x {n_micro} microbatches)")
+    check(y.shape == x.shape and bool(torch.isfinite(y.float()).all()),
+          f"{PIPE_ARCH} pipeline: output not finite or misshapen")
+    errs = []
+    with torch.no_grad():
+        for _ in range(PIPE_REPEATS):
+            yp = runner.forward(params, x)
+            ys = runner.sequential_forward(params, x)
+            errs.append(float((yp.float() - ys.float()).abs().max()))
+    check(max(errs) <= TOL_PIPE, f"{PIPE_ARCH} pipeline: pipelined vs sequential {errs}")
+    del yp, ys
+    with torch.no_grad():
+        t_pipe = wall(lambda: runner.forward(params, x), reps=3)
+        t_seq = wall(lambda: runner.sequential_forward(params, x), reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{PIPE_ARCH} pipeline on {card}: full width (d_model {cfg.d_model}, {cfg.n_layers} "
+          f"layers, bf16, seeded weights drawn in {t_init:.2f} s), respect cut at train_4k "
+          f"stage sizes {[len(s) for s in stages]} ({slots} stacked block slots), {n_micro} "
+          f"microbatches of {b_mb} x {seq}: launches {ran}; pipelined vs sequential max |err| "
+          f"{errs} (tolerance {TOL_PIPE}); pipelined {t_pipe * 1e3:.1f} ms, sequential "
+          f"{t_seq * 1e3:.1f} ms (host clock, median of 3); bubble share "
+          f"{runner.bubble_fraction:.3f} ({n_stages - 1} of {runner.ticks} ticks); peak "
+          f"allocated {peak} bytes ({peak / 1e9:.2f} GB)", flush=True)
+    for label, fn in (("pipelined", runner.forward), ("sequential", runner.sequential_forward)):
+        for _ in range(3):
+            with torch.no_grad():
+                names = device_split(f"{PIPE_ARCH} {label} forward", card, lambda: fn(params, x))
+            seen = sum("flash_fwd_bf16" in nm for nm in names)
+            if not names or seen == n_flash:
+                break
+        if names:
+            check(seen == n_flash and not any("flash_fwd_f32" in nm for nm in names),
+                  f"{PIPE_ARCH} {label} forward ran {seen} flash_fwd_bf16 of {n_flash}")
+            print(f"{PIPE_ARCH} {label} forward: {seen} flash_fwd_bf16 kernels by profiler name",
+                  flush=True)
+    del params, x, y, runner
+    torch.cuda.empty_cache()
+
+    # ---- B3 at the path's shape against its plain version ---------------- #
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = (torch.randn((b_mb, seq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+               .transpose(1, 2) for h in (hq, hkv, hkv))
+
+    def call():
+        return flash_ops.flash_attention(q, k, v, causal=True, scale=d ** -0.5)
+    got = call()
+    with plain_kernels():
+        ref = call()
+        plain_ms = cuda_ms(call, iters=3)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max())
+    check(bool((diff <= TOL_BF16_OUT[0] + TOL_BF16_OUT[1] * ref.float().abs()).all()),
+          f"flash {PIPE_ARCH} pipeline: kernel and plain version differ (max |err| {err:.3e})")
+    ev_ms = cuda_ms(call, iters=10)
+    dev_ms = device_ms(call, "flash_fwd_bf16", iters=10)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=hq != hkv), iters=10)
+    b_ms, b_by = bound(*flash_work(b_mb, hq, hkv, seq, seq, d, d, 2), BF16_FLOPS_PER_S)
+    print(f"flash_fwd {PIPE_ARCH} pipeline B={b_mb} Hq={hq} Hkv={hkv} S={seq} D={d} bf16 causal "
+          f"on {card}: max |err| {err:.3e} (tolerance atol, rtol {TOL_BF16_OUT}); kernel "
+          f"{ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
+          flush=True)
+    row = {"name": f"flash_fwd ({PIPE_ARCH} pipeline)", "route": "cuda", "source": FLASH_SRC,
+           "replaces": "src/repro/kernels/flash/kernel.py:43", "launches": ran["flash_fwd"],
+           "max_abs_err": err, "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    del q, k, v, got, ref
+
+    # ---- (e) float32: 4 full-width layers in 2 stages, kernels vs plain -- #
+    u = PIPE_UNIT
+    c32 = cfg.scaled(n_layers=u["n_layers"], dtype="float32")
+    r32 = PipelineRunner(c32, u["stages"], n_micro=u["n_micro"])
+    p32 = r32.init_params(torch.Generator(device="cuda").manual_seed(2))
+    x32 = torch.randn((u["n_micro"], 1, u["seq"], c32.d_model), generator=gen, device="cuda")
+    before = dict(kbuild.LAUNCHES)
+    with torch.no_grad():
+        got = r32.forward(p32, x32)
+        mid = dict(kbuild.LAUNCHES)
+        with plain_kernels():
+            ref = r32.forward(p32, x32)
+    torch.cuda.synchronize()
+    check(mid["flash_fwd"] - before["flash_fwd"] == u["n_layers"] * u["n_micro"]
+          and kbuild.LAUNCHES == mid, f"{PIPE_ARCH} f32 pipeline unit: unexpected launches")
+    err32 = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(err32 <= TOL_ZOO_F32 * max(1.0, scale),
+          f"{PIPE_ARCH} f32 pipeline unit: kernel path and plain path differ (max |err| "
+          f"{err32:.3e}, |x| {scale:.3f})")
+    print(f"{PIPE_ARCH} f32 pipeline unit ({u['n_layers']} layers, d_model {c32.d_model}, "
+          f"stages {u['stages']}, {u['n_micro']} microbatches of 1 x {u['seq']}) on {card}: "
+          f"kernel path vs plain path max |err| {err32:.3e} (|x| up to {scale:.3f}, tolerance "
+          f"{TOL_ZOO_F32} x max(1, |x|))", flush=True)
+    del r32, p32, x32, got, ref
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -3406,6 +3768,12 @@ def run() -> dict:
     # which the B2 replays above count exactly ----------------------------- #
     kernels += lm_train_phase(card)
     lm_train_split_phase(card)
+
+    # ---- data and pipeline parallelism: the data-parallel step on two
+    # gloo ranks, the compressed all-reduce, the train_respect twin, the
+    # qwen3-14b pipeline (B1's cut, B3 a block) ---------------------------- #
+    data_parallel_phase(card)
+    kernels += pipeline_phase(card)
     return {"kernels": kernels, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "card": card}
 

@@ -37,6 +37,16 @@ The stages of a step run inside ``torch.profiler.record_function`` ranges
 named ``rl.<stage>`` (:data:`SPANS`), so a profiled step shows where its
 time goes; outside a profiler they cost a few microseconds a step.
 
+Data parallelism (the reference's ``shard_map`` over a ``data`` mesh): in a
+world of ``n`` ranks (:mod:`repro_torch.parallel.data`; ``RLTrainer(n_devices=
+n)``) every rank holds the replicated parameters and the same global pack,
+splits the step's key over the global batch and takes its contiguous slice of
+the graphs and of those keys, so each graph decodes as in one process.  One
+all-reduce a step sums one flat float32 buffer (the loss sum, the five metric
+sums, then every gradient leaf in ``param_tree``'s order, which fixes the
+summation order); the normalization by the global valid-graph count, the
+clip and AdamW then run on replicated values.  Evals stay replicated.
+
 Where the reference is functional, the port updates the online network and
 its optimizer state in place (no copy of the parameters a step);
 :class:`TrainState` names the same five parts and checkpoints under the
@@ -51,6 +61,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import hashlib
+import os
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -77,18 +90,17 @@ __all__ = [
     "TrainState",
     "init_train_state",
     "RLTrainer",
+    "train_data_parallel",
 ]
-
-#: what data-parallel training waits for
-_DP_ITEM = "waits for data parallelism over torch.distributed, not ported yet"
 
 #: the profiler ranges (each ``rl.<name>``): the labeller of a pack, the
 #: uniforms of the sampled pass, the encoder and plain decode of the
 #: differentiable pass, a forward-only decode on B1 ("kernel") or the scan
-#: with B2 ("scan"), encoder included, rho and the reward, backward and
-#: the optimizer; ``train_step`` spans the whole step
+#: with B2 ("scan"), encoder included, rho and the reward, backward, the
+#: data-parallel step's all-reduce and the optimizer; ``train_step`` spans
+#: the whole step
 SPANS = ("label", "uniforms", "encode", "decode_plain", "decode_kernel", "decode_scan",
-         "rho_reward", "backward", "optimizer", "train_step")
+         "rho_reward", "backward", "all_reduce", "optimizer", "train_step")
 
 
 def _span(name: str):
@@ -168,9 +180,22 @@ def label_graphs(graphs: list[CompGraph], n_stages: int, system: PipelineSystem,
         if cache is not None:
             cache.mkdir(parents=True, exist_ok=True)
             for i in misses:
-                np.savez(cache / f"{keys[i]}.npz", assign=la[i])
+                _write_label(cache / f"{keys[i]}.npz", la[i])
 
     return la, [order_from_assignment(a) for a in la]
+
+
+def _write_label(path: Path, assign: np.ndarray) -> None:
+    """Write one cached label atomically: ranks that label the same pack
+    write the same file, and a reader never sees a partial one."""
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".{path.stem}.", suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, assign=assign)
+        os.replace(tmp, path)
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
 
 
 def pack_graphs(graphs: list[CompGraph], n_stages: int, system: PipelineSystem,
@@ -311,10 +336,16 @@ def sum_loss_and_grads(net: PointerNet, baseline: PointerNet, batch: PaddedGraph
     """The summed REINFORCE loss of one batch, its metric sums and the
     gradient of the loss sum: ``(loss_sum, sums, grads)``, ``grads`` a
     tree of ``param_tree(net)``'s keys (zeros where no gradient reached a
-    leaf).  The reference's ``value_and_grad(_sum_loss_fn)``."""
+    leaf).  The reference's ``value_and_grad(_sum_loss_fn)``.  ``key`` is
+    one key, split over the batch's graphs, or the graphs' own keys (B, 2):
+    a rank's slice of the split of the global batch."""
     system = system.with_stages(n_stages)
     batch = _on(batch, net.dec0.device)
-    keys = _split(key, batch.batch)
+    keys = np.asarray(key, dtype=np.uint32)
+    if keys.ndim == 1:
+        keys = _split(keys, batch.batch)
+    elif keys.shape != (batch.batch, 2):
+        raise ValueError(f"keys of shape {keys.shape} for a batch of {batch.batch}")
     for p in net.parameters():
         p.grad = None
     with torch.enable_grad():
@@ -338,23 +369,63 @@ def sum_loss_and_grads(net: PointerNet, baseline: PointerNet, batch: PaddedGraph
     return loss_sum.detach(), sums, grads
 
 
+_SUMS = ("reward_sample", "reward_baseline", "advantage", "entropy", "n_graphs")
+
+
+def _all_reduce_sums(loss_sum, sums: dict, grads: dict, group):
+    """Sum the loss, the metric sums and every gradient leaf over the ranks
+    in ONE all-reduce of one flat float32 buffer, in that order (the
+    gradient leaves in ``param_tree``'s order)."""
+    import torch.distributed as dist
+    leaves: list = []
+    optim.tree_map(leaves.append, grads)      # param_tree's insertion order
+    flat = torch.cat([torch.stack([loss_sum.float()] + [sums[k].float() for k in _SUMS])]
+                     + [g.reshape(-1).float() for g in leaves])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, at = [], len(_SUMS) + 1
+    for g in leaves:
+        out.append(flat[at: at + g.numel()].view_as(g).to(g.dtype))
+        at += g.numel()
+    it = iter(out)
+    grads = optim.tree_map(lambda _: next(it), grads)
+    return flat[0], {k: flat[1 + i] for i, k in enumerate(_SUMS)}, grads
+
+
 def make_train_step(n_stages: int, system: PipelineSystem, optimizer,
-                    mask_infeasible: bool = True, entropy_coef: float = 0.0,
-                    n_devices: int | None = None):
+                    mask_infeasible: bool = True, entropy_coef: float = 0.0, group=None):
     """The REINFORCE step ``(net, baseline, opt_state, batch, key) -> (net,
     opt_state, metrics)``.  ``net`` (trainable) is updated in place and
     returned; ``metrics`` are the reference's keys as () tensors.  Any
     ``(bucket_n, B)`` shape runs: nothing is compiled per shape.  A pack
-    labelled for another stage count raises ``ValueError``."""
+    labelled for another stage count raises ``ValueError``.
+
+    ``group`` (a ``torch.distributed`` process group, or the default world
+    when it is a :class:`~repro_torch.parallel.data.DataWorld`) runs the step
+    data-parallel: every rank passes the same global ``batch`` and ``key``
+    and computes its contiguous slice; a global batch that the world does not
+    divide raises ``ValueError``."""
     _check_mask(mask_infeasible)
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError(f"n_devices={n_devices}: {_DP_ITEM}")
     system = system.with_stages(n_stages)
+    if group is not None:
+        import torch.distributed as dist
+        from ..parallel.data import DataWorld
+        pg = None if isinstance(group, DataWorld) else group
+        rank, world = dist.get_rank(pg), dist.get_world_size(pg)
 
     def train_step(net: PointerNet, baseline: PointerNet, opt_state, batch, key):
         with _span("train_step"):
-            loss_sum, sums, grads = sum_loss_and_grads(net, baseline, batch, key, n_stages,
-                                                       system, entropy_coef)
+            if group is None:
+                loss_sum, sums, grads = sum_loss_and_grads(net, baseline, batch, key, n_stages,
+                                                           system, entropy_coef)
+            else:
+                from ..parallel.data import rank_slice
+                keys = _split(key, batch.batch)
+                mine = rank_slice(batch, rank, world)     # raises when world does not divide
+                loss_sum, sums, grads = sum_loss_and_grads(
+                    net, baseline, mine, rank_slice(keys, rank, world), n_stages, system,
+                    entropy_coef)
+                with _span("all_reduce"):
+                    loss_sum, sums, grads = _all_reduce_sums(loss_sum, sums, grads, pg)
             with torch.no_grad(), _span("optimizer"):
                 W = torch.clamp_min(sums["n_graphs"], 1.0)
                 grads = optim.tree_map(lambda g: g / W, grads)
@@ -447,7 +518,15 @@ class RLTrainer:
     (``train_step(batch, key, n_stages=k)``).  Runs on the card unless
     ``device`` names another; ``save``/``restore`` go through
     :class:`repro_torch.checkpoint.CheckpointManager` in the reference's
-    format."""
+    format.
+
+    ``n_devices=n > 1`` trains data-parallel over an initialised
+    ``torch.distributed`` world of ``n`` ranks (start them with
+    :func:`repro_torch.parallel.data.run_ranks`): every rank builds the same
+    trainer and feeds it the same global packs and keys.  Evals stay
+    replicated; the baseline decision follows rank 0's eval; ``save`` writes
+    on rank 0 and ``restore`` reads on every rank, each followed by a
+    barrier."""
 
     def __init__(self, n_stages: int = 4, system: PipelineSystem | None = None,
                  hidden: int = 256, lr: float = 1e-4, feat_dim: int | None = None,
@@ -455,8 +534,16 @@ class RLTrainer:
                  n_devices: int | None = None, stage_counts: tuple[int, ...] | None = None,
                  device=None):
         from .embedding import embed_dim
+        self.world = None
         if n_devices is not None and n_devices > 1:
-            raise NotImplementedError(f"n_devices={n_devices}: {_DP_ITEM}")
+            from ..parallel.data import current_world
+            self.world = current_world()
+            if self.world is None or self.world.size != n_devices:
+                have = "none" if self.world is None else f"one of {self.world.size}"
+                raise ValueError(
+                    f"n_devices={n_devices} needs an initialised torch.distributed world of "
+                    f"{n_devices} ranks (have {have}); start the ranks with "
+                    "repro_torch.parallel.data.run_ranks")
         _check_mask(mask_infeasible)
         self.stage_counts = tuple(stage_counts) if stage_counts else (n_stages,)
         self.n_stages = self.stage_counts[0] if stage_counts else n_stages
@@ -477,7 +564,7 @@ class RLTrainer:
         if k not in self._train_steps:
             self._train_steps[k] = make_train_step(
                 k, self._base_system.with_stages(k), self.optimizer, self.mask_infeasible,
-                self.entropy_coef)
+                self.entropy_coef, group=self.world)
         return self._train_steps[k]
 
     def _eval_fn_for(self, k: int):
@@ -520,7 +607,13 @@ class RLTrainer:
 
     def consider_baseline(self, reward: float) -> bool:
         """Adopt the online policy as the rollout baseline when ``reward``
-        beats the best seen so far."""
+        beats the best seen so far (data-parallel: rank 0's ``reward``, so
+        every rank decides alike)."""
+        if self.world is not None:
+            import torch.distributed as dist
+            r = torch.tensor([reward], dtype=torch.float32, device=self.device)
+            dist.broadcast(r, src=0)
+            reward = float(r[0])
         if reward > float(self.state.best_baseline_reward):
             self.state.baseline_params = _frozen_copy(self.state.params)
             self.state.best_baseline_reward = torch.tensor(
@@ -543,14 +636,83 @@ class RLTrainer:
         return self._ckpt_managers[key]
 
     def save(self, ckpt_dir: str | Path, blocking: bool = True) -> None:
-        """Checkpoint the whole TrainState (atomic, retained, resumable)."""
-        self._manager(ckpt_dir).save(self.step_count, self.state.tree(), blocking=blocking)
+        """Checkpoint the whole TrainState (atomic, retained, resumable);
+        data-parallel: rank 0 writes, then every rank meets at a barrier."""
+        if self.world is None or self.world.is_main:
+            self._manager(ckpt_dir).save(self.step_count, self.state.tree(), blocking=blocking)
+        if self.world is not None:
+            self.world.barrier()
 
     def restore(self, ckpt_dir: str | Path) -> int | None:
         """Restore the newest complete checkpoint; its step, or None when
-        the directory holds none."""
+        the directory holds none (every rank reads, then a barrier)."""
+        if self.world is not None and self.world.is_main:
+            self._manager(ckpt_dir).wait()
         step, tree = self._manager(ckpt_dir).restore_latest(self.state.tree())
+        if self.world is not None:
+            self.world.barrier()
         if step is None:
             return None
         self.state.load_tree(tree)
         return step
+
+
+# --------------------------------------------------------------------- #
+# a data-parallel run of given steps (the rank body run_ranks spawns)
+# --------------------------------------------------------------------- #
+def _steps_rank(world, device, packs, keys, n_stages, trainer_kw, record):
+    """One rank of :func:`train_data_parallel`."""
+    from ..kernels.build import LAUNCHES
+    from .ptrnet import params_to_numpy
+    from ..parallel.data import rank_slice
+    tr = RLTrainer(n_devices=world.size, device=device, **trainer_kw)
+    out = {"rank": world.rank, "metrics": [], "rollouts": [], "params_by_step": [],
+           "step_s": [], "launches": {}}
+    for pack, key in zip(packs, keys):
+        if record:
+            mine = rank_slice(pack, world.rank, world.size)
+            ks = rank_slice(_split(key, pack.batch), world.rank, world.size)
+            with torch.no_grad():
+                s = _policy_rewards(tr.params, mine, ks, n_stages, tr.system, True)
+                impl = _resolve(tr.baseline_params, _on(mine, tr.device), False)
+                b = _policy_rewards(tr.baseline_params, mine, ks, n_stages, tr.system, False,
+                                    impl)
+            out["rollouts"].append({f"{p}_{f}": v[i].cpu().numpy()
+                                    for p, v in (("sample", s), ("baseline", b))
+                                    for i, f in ((0, "rewards"), (3, "order"), (4, "assign"))})
+        before = dict(LAUNCHES)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out["metrics"].append(tr.train_step(pack, key, n_stages=n_stages))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out["step_s"].append(time.perf_counter() - t0)
+        for k, v in LAUNCHES.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v - before[k]
+        if record:
+            out["params_by_step"].append(params_to_numpy(tr.params))
+    out["params"] = params_to_numpy(tr.params)
+    return out
+
+
+def train_data_parallel(packs: list, keys: list, n_ranks: int, *, backend: str, device=None,
+                        n_stages: int = 4, share_device: bool = False,
+                        timeout_s: float = 600.0, record: bool = False,
+                        **trainer_kw) -> list[dict]:
+    """Train ``RLTrainer(n_devices=n_ranks, **trainer_kw)`` data-parallel on
+    ``n_ranks`` spawned ranks (:func:`repro_torch.parallel.data.run_ranks`),
+    one step a (global pack, key) pair, every rank fed the same packs.
+
+    Returns one dict a rank: ``metrics`` (a step's), ``step_s`` (host
+    seconds a step, synchronized), ``launches`` (kernel launches in the
+    steps), ``params`` (the final parameters as numpy) and, with ``record``,
+    ``rollouts`` (before each step the rank's slice of the sampled and
+    greedy-baseline rewards, orders and assignments) and ``params_by_step``
+    (the parameters after each step)."""
+    from ..parallel.data import run_ranks
+    keys = [np.asarray(k, dtype=np.uint32) for k in keys]
+    packs = [p.to("cpu") for p in packs]
+    return run_ranks(_steps_rank, n_ranks, backend=backend, device=device,
+                     timeout_s=timeout_s, share_device=share_device,
+                     args=(packs, keys, n_stages, trainer_kw, record))

@@ -36,9 +36,9 @@ order the calls ran (a topological order), under the reference's rules:
   dead code (the prefill's cache writes).
 
 The same calls run on the CPU and on the card, so the same records, and the
-same graph hash, come out of both.  ``kind="train"`` raises: the recorder
-sits at the torch-function level, where autograd's backward operations are
-not seen, so a train step's records need a recorder at the dispatch level.
+same graph hash, come out of both.  ``kind="train"`` traces ``model.loss``
+forward over the prefill's inputs, as the reference lowers ``model.loss``
+(no backward pass: neither package traces one).
 """
 
 from __future__ import annotations
@@ -109,7 +109,7 @@ def _basic_index(idx) -> bool:
 @dataclasses.dataclass(frozen=True)
 class _Weight:
     key: tuple
-    nbytes: int
+    nbytes: float
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,8 +273,11 @@ class Recorder(TorchFunctionMode):
             for i, t in enumerate(outs):
                 ws = weights
                 if op in _PART_VIEWS and weights and len(ins) == 1:
-                    ws = [_Weight(w.key + ((op, repr(args[1:]), repr(kwargs), i),), _nbytes(t))
-                          for w in weights]
+                    # the part's share of the weight's own bytes: a cast before
+                    # the view does not change what the weight costs to read
+                    share = t.numel() / max(ins[0].numel(), 1)
+                    ws = [_Weight(w.key + ((op, repr(args[1:]), repr(kwargs), i),),
+                                  w.nbytes * share) for w in weights]
                 self._set(t, _Val(deps, tuple(ws), var))
             return out
         if not self._merge(ins)[3]:    # a function of constants is a constant
@@ -412,14 +415,11 @@ class TraceResult:
 
 def trace_model(arch: str, *, smoke: bool = True, kind: str = "prefill", batch: int = 1,
                 seq_len: int = 16, node_budget: int = NODE_BUDGET) -> TraceResult:
-    """Trace one architecture's prefill (logits of the last position) on the
-    meta device and return its records with the time split."""
+    """Trace one architecture's prefill (logits of the last position), or
+    with ``kind="train"`` its train loss forward over the same inputs, on
+    the meta device and return its records with the time split."""
     if kind not in TRACE_KINDS:
         raise ValueError(f"kind must be one of {TRACE_KINDS}, got {kind!r}")
-    if kind == "train":
-        raise NotImplementedError(
-            "tracing a train step waits for a dispatch-level recorder: this one sits at the "
-            "torch-function level, where autograd's backward operations are not seen")
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, device="meta")
@@ -427,6 +427,12 @@ def trace_model(arch: str, *, smoke: bool = True, kind: str = "prefill", batch: 
     inputs = model.input_specs(ShapeConfig("ingest", seq_len, batch, "prefill"))
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
-    program = record(lambda: model.prefill(params, inputs)[0], params, inputs, node_budget)
+    if kind == "prefill":
+        def fwd():
+            return model.prefill(params, inputs)[0]
+    else:
+        def fwd():
+            return model.loss(params, inputs)
+    program = record(fwd, params, inputs, node_budget)
     return TraceResult(arch=arch, kind=kind, batch=batch, seq_len=seq_len, program=program,
                        t_build_s=t_build, t_trace_s=time.perf_counter() - t0)

@@ -31,7 +31,7 @@ from .common import Init, dtype_of, rms_norm, softmax_cross_entropy
 
 __all__ = [
     "decompose_pattern", "init_lm", "init_lm_cache", "lm_forward", "lm_loss", "lm_prefill",
-    "pad_cache_to", "lm_decode_step", "params_from_numpy",
+    "pad_cache_to", "lm_decode_step", "params_from_numpy", "tree_from_numpy",
 ]
 
 # cache leaves with a sequence axis (padded by pad_cache_to): GQA K/V and the
@@ -214,23 +214,25 @@ def params_from_numpy(cfg, tree, device) -> dict:
     audio family), as nested dicts of numpy arrays, into the port's
     parameters on ``device``.  Every leaf keeps its dtype; the tree must have
     the structure and shapes of :func:`init_lm` (``init_whisper``)."""
-    device = torch.device(device)
     if cfg.family == "audio":
         from .whisper import init_whisper
         want = init_whisper(Init(torch.device("meta")), cfg)
     else:
         want = init_lm(Init(torch.device("meta")), cfg)
+    return tree_from_numpy(want, tree, device)
 
-    def convert(w, t, path):
-        if isinstance(w, dict):
-            if not isinstance(t, dict) or set(t) != set(w):
-                got = sorted(t) if isinstance(t, dict) else type(t).__name__
-                raise ValueError(f"{path or 'params'}: expected keys {sorted(w)}, got {got}")
-            return {k: convert(w[k], t[k], f"{path}/{k}") for k in w}
-        out = _to_torch(t, device)
-        if tuple(out.shape) != tuple(w.shape) or out.dtype != w.dtype:
-            raise ValueError(f"{path}: expected {w.dtype} {tuple(w.shape)}, "
-                             f"got {out.dtype} {tuple(out.shape)}")
-        return out
 
-    return convert(want, tree, "")
+def tree_from_numpy(want: dict, tree, device, path: str = "") -> dict:
+    """``tree`` (nested dicts of numpy arrays) as tensors on ``device``,
+    checked leaf by leaf against ``want`` (the same structure of ``meta``
+    tensors): keys, shapes and dtypes must match."""
+    if isinstance(want, dict):
+        if not isinstance(tree, dict) or set(tree) != set(want):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{path or 'params'}: expected keys {sorted(want)}, got {got}")
+        return {k: tree_from_numpy(want[k], tree[k], device, f"{path}/{k}") for k in want}
+    out = _to_torch(tree, torch.device(device))
+    if tuple(out.shape) != tuple(want.shape) or out.dtype != want.dtype:
+        raise ValueError(f"{path}: expected {want.dtype} {tuple(want.shape)}, "
+                         f"got {out.dtype} {tuple(out.shape)}")
+    return out

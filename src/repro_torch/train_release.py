@@ -26,8 +26,9 @@ of the parameter bytes; ``<out>/params/`` holds the weights.  Both packages'
 
 Resumable: ``--ckpt-dir`` keeps trainer checkpoints and the draw counter
 (``draw_count.json``); kill and re-run with the same flags to continue.
-Runs on the card unless ``--device`` names another.  ``--devices > 1`` raises
-as :class:`RLTrainer` does (data parallelism over torch.distributed is not ported yet).
+Runs on the card unless ``--device`` names another.  ``--devices > 1`` raises:
+this driver's data parallelism is not ported yet (``python -m
+repro_torch.train_respect --devices n`` trains data-parallel).
 """
 
 from __future__ import annotations
@@ -127,6 +128,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the plain path)")
     args = ap.parse_args(argv)
+    if args.devices is not None and args.devices > 1:
+        raise NotImplementedError(
+            f"--devices {args.devices}: data parallelism of the release driver is not ported "
+            "yet; python -m repro_torch.train_respect --devices n trains data-parallel")
     stage_counts = tuple(int(s) for s in args.stage_counts.split(","))
     device = resolve_device(args.device)
 

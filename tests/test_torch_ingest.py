@@ -26,6 +26,9 @@
   holds the card's hashes to the same file).
 * ``RespectScheduler.schedule_model`` on the CPU equals ``schedule`` of the
   ingested graph and is dependency-valid.
+* ``kind="train"`` (``model.loss`` forward, as the reference lowers it) on
+  the SMOKE configs of whisper-tiny, xlstm-350m and zamba2-7b: parameter
+  bytes equal the reference report's, flops within the same 5 %.
 """
 
 import json
@@ -175,11 +178,19 @@ def test_full_trace_totals_match_bench_ingest(arch):
         seen.add(r.name)
 
 
-def test_train_trace_waits_for_a_dispatch_level_recorder():
-    with pytest.raises(NotImplementedError, match="dispatch-level recorder"):
-        trace_model("whisper-tiny", kind="train")
+@pytest.mark.parametrize("arch", ARCHS + ("zamba2-7b",))
+def test_train_trace_matches_reference(arch):
+    """``kind="train"`` traces ``model.loss`` forward over the prefill's
+    inputs, as the reference lowers it: parameter bytes equal, flops within
+    the prefill kind's 5 %."""
+    got = ingest_model(arch, 32, smoke=True, kind="train").report
+    want = jax_ingest_model(arch, 32, smoke=True, kind="train").report
+    assert got["kind"] == want["kind"] == "train"
+    assert got["param_bytes_total"] == want["param_bytes_total"]
+    assert got["flops_total"] == pytest.approx(want["flops_total"], rel=FLOPS_RTOL)
+    assert got["n_warnings"] == 0
     with pytest.raises(ValueError):
-        trace_model("whisper-tiny", kind="decode")
+        trace_model(arch, kind="decode")
 
 
 def _hashes() -> dict:

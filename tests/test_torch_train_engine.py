@@ -8,9 +8,10 @@ inert batch rows move no metric; the train step takes any (bucket_n, B)
 shape of the curriculum stream; labels equal the host ``exact_dp`` and the
 cache keys separate solver, budget and system; the sampler's stream is
 deterministic and resumes; the trainer state round-trips through the
-checkpoint manager; a short run improves the reward.  The data-parallel
-test pins the refusal that names the missing work (data parallelism over
-torch.distributed).
+checkpoint manager; a short run improves the reward.  A data-parallel
+trainer needs an initialised world of its size and names ``run_ranks``
+without one (the data-parallel steps themselves are held to the reference
+in ``tests/test_torch_parallel.py``).
 """
 
 import numpy as np
@@ -299,6 +300,6 @@ def test_prefetch_preserves_order_and_propagates_errors():
         next(it)
 
 
-def test_data_parallel_training_waits_for_its_slice(sys4):
-    with pytest.raises(NotImplementedError, match="data parallelism over torch.distributed"):
+def test_data_parallel_trainer_needs_a_world(sys4):
+    with pytest.raises(ValueError, match="world of 4 ranks.*run_ranks"):
         RLTrainer(n_stages=4, system=sys4, hidden=16, n_devices=4, device=CPU)

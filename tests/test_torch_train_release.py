@@ -13,8 +13,9 @@ against the JAX package's ``scripts/train_release.py``, on the CPU.
   identically (orders and assignments); the manifest names the port's
   module; a second run with ``--max-steps 3`` resumes from the first's
   checkpoint and draw counter;
-* ``--devices 2`` raises as ``RLTrainer`` does (data parallelism is not
-  ported).
+* ``--devices 2`` raises: the release driver's data parallelism is not
+  ported (``python -m repro_torch.train_respect --devices n`` is the
+  data-parallel driver, ``tests/test_torch_parallel.py``).
 """
 
 import importlib.util
