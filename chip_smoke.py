@@ -218,7 +218,42 @@ Run from the repository root:  python3 chip_smoke.py
    in each, the bubble share, peak allocated bytes; B3 at the path's shape
    held to its plain version and timed (kernel, plain, SDPA, bound);
 33. a float32 unit of 4 full-width qwen3-14b layers in 2 stages, kernel path
-   against plain path within TOL_ZOO_F32 x max(1, |x|).
+   against plain path within TOL_ZOO_F32 x max(1, |x|);
+34. (with 19) RespectScheduler.schedule_model of the archs of
+   tests/golden/torch_ingest_zoo_hashes.json (the seven newer zoo archs and
+   zamba2-7b) at full config, 12 and 64 nodes, through B1 on the card: their
+   ingest at seq 64 hashed equal to the file, no warning; one B1 cluster
+   launch each at the default seq (llava-next-mistral-7b's clamped to its
+   1152 patches + 8), equal to the CPU plain path's and dependency-valid;
+35. (after 31) the release trainer's rank body (repro_torch.train_release.train,
+   which python -m repro_torch.train_release --devices 2 --backend gloo
+   --share-device runs through run_ranks) for 2 steps on two gloo ranks
+   sharing the card: the ranks' parameters equal by sha256, equal to the
+   release rank 0 writes, and moved off the seeded init;
+36. (last, after 33) B3 under autograd at the training shapes of
+   minicpm3-4b (B = 2, S = 1024, 40 heads, D = 96, Dv = 64),
+   llava-next-mistral-7b (B = 1, 1152 + 128 tokens, 32 / 8 heads), qwen3-14b
+   (B = 2, S = 1024, 40 / 8), internlm2-1.8b (B = 2, S = 1024, 16 / 8) and
+   qwen3-moe-235b-a22b (B = 2, S = 512, 64 / 4): the lse, the output and the
+   Function's dq, dk, dv against the plain versions (TOL_LSE, TOL_BF16_OUT,
+   TOL_FLASH_GRAD); B3's device time with the lse, its bound, SDPA's
+   forward, the plain flash backward beside SDPA's forward + backward;
+37. a float32 unit of one full-width layer of each family under Model.loss,
+   kernel path against plain path: MLA (minicpm3-4b), the VLM (llava, with
+   patches), qk-norm GQA (qwen3-14b), plain GQA (internlm2-1.8b), MoE
+   (qwen3-moe-235b-a22b, its routes compared: a flip above TOL_MOE_FLIP is
+   a fault); the loss and every gradient leaf within TOL_ZOO_F32 x max(1,
+   |x|), every leaf non-zero, one B3 launch in the forward (kimi-k2-1t-a32b
+   is held on the CPU only: one block is 19.4 G parameters);
+38. timed bf16 steps through TrainLoop (repro_torch.train_lm.make_loop,
+   microbatches 2; its checkpoints counted, not written) of internlm2-1.8b
+   at its full config and minicpm3-4b at full width cut to 24 of 62 layers
+   (the card's 80 GB), B = 2, S = 1024, 3 steps each, the launch counters
+   reset just before and read just after each: finite losses, one B3 launch
+   a layer a microbatch forward, every gradient leaf non-zero in the first
+   microbatch, ms a step, tokens/s and peak allocated bytes;
+39. one profiled step of each run of 38: its lm.* split, the device's idle
+   share and flash_fwd_bf16 by kernel name.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -1922,6 +1957,7 @@ def zoo_phase(card: str) -> list[dict]:
 INGEST_ARCHS = ("whisper-tiny", "xlstm-350m")
 INGEST_BENCH = ROOT / "BENCH_ingest.json"
 INGEST_HASHES = ROOT / "tests" / "golden" / "torch_ingest_hashes.json"
+INGEST_ZOO_HASHES = ROOT / "tests" / "golden" / "torch_ingest_zoo_hashes.json"
 INGEST_NODES = (12, 64)
 # (batch, prompt tokens, max_len) of the served runs; whisper also takes 1500 frames
 SERVED = {"whisper-tiny": (2, 64, 80), "xlstm-350m": (2, 1024, 1024 + DECODE_STEPS)}
@@ -2180,6 +2216,15 @@ ZOO_ARCHS = {
 TOL_MOE_FLIP = 1e-4   # a float32 route may flip only at a k-th/(k+1)-th gate margin below this
 
 
+def attn_heads(cfg) -> tuple[int, int, int, int]:
+    """(Hq, Hkv, D, Dv) of ``cfg``'s attention as B3 sees it (MLA: the
+    materialized nope + rope query and key, the value's own width)."""
+    if cfg.attention == "mla":
+        return (cfg.n_heads, cfg.n_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                cfg.v_head_dim)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
 def zoo_batch(cfg, b: int, s: int, n_patches: int, dtype, gen) -> dict:
     """Seeded prompt tokens (and the VLM stub's patch embeddings) on the card."""
     import torch
@@ -2363,12 +2408,7 @@ def zoo_archs_phase(card: str) -> list[dict]:
             torch.cuda.empty_cache()
 
         # ---- B3 at this arch's prefill shape, against its plain version  #
-        if cfg.attention == "mla":
-            hq = hkv = cfg.n_heads
-            d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
-        else:
-            hq, hkv = cfg.n_heads, cfg.n_kv_heads
-            d = dv = cfg.resolved_head_dim
+        hq, hkv, d, dv = attn_heads(cfg)
         # the path's layout: (B, S, H, D) activations viewed as (B, H, S, D)
         q, k, v = (torch.randn((b, seq, h, w), generator=gen, device="cuda").to(torch.bfloat16)
                    .transpose(1, 2) for h, w in ((hq, d), (hkv, d), (hkv, dv)))
@@ -2404,9 +2444,9 @@ def zoo_archs_phase(card: str) -> list[dict]:
 
 
 def ingest_phase(card: str) -> None:
-    """Ingest both models' full configs, schedule them through B1 and score
-    the eval's ingest/k4 cell on the card, each held to the CPU (see the
-    module docstring, items 18-20)."""
+    """Ingest both models' full configs, schedule them and the zoo's other
+    archs through B1 and score the eval's ingest/k4 cell on the card, each
+    held to the CPU (see the module docstring, items 18-20 and 34)."""
     import numpy as np
     import torch
 
@@ -2448,7 +2488,22 @@ def ingest_phase(card: str) -> None:
 
     sched = RespectScheduler.from_release()
     cpu = RespectScheduler.from_release(device="cpu")
-    for arch in INGEST_ARCHS:
+    # the zoo's other archs (item 34): the full configs' hashes at seq 64 against the CPU's
+    zoo_golden = json.loads(INGEST_ZOO_HASHES.read_text())
+    check(zoo_golden["seq_len"] == seq, f"{INGEST_ZOO_HASHES.name}: seq {zoo_golden['seq_len']}")
+    zoo_archs = tuple(zoo_golden["graph_hash"])
+    t0 = time.perf_counter()
+    for arch in zoo_archs:
+        for n in INGEST_NODES:
+            rep = ingest_model(arch, n, smoke=False, seq_len=seq).report
+            want = zoo_golden["graph_hash"][arch][str(n)]
+            check(rep["n_warnings"] == 0 and rep["graph_hash"] == want,
+                  f"ingest {arch}/{n}: warnings {rep['warnings']}, graph hash "
+                  f"{rep['graph_hash']} against the CPU's {want} ({INGEST_ZOO_HASHES.name})")
+    print(f"ingest of the {len(zoo_archs)} archs of {INGEST_ZOO_HASHES.name} (full configs, seq "
+          f"{seq}, {INGEST_NODES} nodes) on the card's host: {time.perf_counter() - t0:.1f} s, "
+          "0 warnings, every graph hash equal to the CPU's", flush=True)
+    for arch in INGEST_ARCHS + zoo_archs:
         for n in INGEST_NODES:
             for k in ops.LAUNCHES:
                 ops.LAUNCHES[k] = 0
@@ -2464,7 +2519,8 @@ def ingest_phase(card: str) -> None:
                   f"schedule_model {arch}/{n}: card and CPU plain path differ")
             check(validate_monotone(g, res["assignment"], STAGES),
                   f"schedule_model {arch}/{n}: not dependency-valid")
-            print(f"schedule_model {arch} (full config, {n} nodes) k={STAGES} on {card}: "
+            print(f"schedule_model {arch} (full config, {n} nodes, traced seq "
+                  f"{res['ingest']['seq_len']}) k={STAGES} on {card}: "
                   f"B1 (ptr_decode_cluster) {ran['ptr_decode_cluster']} launch; nodes a stage "
                   f"{np.bincount(res['assignment'], minlength=STAGES).tolist()}, assignment "
                   f"equal to the CPU plain path's, dependency-valid", flush=True)
@@ -2654,6 +2710,104 @@ def grads_within(got: dict, want: dict, tol: float) -> float:
     return worst
 
 
+def flash_train_case(card: str, gen, label: str, b, hq, hkv, sq, sk, d, dv, causal,
+                     timed: bool) -> tuple[str, dict]:
+    """B3 under autograd at one shape, bf16 in the path's layout: its lse
+    and output against the plain version's (TOL_LSE, TOL_BF16_OUT), dq, dk,
+    dv of the Function against plain autograd (TOL_FLASH_GRAD); ``timed``
+    adds B3's device time without and with the lse, the plain version's,
+    the forward's bound, the flash backward (key blocks of BLOCK_K and of
+    128) with its bound, and scaled_dot_product_attention's forward and
+    forward + backward.  Returns the printed line and the numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import vjp
+    from repro_torch.kernels.flash.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash.ref import attention_with_lse, reference_attention
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q = randn(b, sq, hq, d).transpose(1, 2)          # the path's layout
+    k = randn(b, sk, hkv, d).transpose(1, 2)
+    v = randn(b, sk, hkv, dv).transpose(1, 2)
+    dout = randn(b, hq, sq, dv)
+    scale = d ** -0.5
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, return_lse=True)
+    want_out, want_lse = attention_with_lse(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    atol, rtol = TOL_LSE
+    lse_err = float((lse - want_lse).abs().max())
+    check(bool(((lse - want_lse).abs() <= atol + rtol * want_lse.abs()).all()),
+          f"flash lse {label}: kernel and plain version differ ({lse_err:.3e})")
+    out_err = float((out.float() - want_out.float()).abs().max())
+    check(bool(((out.float() - want_out.float()).abs()
+                <= TOL_BF16_OUT[0] + TOL_BF16_OUT[1] * want_out.float().abs()).all()),
+          f"flash {label} with lse: output differs from the plain version ({out_err:.3e})")
+    del want_out, want_lse
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(flash_ops.flash_attention(*leaves, causal=causal), leaves, dout)
+    plain = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(reference_attention(*plain, causal=causal), plain, dout)
+    gerr = 0.0
+    for nm, g, w in zip("qkv", got, want):
+        e = float((g.float() - w.float()).abs().max()) / max(1.0, float(w.float().abs().max()))
+        check(e <= TOL_FLASH_GRAD, f"flash {label}: d{nm} of the Function against plain "
+              f"autograd {e:.3e} (tolerance {TOL_FLASH_GRAD})")
+        gerr = max(gerr, e)
+    del plain, want, got
+    st = {"lse_err": lse_err, "out_err": out_err, "grad_err": gerr}
+    line = f"flash {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} bf16 " \
+           f"{'causal' if causal else 'non-causal'} on {card}: lse max |err| {lse_err:.3e} " \
+           f"(tolerance atol, rtol {TOL_LSE}), out {out_err:.3e}; dq, dk, dv against plain " \
+           f"autograd {gerr:.3e} x max(1, max|g|) (tolerance {TOL_FLASH_GRAD})"
+    if timed:
+        st["fwd"] = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal, scale=scale),
+                              "flash_fwd_bf16", iters=10)
+        st["fwd_lse"] = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                                               scale=scale, return_lse=True),
+                                  "flash_fwd_bf16", iters=10)
+        block = flash_ops.BLOCK_K
+        st["bwd"] = cuda_ms(lambda: vjp.flash_backward(q, k, v, out, lse, dout, causal=causal,
+                                                       scale=scale, block_k=block), iters=3)
+        st["bwd_128"] = cuda_ms(lambda: vjp.flash_backward(q, k, v, out, lse, dout,
+                                                           causal=causal, scale=scale,
+                                                           block_k=128), iters=3)
+        st["fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            flash_ops.flash_attention(*leaves, causal=causal), leaves, dout), iters=3)
+        st["sdpa_fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=hq != hkv), leaves, dout), iters=5)
+        st["bwd_bound"], st["bwd_bound_by"] = bound(
+            *flash_bwd_work(b, hq, hkv, sq, sk, d, dv, 2, causal), BF16_FLOPS_PER_S)
+        st["plain_lse"] = cuda_ms(lambda: attention_with_lse(q, k, v, causal=causal,
+                                                             scale=scale), iters=3)
+        st["sdpa_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=hq != hkv), iters=10)
+        st["bound"], st["bound_by"] = bound(*flash_work(b, hq, hkv, sq, sk, d, dv, 2, causal),
+                                            BF16_FLOPS_PER_S)
+        line += (f"; B3 device {st['fwd']:.4f} ms without lse, {st['fwd_lse']:.4f} ms with it "
+                 f"(plain {st['plain_lse']:.3f} ms, forward bound {st['bound']:.5f} ms "
+                 f"({st['bound_by']}), scaled_dot_product_attention's forward "
+                 f"{st['sdpa_fwd']:.4f} ms); the flash backward {st['bwd']:.3f} ms with key "
+                 f"blocks of {block} ({st['bwd_128']:.3f} ms with 128; bound "
+                 f"{st['bwd_bound']:.5f} ms ({st['bwd_bound_by']})), forward + backward "
+                 f"{st['fwd_bwd']:.3f} ms against scaled_dot_product_attention's "
+                 f"{st['sdpa_fwd_bwd']:.3f} ms (CUDA events)")
+    del q, k, v, out, lse, leaves, dout
+    return line, st
+
+
+def flash_train_row(label: str, st: dict, launches=None) -> dict:
+    """The JSON kernel row of a timed ``flash_train_case``."""
+    return {"name": f"flash_fwd ({label}, train: with lse)", "route": "cuda",
+            "source": FLASH_SRC, "replaces": "src/repro/kernels/flash/kernel.py:43",
+            "launches": launches, "max_abs_err": max(st["lse_err"], st["out_err"]),
+            "ms": st["fwd_lse"], "plain_ms": st["plain_lse"], "bound_ms": st["bound"],
+            "bound_by": st["bound_by"], "library_ms": st["sdpa_fwd"]}
+
+
 def lm_train_phase(card: str) -> list[dict]:
     """The LM zoo's training path on the card (see the module docstring,
     items 21-23): B3/B4 under autograd at the paths' shapes first (their
@@ -2669,10 +2823,6 @@ def lm_train_phase(card: str) -> list[dict]:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import TokenStream
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.flash import ops as flash_ops
-    from repro_torch.kernels.flash import vjp
-    from repro_torch.kernels.flash.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash.ref import attention_with_lse, reference_attention
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunked
     from repro_torch.launch import make_optimizer, make_train_fn, named_leaves, value_and_grad
@@ -2701,76 +2851,11 @@ def lm_train_phase(card: str) -> list[dict]:
             ("whisper-tiny decoder self", 4, 6, 6, 128, 128, 64, 64, True),
             ("GQA group 4", 1, 32, 8, 1000, 1000, 112, 112, True),
             ("Dv != D", 2, 32, 32, 1000, 1000, 112, 64, True)):
-        q = randn(b, sq, hq, d).transpose(1, 2)          # the path's layout
-        k = randn(b, sk, hkv, d).transpose(1, 2)
-        v = randn(b, sk, hkv, dv).transpose(1, 2)
-        dout = randn(b, hq, sq, dv)
-        scale = d ** -0.5
-        out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, return_lse=True)
-        want_out, want_lse = attention_with_lse(q, k, v, causal=causal, scale=scale)
-        torch.cuda.synchronize()
-        atol, rtol = TOL_LSE
-        lse_err = float((lse - want_lse).abs().max())
-        check(bool(((lse - want_lse).abs() <= atol + rtol * want_lse.abs()).all()),
-              f"flash lse {label}: kernel and plain version differ ({lse_err:.3e})")
-        out_err = float((out.float() - want_out.float()).abs().max())
-        check(bool(((out.float() - want_out.float()).abs()
-                    <= TOL_BF16_OUT[0] + TOL_BF16_OUT[1] * want_out.float().abs()).all()),
-              f"flash {label} with lse: output differs from the plain version ({out_err:.3e})")
-        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        got = torch.autograd.grad(flash_ops.flash_attention(*leaves, causal=causal), leaves, dout)
-        plain = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        want = torch.autograd.grad(reference_attention(*plain, causal=causal), plain, dout)
-        gerr = 0.0
-        for nm, g, w in zip("qkv", got, want):
-            e = float((g.float() - w.float()).abs().max()) / max(1.0, float(w.float().abs().max()))
-            check(e <= TOL_FLASH_GRAD, f"flash {label}: d{nm} of the Function against plain "
-                  f"autograd {e:.3e} (tolerance {TOL_FLASH_GRAD})")
-            gerr = max(gerr, e)
-        del plain, want
-        row = f"flash {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} bf16 " \
-              f"{'causal' if causal else 'non-causal'} on {card}: lse max |err| {lse_err:.3e} " \
-              f"(tolerance atol, rtol {TOL_LSE}), out {out_err:.3e}; dq, dk, dv against plain " \
-              f"autograd {gerr:.3e} x max(1, max|g|) (tolerance {TOL_FLASH_GRAD})"
-        if label.startswith(("zamba2", "whisper")):
-            fwd = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal, scale=scale),
-                            "flash_fwd_bf16", iters=10)
-            fwd_lse = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal, scale=scale,
-                                                             return_lse=True),
-                                "flash_fwd_bf16", iters=10)
-            block = flash_ops.BLOCK_K
-            bwd_ms = cuda_ms(lambda: vjp.flash_backward(q, k, v, out, lse, dout, causal=causal,
-                                                        scale=scale, block_k=block), iters=3)
-            bwd_128 = cuda_ms(lambda: vjp.flash_backward(q, k, v, out, lse, dout, causal=causal,
-                                                         scale=scale, block_k=128), iters=3)
-            ours = cuda_ms(lambda: torch.autograd.grad(
-                flash_ops.flash_attention(*leaves, causal=causal), leaves, dout), iters=3)
-            sdpa = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
-                *leaves, is_causal=causal), leaves, dout), iters=5)
-            b_ms, b_by = bound(*flash_bwd_work(b, hq, hkv, sq, sk, d, dv, 2, causal),
-                               BF16_FLOPS_PER_S)
-            plain_lse_ms = cuda_ms(lambda: attention_with_lse(q, k, v, causal=causal,
-                                                              scale=scale), iters=3)
-            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
-                               iters=10)
-            fb_ms, fb_by = bound(*flash_work(b, hq, hkv, sq, sk, d, dv, 2, causal),
-                                 BF16_FLOPS_PER_S)
-            row += (f"; B3 device {fwd:.4f} ms without lse, {fwd_lse:.4f} ms with it (plain "
-                    f"{plain_lse_ms:.3f} ms, forward bound {fb_ms:.5f} ms ({fb_by})); the flash "
-                    f"backward {bwd_ms:.3f} ms with key blocks of {block} ({bwd_128:.3f} ms with "
-                    f"128; bound {b_ms:.5f} ms ({b_by})), forward + backward "
-                    f"{ours:.3f} ms against scaled_dot_product_attention's {sdpa:.3f} ms (CUDA "
-                    f"events)")
-            if label == "whisper-tiny encoder":
-                flash_row = {"name": "flash_fwd (whisper-tiny encoder, train: with lse)",
-                             "route": "cuda", "source": FLASH_SRC,
-                             "replaces": "src/repro/kernels/flash/kernel.py:43",
-                             "launches": None,    # the training run's, below
-                             "max_abs_err": max(lse_err, out_err), "ms": fwd_lse,
-                             "plain_ms": plain_lse_ms, "bound_ms": fb_ms, "bound_by": fb_by,
-                             "library_ms": sdpa_fwd}
-        print(row, flush=True)
-        del q, k, v, out, lse, leaves, got
+        line, st = flash_train_case(card, gen, label, b, hq, hkv, sq, sk, d, dv, causal,
+                                    timed=label.startswith(("zamba2", "whisper")))
+        print(line, flush=True)
+        if label == "whisper-tiny encoder":
+            flash_row = flash_train_row("whisper-tiny encoder", st)
         torch.cuda.empty_cache()
 
     ssd_row = None
@@ -3015,69 +3100,292 @@ def lm_train_phase(card: str) -> list[dict]:
 def lm_train_split_phase(card: str) -> None:
     """One profiled train step of each full-width training run (module
     docstring, item 24): its split over the lm.* ranges, the device's idle
-    share, and B3's or B4's template by kernel name.  Last in the script: a
-    profile of ~50k kernels leaves later profiler windows without kernels."""
+    share, and B3's or B4's template by kernel name.  After the training
+    phase: a profile of ~50k kernels leaves later profiler windows without
+    kernels."""
+    from repro_torch.configs import get_config
+
+    for arch, (b, s, steps) in LM_TRAIN.items():
+        cfg = get_config(arch)
+        kern, template, per_mb = LM_TRAIN_PER_MB[arch]
+        label = f"{arch} step B={b} S={s}"
+        if arch != "whisper-tiny":   # one of the 12 xs units (a whole step: ~400k launches)
+            cfg, per_mb = cfg.scaled(n_layers=2), 2
+            label = f"{arch} one xs unit, step B={b} S={s}"
+        train_step_split(card, label, cfg, b, s, steps, kern, template, 2 * per_mb)
+
+
+def train_step_split(card: str, label: str, cfg, b: int, s: int, steps: int, kern: str,
+                     template: str, want_ran: int) -> None:
+    """One profiled train step of ``cfg`` (B = ``b``, S = ``s``, two
+    microbatches): its split over the lm.* ranges, the device's idle share,
+    and ``want_ran`` launches of ``template`` by kernel name (``kern``'s
+    counter)."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data import TokenStream
     from repro_torch.kernels import build as kbuild
     from repro_torch.launch import make_optimizer, make_train_fn
     from repro_torch.models.model import build_model
     from repro_torch.train_lm import batch_fn_for, train_config
 
-    for arch, (b, s, steps) in LM_TRAIN.items():
-        cfg = get_config(arch)
-        kern, template, per_mb = LM_TRAIN_PER_MB[arch]
-        # one profiled step: the lm.* ranges, the device's idle share, kernels by name
-        label = f"{arch} step B={b} S={s}"
-        if arch != "whisper-tiny":   # one of the 12 xs units (a whole step: ~400k launches)
-            cfg, label = cfg.scaled(n_layers=2), f"{arch} one xs unit, step B={b} S={s}"
-        pm = build_model(cfg)
-        pparams = pm.init_params(seed=0)
-        pbatch = batch_fn_for(cfg, TokenStream(cfg.vocab_size, s, b, seed=0), pm.device)(0)
-        tcfg = train_config(steps)
-        opt = make_optimizer(tcfg)
-        step_fn = make_train_fn(pm, tcfg, opt)
-        pstate = opt.init(pparams)
-        before = kbuild.LAUNCHES[kern]
-        step_fn(pparams, pstate, pbatch)              # warm
-        torch.cuda.synchronize()
+    pm = build_model(cfg)
+    pparams = pm.init_params(seed=0)
+    pbatch = batch_fn_for(cfg, TokenStream(cfg.vocab_size, s, b, seed=0), pm.device)(0)
+    tcfg = train_config(steps)
+    opt = make_optimizer(tcfg)
+    step_fn = make_train_fn(pm, tcfg, opt)
+    pstate = opt.init(pparams)
+    before = kbuild.LAUNCHES[kern]
+    step_fn(pparams, pstate, pbatch)              # warm
+    torch.cuda.synchronize()
 
-        def two_steps():    # the second is read: a late window may lose its first kernels
-            step_fn(pparams, pstate, pbatch)
-            torch.cuda.synchronize()
-            step_fn(pparams, pstate, pbatch)
-        want_ran, seen = 2 * (per_mb if arch == "whisper-tiny" else 2), []
-        for attempt in range(3):    # as device_ms: a window short of kernels is profiled again
-            kernels, ranges = profile_ranges(two_steps, "lm.")
-            first_end = min(en for nm, _, en in ranges if nm == "lm.optimizer")
-            ranges = [r for r in ranges if r[1] > first_end]
-            kernels = [k for k in kernels if k[1] >= ranges[0][1]]
-            ran = sum(template in nm for nm, _, _ in kernels)
-            seen.append(ran)
-            if ran == want_ran:
-                break
-        check(ran == want_ran and kbuild.LAUNCHES[kern] - before == (1 + 2 * len(seen)) * want_ran,
-              f"{label}: {seen} {template} kernels by profiler name in the second profiled "
-              f"step of {len(seen)} windows, expected {want_ran}")
-        split: dict[str, float] = {}
-        for name, st, en in ranges:
-            split[name] = split.get(name, 0.0) + (en - st) / 1e3
-        t0 = min(st for _, st, _ in ranges)
-        total = (max(en for _, _, en in ranges) - t0) / 1e3
-        busy, window = busy_window([(st, en) for _, st, en in kernels])
-        kms = sum(en - st for nm, st, en in kernels if template in nm) / 1e3
-        print(f"{label} split on {card}, from the second of two profiled steps (the lm.* ranges, "
-              f"host clock; "
-              f"{total:.1f} ms from the first range's start to the last's end): "
-              + ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
-              + f"; device: {len(kernels)} kernels, busy {busy / 1e3:.2f} ms of a "
-              f"{window / 1e3:.2f} ms window (idle {100 * (1 - busy / window):.1f}%), "
-              f"{template} {ran} launches {kms:.3f} ms (profiler windows' counts {seen})",
-              flush=True)
-        del pm, pparams, pstate, pbatch
+    def two_steps():    # the second is read: a late window may lose its first kernels
+        step_fn(pparams, pstate, pbatch)
+        torch.cuda.synchronize()
+        step_fn(pparams, pstate, pbatch)
+    seen = []
+    for attempt in range(3):    # as device_ms: a window short of kernels is profiled again
+        kernels, ranges = profile_ranges(two_steps, "lm.")
+        first_end = min(en for nm, _, en in ranges if nm == "lm.optimizer")
+        ranges = [r for r in ranges if r[1] > first_end]
+        kernels = [k for k in kernels if k[1] >= ranges[0][1]]
+        ran = sum(template in nm for nm, _, _ in kernels)
+        seen.append(ran)
+        if ran == want_ran:
+            break
+    check(ran == want_ran and kbuild.LAUNCHES[kern] - before == (1 + 2 * len(seen)) * want_ran,
+          f"{label}: {seen} {template} kernels by profiler name in the second profiled "
+          f"step of {len(seen)} windows, expected {want_ran}")
+    split: dict[str, float] = {}
+    for name, st, en in ranges:
+        split[name] = split.get(name, 0.0) + (en - st) / 1e3
+    t0 = min(st for _, st, _ in ranges)
+    total = (max(en for _, _, en in ranges) - t0) / 1e3
+    busy, window = busy_window([(st, en) for _, st, en in kernels])
+    kms = sum(en - st for nm, st, en in kernels if template in nm) / 1e3
+    print(f"{label} split on {card}, from the second of two profiled steps (the lm.* ranges, "
+          f"host clock; "
+          f"{total:.1f} ms from the first range's start to the last's end): "
+          + ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
+          + f"; device: {len(kernels)} kernels, busy {busy / 1e3:.2f} ms of a "
+          f"{window / 1e3:.2f} ms window (idle {100 * (1 - busy / window):.1f}%), "
+          f"{template} {ran} launches {kms:.3f} ms (profiler windows' counts {seen})",
+          flush=True)
+    del pm, pparams, pstate, pbatch
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------- #
+# the zoo's other archs train: B3 under autograd, float32 units, TrainLoop
+# ---------------------------------------------------------------------- #
+# (B, text tokens, patches) a training shape: the served shapes of ZOO_ARCHS, internlm2 as the
+# dense archs.  kimi-k2-1t-a32b trains on the CPU only: one block is 19.4 G parameters
+# (~155 GB in float32 with its gradients, ~78 GB in bf16), past the card's 80 GB
+ZOO_TRAIN_SHAPES = {a: ZOO_ARCHS[a][1:4] for a in ("minicpm3-4b", "llava-next-mistral-7b",
+                                                    "qwen3-14b", "qwen3-moe-235b-a22b")}
+ZOO_TRAIN_SHAPES["internlm2-1.8b"] = (2, 1024, 0)
+# (layers kept, B, S, steps) of the timed bf16 TrainLoop runs; an AdamW step as
+# repro_torch.optim.adamw writes it holds ~24 bytes a parameter (bf16 params and grads 4, float32
+# mu and nu 8, the new mu and nu and update's float32 base 12): internlm2-1.8b in full
+# (1.89 G: ~45 GB), minicpm3-4b cut to 24 of 62 layers (1.88 G: ~45 GB; all 62, 4.26 G: ~102 GB)
+ZOO_TRAIN_LOOP = {"internlm2-1.8b": (None, 2, 1024, 3), "minicpm3-4b": (24, 2, 1024, 3)}
+
+
+def zoo_train_unit(arch: str, card: str, gen) -> str:
+    """One full-width layer of ``arch`` in float32 under ``Model.loss``,
+    kernel path against plain path on the card: the loss and every gradient
+    leaf within TOL_ZOO_F32 x max(1, |x|), every leaf non-zero, one B3 launch
+    in the forward; for a MoE arch its routes compared as moe_block_f32
+    does (a flip is a fault above TOL_MOE_FLIP).  Returns the printed line."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import named_leaves, value_and_grad
+    from repro_torch.models import mlp
+    from repro_torch.models.model import build_model, count_params
+
+    b, s, n_patches = ZOO_TRAIN_SHAPES[arch]
+    c32 = get_config(arch).scaled(n_layers=1, dtype="float32")
+    model = build_model(c32)
+    params = model.init_params(seed=1)
+    batch = zoo_batch(c32, b, s, n_patches, torch.float32, gen)
+    real = mlp.moe_route
+
+    def run(plain: bool):
+        routes = []
+
+        def spy(pp, cc, xf):
+            out = real(pp, cc, xf)
+            routes.append(out)
+            return out
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(mlp, "moe_route", spy))
+            if plain:
+                stack.enter_context(plain_kernels())
+            loss, grads = value_and_grad(model.loss, params, batch)
+        torch.cuda.synchronize()
+        return loss, grads, routes
+
+    before = dict(kbuild.LAUNCHES)
+    loss, grads, routes = run(False)
+    ran = {k: n - before[k] for k, n in kbuild.LAUNCHES.items() if n > before[k]}
+    check(ran == {"flash_fwd": 1}, f"{arch} f32 train unit: launches {ran}, expected one "
+          "flash_fwd in the forward")
+    mid = dict(kbuild.LAUNCHES)
+    ploss, pgrads, proutes = run(True)
+    check(kbuild.LAUNCHES == mid, f"{arch} f32 train unit: the plain path launched a kernel")
+    flips = ""
+    if c32.moe is not None:
+        (gates, _, top_e), (_, _, want_e) = routes[0], proutes[0]
+        k = c32.moe.top_k
+        flipped = (top_e.sort(-1).values != want_e.sort(-1).values).any(-1)
+        srt = torch.topk(gates.detach(), k + 1, dim=-1).values
+        margin = srt[:, k - 1] - srt[:, k]
+        flip_margins = [float(m) for m in margin[flipped]]
+        check(all(m <= TOL_MOE_FLIP for m in flip_margins),
+              f"{arch} f32 train unit: routes flipped at gate margins {flip_margins} (a flip "
+              f"above {TOL_MOE_FLIP} is a fault)")
+        flips = (f"; routes of {b * s} tokens: {len(flip_margins)} flipped"
+                 + (f" at gate margins {flip_margins}" if flip_margins else "")
+                 + f" (smallest k-th/(k+1)-th margin {float(margin.min()):.3e})")
+        del gates, top_e, want_e, srt, margin
+    del routes, proutes
+    lerr = abs(float(loss) - float(ploss)) / max(1.0, abs(float(ploss)))
+    check(lerr <= TOL_ZOO_F32, f"{arch} f32 train unit: loss {float(loss)} against the plain "
+          f"path's {float(ploss)}")
+    zero = [n for n, g in named_leaves(grads) if float(g.abs().max()) == 0.0]
+    check(not zero, f"{arch} f32 train unit: zero gradient leaves {zero}")
+    gerr = grads_within(grads, pgrads, TOL_ZOO_F32)
+    n_leaves, n_params = len(named_leaves(grads)), count_params(model)
+    del model, params, batch, grads, pgrads
+    torch.cuda.empty_cache()
+    return (f"{arch} f32 train unit (1 layer at full width, d_model {c32.d_model}, {n_params} "
+            f"parameters), B={b} S={s}" + (f" after {n_patches} patches" if n_patches else "")
+            + f": kernel path vs plain path on the card, loss {float(loss):.6f} ({lerr:.2e} "
+            f"relative), every one of {n_leaves} gradient leaves non-zero and within {gerr:.3e} x "
+            f"max(1, max|g|) (tolerance {TOL_ZOO_F32}); launches {ran} in the forward" + flips)
+
+
+def zoo_train_phase(card: str) -> list[dict]:
+    """The zoo's other archs on the training path (see the module docstring,
+    items 36-39): B3 under autograd at their training shapes, a float32
+    unit of one layer of each family, timed bf16 TrainLoop steps of
+    internlm2-1.8b and minicpm3-4b (24 of 62 layers), one profiled step of
+    each."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import named_leaves, value_and_grad
+    from repro_torch.models.model import build_model, count_params
+    from repro_torch.train_lm import batch_fn_for, make_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    handlers = {sg: signal.getsignal(sg) for sg in (signal.SIGTERM, signal.SIGINT)}
+    root = ROOT / "build" / "chip_smoke_zoo_train"
+    shutil.rmtree(root, ignore_errors=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    # ---- (a) B3 under autograd at each training shape ------------------- #
+    stats = {}
+    for arch, (b, s, n_patches) in ZOO_TRAIN_SHAPES.items():
+        hq, hkv, d, dv = attn_heads(get_config(arch))
+        seq = s + n_patches
+        line, stats[arch] = flash_train_case(card, gen, f"{arch} train", b, hq, hkv, seq, seq,
+                                             d, dv, True, timed=True)
+        print(line, flush=True)
         torch.cuda.empty_cache()
+
+    # ---- (b) one float32 layer of each family, kernel path vs plain ------ #
+    for arch in ZOO_TRAIN_SHAPES:
+        print(zoo_train_unit(arch, card, gen), flush=True)
+
+    # ---- (c) timed bf16 steps through TrainLoop ------------------------- #
+    counted = {}
+    for arch, (layers, b, s, steps) in ZOO_TRAIN_LOOP.items():
+        full = get_config(arch)
+        cfg = full if layers is None else full.scaled(n_layers=layers)
+        per_mb = cfg.pattern().count("a")
+        model = build_model(cfg)
+        n_params = count_params(model)
+        params0 = model.init_params(seed=0)
+        batch_fn = batch_fn_for(cfg, TokenStream(cfg.vocab_size, s, b, seed=0), model.device)
+        mb = {k: v[: b // 2] for k, v in batch_fn(0).items()}
+        loss0, grads = value_and_grad(model.loss, params0, mb)
+        bad = [n for n, g in named_leaves(grads)
+               if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0]
+        check(bool(torch.isfinite(loss0)) and not bad,
+              f"{arch}: first microbatch's loss {float(loss0)}, zero or non-finite gradients {bad}")
+        n_leaves = len(named_leaves(grads))
+        del grads, mb, model
+        torch.cuda.empty_cache()
+        for k in kbuild.LAUNCHES:
+            kbuild.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        loop = make_loop(cfg, steps=steps, batch=b, seq=s, ckpt_dir=root / arch,
+                         save_every=steps, metrics_path=root / arch / "metrics.jsonl",
+                         params=params0, log_every=1)
+        del params0
+        saves = []       # a checkpoint here is ~10 bytes a parameter: the saves are counted,
+        loop.ckpt.save = lambda step, state, blocking=True: saves.append(step)   # not written
+        out = loop.run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v for k, v in kbuild.LAUNCHES.items() if v}
+        counted[arch] = launches.get("flash_fwd", 0)
+        losses = [json.loads(line)["loss"]
+                  for line in (root / arch / "metrics.jsonl").read_text().splitlines()]
+        check(out["final_step"] == steps and len(losses) == steps and saves == [steps, steps],
+              f"{arch}: final step {out['final_step']}, {len(losses)} logged, saves {saves}")
+        check(all(np.isfinite(losses)), f"{arch}: losses {losses}")
+        check(launches == {"flash_fwd": steps * 2 * per_mb},
+              f"{arch}: launches {launches}, expected {steps * 2 * per_mb} flash_fwd ({per_mb} a "
+              "microbatch forward)")
+        times = list(loop.timer.history)
+        med = statistics.median(times)
+        cut = "full config" if layers is None else \
+            f"full width, {layers} of {full.n_layers} layers (the card's 80 GB)"
+        print(f"{arch} trained on {card}: {cut} ({n_params} parameters, bf16), B={b} S={s}, "
+              f"{steps} steps through TrainLoop, microbatches 2 (checkpoints counted, not "
+              f"written: saves at steps {saves}): losses {[round(x, 4) for x in losses]}; "
+              f"launches {launches} ({per_mb} a microbatch forward, one a layer); all {n_leaves} "
+              f"gradient leaves non-zero and finite in the first microbatch; {med * 1e3:.1f} ms a "
+              f"step = {b * s / med:.0f} tokens/s (host clock around synchronized steps, median "
+              f"of {len(times)}; steps {[round(t * 1e3, 1) for t in times]} ms); peak allocated "
+              f"{peak / 1e9:.2f} GB", flush=True)
+        del loop
+        torch.cuda.empty_cache()
+    for sg, h in handlers.items():     # TrainLoop installed its preemption flag
+        signal.signal(sg, h)
+    shutil.rmtree(root, ignore_errors=True)
+
+    # ---- one profiled step of each TrainLoop run ------------------------- #
+    for arch, (layers, b, s, steps) in ZOO_TRAIN_LOOP.items():
+        cfg = get_config(arch)
+        label = f"{arch} step B={b} S={s}"
+        if layers is not None:
+            cfg = cfg.scaled(n_layers=layers)
+            label = f"{arch} ({layers} layers) step B={b} S={s}"
+        train_step_split(card, label, cfg, b, s, steps, "flash_fwd", "flash_fwd_bf16",
+                         2 * cfg.pattern().count("a"))
+
+    # launches: a TrainLoop run's where the arch has one, else its float32 unit's one
+    rows = [flash_train_row(arch, st, counted.get(arch, 1))
+            for arch, st in stats.items()]
+    print(f"zoo train phase on {card}: {time.perf_counter() - t_phase:.1f} s; B3 launches in the "
+          f"TrainLoop runs {counted}, one in each float32 unit's forward", flush=True)
+    return rows
 
 
 # --------------------------------------------------------------------- #
@@ -3093,6 +3401,9 @@ PIPE_UNIT = dict(n_layers=4, stages=[[0, 1], [2, 3]], n_micro=2, seq=1024)   # f
 TOL_COMPRESS = 1e-6             # x max |mean|: means and errors on the card against the CPU's
 TRAIN_RESPECT_ARGS = ["--devices", "2", "--backend", "gloo", "--share-device",
                       "--save-every", "2", "--eval-every", "2"]
+RELEASE_DP_ARGS = ["--devices", "2", "--backend", "gloo", "--share-device", "--max-steps", "2",
+                   "--eval-every", "1", "--batch", "16", "--n-max", "20", "--stage-counts", "2,4",
+                   "--ramp-batches", "1"]
 
 
 def _leaf_diff(a: dict, b: dict) -> float:
@@ -3107,7 +3418,8 @@ def data_parallel_phase(card: str) -> None:
     """(a) two gloo ranks on the card reproduce the golden train steps, and
     a timed 2-rank run beside the single-process step; (b) the compressed
     all-reduce on two ranks against its CPU result; (c) the train_respect
-    twin on two ranks, stopped and resumed (items 29-31)."""
+    twin on two ranks, stopped and resumed; (d) the release trainer's rank
+    body on two ranks (items 29-31, 35)."""
     import numpy as np
     import torch
     from repro_torch.checkpoint.manager import flatten_leaves
@@ -3115,6 +3427,8 @@ def data_parallel_phase(card: str) -> None:
                                   build_model_graph, prng, validate_monotone)
     from repro_torch.core import rl
     from repro_torch.core.ptrnet import param_tree, params_to_numpy
+    from repro_torch import train_release
+    from repro_torch.checkpoint import params_sha256, verify_release
     from repro_torch.optim import compress
     from repro_torch.parallel.data import run_ranks
 
@@ -3256,6 +3570,29 @@ def data_parallel_phase(card: str) -> None:
     print(f"train_respect agent on {card}: loaded into RespectScheduler (hidden "
           f"{sched.hidden}) and scheduled the {len(table1)} Table-I graphs at k = {STAGES}, "
           "every schedule valid", flush=True)
+
+    # ---- (d) the release trainer on 2 ranks: main's rank body, run_ranks - #
+    argv = RELEASE_DP_ARGS + ["--out", str(work / "rel"), "--ckpt-dir", str(work / "rel_ckpt"),
+                              "--label-cache", str(work / "labels")]
+    args = train_release.parse_args(argv)
+    t0 = time.perf_counter()
+    ranks = run_ranks(train_release.train, args.devices, backend=args.backend,
+                      share_device=args.share_device, timeout_s=600, args=(args, argv))
+    dt = time.perf_counter() - t0
+    _, manifest = verify_release(work / "rel")
+    check(all(r == ranks[0] for r in ranks) and ranks[0]["steps"] == args.max_steps,
+          f"train_release --devices {args.devices}: the ranks returned {ranks}")
+    check(manifest["params_sha256"] == ranks[0]["params_sha256"]
+          and manifest["train"]["steps"] == args.max_steps,
+          "train_release --devices: the release holds other weights than the ranks")
+    init = RespectScheduler.init(seed=0, hidden=args.hidden, device="cpu").net
+    check(manifest["params_sha256"] != params_sha256(param_tree(init)),
+          "train_release --devices: the weights did not move off their seeded init")
+    print(f"train_release {' '.join(RELEASE_DP_ARGS)} on {card} ({dt:.1f} s with the ranks' "
+          f"start): {args.max_steps} steps, the {args.devices} ranks' parameters equal (sha256 "
+          f"{ranks[0]['params_sha256'][:16]}..., the release's), held-out exact-match "
+          f"{ranks[0]['exact_match']:.3f} on every rank", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def optim_tree_numpy(tree: dict, fn) -> dict:
@@ -3774,6 +4111,10 @@ def run() -> dict:
     # qwen3-14b pipeline (B1's cut, B3 a block) ---------------------------- #
     data_parallel_phase(card)
     kernels += pipeline_phase(card)
+
+    # ---- the zoo's other archs train (B3 under autograd); last, as the
+    # largest models of the run's training paths -------------------------- #
+    kernels += zoo_train_phase(card)
     return {"kernels": kernels, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "card": card}
 
@@ -3790,7 +4131,7 @@ def main() -> int:
         return 2
     if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
             and SEEDED_GOLDEN.exists() and TRAIN_GOLDEN.exists() and EVAL_BENCH.exists()
-            and INGEST_BENCH.exists() and INGEST_HASHES.exists()
+            and INGEST_BENCH.exists() and INGEST_HASHES.exists() and INGEST_ZOO_HASHES.exists()
             and LM_TRAIN_GOLDEN.exists() and PARTITIONS.exists()):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2

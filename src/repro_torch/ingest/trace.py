@@ -421,6 +421,9 @@ def trace_model(arch: str, *, smoke: bool = True, kind: str = "prefill", batch: 
     if kind not in TRACE_KINDS:
         raise ValueError(f"kind must be one of {TRACE_KINDS}, got {kind!r}")
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if cfg.family == "vlm":
+        # the VLM's text length, seq_len - n_patches, must stay positive
+        seq_len = max(seq_len, cfg.n_patches + 8)
     t0 = time.perf_counter()
     model = build_model(cfg, device="meta")
     params = model.init_params()

@@ -26,9 +26,18 @@ of the parameter bytes; ``<out>/params/`` holds the weights.  Both packages'
 
 Resumable: ``--ckpt-dir`` keeps trainer checkpoints and the draw counter
 (``draw_count.json``); kill and re-run with the same flags to continue.
-Runs on the card unless ``--device`` names another.  ``--devices > 1`` raises:
-this driver's data parallelism is not ported yet (``python -m
-repro_torch.train_respect --devices n`` trains data-parallel).
+Runs on the card unless ``--device`` names another.
+
+``--devices n > 1`` trains data-parallel on ``n`` ranks
+(:func:`repro_torch.parallel.data.run_ranks`, ``RLTrainer(n_devices=n)``),
+as ``python -m repro_torch.train_respect --devices n`` does: every rank
+draws the same global batch (``--batch``, which ``n`` must divide) and steps
+its slice; the held-out evals are replicated and the stopping decision
+follows rank 0's; prints, the draw counter, checkpoints and the release come
+from rank 0.  ``--backend`` is ``nccl`` (one card a rank) unless named; ranks
+that share one card (``--share-device``) need ``--backend gloo``.
+
+    python -m repro_torch.train_release --devices 2 --backend gloo --share-device
 """
 
 from __future__ import annotations
@@ -43,8 +52,10 @@ from datetime import datetime, timezone
 from pathlib import Path
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
-from .checkpoint.release import write_release
+from .checkpoint.release import params_sha256, write_release
 from .core import prng
 from .core.batching import bucket_for
 from .core.costmodel import PipelineSystem
@@ -98,7 +109,7 @@ def _draw(seed: int, count: int, batch: int, n_lo: int, n_hi: int, ramp_batches:
     return _mixed_graphs(rng, batch, n_spec)
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.train_release")
     ap.add_argument("--out", default="checkpoints/respect-v1")
     ap.add_argument("--version", default="respect-v1")
@@ -124,16 +135,25 @@ def main(argv=None) -> int:
     ap.add_argument("--label-cache", default="artifacts/label_cache")
     ap.add_argument("--ckpt-dir", default="artifacts/release_train_ckpt")
     ap.add_argument("--save-every", type=int, default=200)
-    ap.add_argument("--devices", type=int, default=None)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="data-parallel rank count (the global batch must divide it)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="process-group backend of --devices > 1 (default: nccl)")
+    ap.add_argument("--share-device", action="store_true",
+                    help="every rank on the one card (gloo only)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the plain path)")
-    args = ap.parse_args(argv)
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: data parallelism of the release driver is not ported "
-            "yet; python -m repro_torch.train_respect --devices n trains data-parallel")
+    return ap.parse_args(argv)
+
+
+def train(world, device, args: argparse.Namespace, argv: list) -> dict:
+    """The release training of one process (``world`` None) or of one rank
+    of a data-parallel run (``argv``, the command's arguments, goes into
+    the release); returns the steps, draws, final eval and the sha256 of
+    the trained parameters."""
+    main = world is None or world.is_main
+    say = print if main else (lambda *a, **k: None)
     stage_counts = tuple(int(s) for s in args.stage_counts.split(","))
-    device = resolve_device(args.device)
 
     base = PipelineSystem(n_stages=stage_counts[0])
     trainer = RLTrainer(system=base, hidden=args.hidden, lr=args.lr, seed=args.seed,
@@ -158,7 +178,12 @@ def main(argv=None) -> int:
             ev = trainer.evaluate(eval_batches[k], n_stages=k)
             rs.append(ev["reward_greedy"])
             ms.append(ev["exact_match"])
-        return float(np.mean(rs)), float(np.mean(ms))
+        r, m = float(np.mean(rs)), float(np.mean(ms))
+        if world is not None:   # every rank stops, and refreshes its baseline, as rank 0 does
+            rm = torch.tensor([r, m], dtype=torch.float64, device=device)
+            dist.broadcast(rm, src=0)
+            r, m = float(rm[0]), float(rm[1])
+        return r, m
 
     # resume
     ckpt_dir = Path(args.ckpt_dir)
@@ -167,15 +192,19 @@ def main(argv=None) -> int:
     resumed = trainer.restore(args.ckpt_dir)
     if resumed is not None and count_path.exists():
         count = int(json.loads(count_path.read_text())["count"])
-        print(f"[resume] trainer step {resumed}, draw count {count}")
+        say(f"[resume] trainer step {resumed}, draw count {count}")
 
     def save(blocking=True):
         trainer.save(args.ckpt_dir, blocking=blocking)
-        count_path.write_text(json.dumps({"count": count}))
+        if main:
+            count_path.write_text(json.dumps({"count": count}))
 
     key = prng.PRNGKey(args.seed)
     r0, m0 = held_out()
-    print(f"[init] mean greedy reward {r0:.4f} exact-match {m0:.3f} over k={stage_counts}")
+    say(f"[init] mean greedy reward {r0:.4f} exact-match {m0:.3f} over k={stage_counts}")
+    if world is not None:
+        say(f"[data parallel] {world.size} ranks, backend {world.backend}, device {device}",
+            flush=True)
 
     best_match, bad_evals, t0 = m0, 0, time.time()
     converged = None
@@ -188,10 +217,10 @@ def main(argv=None) -> int:
         batch = pack(graphs, k)
         metrics = trainer.train_step(batch, prng.fold_in(key, count), n_stages=k)
         if count % 10 == 0:
-            print(f"[step {trainer.step_count} draw {count} k={k}] "
-                  f"reward={metrics['reward_sample']:.4f} "
-                  f"baseline={metrics['reward_baseline']:.4f} "
-                  f"({(time.time() - t0) / count:.2f}s/draw)", flush=True)
+            say(f"[step {trainer.step_count} draw {count} k={k}] "
+                f"reward={metrics['reward_sample']:.4f} "
+                f"baseline={metrics['reward_baseline']:.4f} "
+                f"({(time.time() - t0) / count:.2f}s/draw)", flush=True)
         if count % args.eval_every == 0:
             r, m = held_out()
             trainer.consider_baseline(r)
@@ -200,8 +229,8 @@ def main(argv=None) -> int:
             improved = m > best_match + 1e-4
             bad_evals = 0 if improved else bad_evals + 1
             best_match = max(best_match, m)
-            print(f"[eval step {trainer.step_count}] reward={r:.4f} exact-match={m:.3f} "
-                  f"best={best_match:.3f} stale={bad_evals}/{args.patience}", flush=True)
+            say(f"[eval step {trainer.step_count}] reward={r:.4f} exact-match={m:.3f} "
+                f"best={best_match:.3f} stale={bad_evals}/{args.patience}", flush=True)
             if m >= args.target_match:
                 converged = f"target exact-match {args.target_match} reached"
                 break
@@ -215,8 +244,13 @@ def main(argv=None) -> int:
         converged = f"max steps {args.max_steps} reached"
 
     r_final, m_final = held_out()
-    print(f"[done] {converged}; mean greedy reward {r_final:.4f} exact-match {m_final:.3f} "
-          f"(init {r0:.4f}/{m0:.3f})")
+    say(f"[done] {converged}; mean greedy reward {r_final:.4f} exact-match {m_final:.3f} "
+        f"(init {r0:.4f}/{m0:.3f})")
+    result = {"steps": trainer.step_count, "draws": count, "reward": r_final,
+              "exact_match": m_final,
+              "params_sha256": params_sha256(param_tree(trainer.params))}
+    if not main:
+        return result
 
     manifest = write_release(param_tree(trainer.params), args.out, {
         "version": args.version,
@@ -232,14 +266,33 @@ def main(argv=None) -> int:
             "ramp_batches": args.ramp_batches,
             "steps": trainer.step_count, "draws": count,
             "stopped": converged,
-            "command": "python -m repro_torch.train_release " + " ".join(
-                sys.argv[1:] if argv is None else argv),
+            "command": "python -m repro_torch.train_release " + " ".join(argv),
         },
         "eval": {"reward_greedy_mean": r_final, "exact_match_mean": m_final,
                  "stage_counts": list(stage_counts), "history": history[-20:]},
         "system": dataclasses.asdict(base),
     })
     print(f"[release] wrote {args.out} (params sha256 {manifest['params_sha256'][:16]}...)")
+    return result
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if args.devices is not None and args.devices > 1:
+        if args.batch % args.devices:
+            raise ValueError(f"global batch {args.batch} not divisible by {args.devices} "
+                             "devices on mesh axis 'data'")
+        from .parallel.data import run_ranks
+        from .train_respect import RANK_TIMEOUT_S
+        backend = args.backend or "nccl"
+        print(f"[data parallel] starting {args.devices} ranks, backend {backend}"
+              + (", sharing one card" if args.share_device else ""), flush=True)
+        run_ranks(train, args.devices, backend=backend, device=args.device,
+                  share_device=args.share_device, timeout_s=RANK_TIMEOUT_S,
+                  args=(args, argv))
+        return 0
+    train(None, resolve_device(args.device), args, argv)
     return 0
 
 

@@ -13,9 +13,10 @@ against the JAX package's ``scripts/train_release.py``, on the CPU.
   identically (orders and assignments); the manifest names the port's
   module; a second run with ``--max-steps 3`` resumes from the first's
   checkpoint and draw counter;
-* ``--devices 2`` raises: the release driver's data parallelism is not
-  ported (``python -m repro_torch.train_respect --devices n`` is the
-  data-parallel driver, ``tests/test_torch_parallel.py``).
+* ``--devices 2`` refuses, before it starts a rank, what its data
+  parallelism does not take: a global batch the ranks do not divide, and
+  ranks on the CPU over the default nccl backend (the two-rank gloo runs
+  are ``tests/test_torch_train_release_ranks.py``).
 """
 
 import importlib.util
@@ -111,5 +112,10 @@ def test_rerun_resumes_from_the_checkpoint(release, capsys):
 
 
 def test_data_parallel_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="data parallelism"):
+    """What the release trainer's data parallelism does not take raises
+    before any rank starts."""
+    with pytest.raises(ValueError, match="not divisible by 3 devices"):
+        ttr.main(SHORT + ["--devices", "3", "--out", str(tmp_path / "rel")])
+    with pytest.raises(ValueError, match="nccl runs on cards only"):
         ttr.main(SHORT + ["--devices", "2", "--out", str(tmp_path / "rel")])
+    assert not (tmp_path / "rel").exists()

@@ -1,6 +1,8 @@
 """``Model.loss`` and its gradients for MLA (minicpm3-4b), MoE
-(qwen3-moe-235b-a22b) and the VLM (llava-next-mistral-7b, with patches)
-against ``jax.value_and_grad`` of the reference's loss.
+(qwen3-moe-235b-a22b, and kimi-k2-1t-a32b with its MLA), the VLM
+(llava-next-mistral-7b, with patches), qk-norm GQA (qwen3-14b, qwen3-32b)
+and plain GQA (internlm2-1.8b) against ``jax.value_and_grad`` of the
+reference's loss.
 
 SMOKE configs in float32, the reference built as in
 ``tests/test_torch_lm_train.py`` (``attn_impl="chunked"``: the flash custom
@@ -35,7 +37,9 @@ def _np32(a):
     return np.asarray(a, np.float32)
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen3-moe-235b-a22b", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen3-moe-235b-a22b", "llava-next-mistral-7b",
+                                  "qwen3-14b", "qwen3-32b", "internlm2-1.8b",
+                                  "kimi-k2-1t-a32b"])
 def test_loss_and_gradients_match_jax_f32(arch):
     jcfg = jax_get_smoke_config(arch).scaled(dtype="float32")
     cfg = get_smoke_config(arch).scaled(dtype="float32")
