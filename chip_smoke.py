@@ -253,7 +253,36 @@ Run from the repository root:  python3 chip_smoke.py
    a layer a microbatch forward, every gradient leaf non-zero in the first
    microbatch, ms a step, tokens/s and peak allocated bytes;
 39. one profiled step of each run of 38: its lm.* split, the device's idle
-   share and flash_fwd_bf16 by kernel name.
+   share and flash_fwd_bf16 by kernel name;
+40. (after 39) the twin of examples/edge_pipeline_deploy.py
+   (repro_torch.edge_pipeline_deploy.deploy_table) with its default agent,
+   RespectScheduler.init(seed=0) at hidden 256, the launch counters reset
+   just before and read just after: the 10 Table-I models at k = 4, 5, 6,
+   the compiler emulation's, the exact solver's and RESPECT's assignment
+   sha256 and monotone flag equal to tests/golden/torch_edge_deploy.json
+   (the JAX package's) and their bottleneck_s within TOL_DEPLOY relative,
+   30 ptr_decode_block launches (one a schedule call) and no other, the
+   table's host-clock time; the quickstart twin on ResNet50 at k = 4 the
+   same way (one ptr_decode_block launch), its per-stage placement too;
+41. B1's block template at the table's largest bucket (InceptionResNetv2,
+   bucket 1024, B = 1) held to its plain version and timed;
+42. the serve_traffic twin (hidden 64: the cluster template) with its two
+   bursts of 80 requests, counted: every result equal to schedule_many's
+   and to the golden pool's, 0 failed, degraded, retried or restarted,
+   burst 2 served from the cache and by deduplication; graphs/s of each
+   burst and p50/p99;
+43. (last) the sharded step makers (repro_torch.launch) on a one-device
+   DeviceMesh (data = 1, model = 1) on the card over a one-rank gloo group:
+   internlm2-1.8b at its full config in bf16 with seeded weights, B = 2,
+   S = 1024; every parameter, cache, batch and optimizer-state sharding
+   they return equal to the resolver's on that mesh; make_prefill_step
+   bit-equal to Model.prefill with one B3 launch a layer, counted;
+   make_decode_step's one step bit-equal to Model.decode_step (logits and
+   cache), no launch; make_train_step's one step equal to make_train_fn's
+   (loss, grad_norm and every parameter bit for bit, both under
+   torch.use_deterministic_algorithms: the embedding's gradient scatter
+   otherwise adds in a nondeterministic order), one B3 launch a layer;
+44. B3 at that prefill's shape held to its plain version and timed.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -2310,11 +2339,9 @@ def zoo_archs_phase(card: str) -> list[dict]:
     plain path; B3 at each one's shape held to its plain version and timed
     (see the module docstring, items 25-27)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.models.model import build_model, count_params
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -2408,39 +2435,51 @@ def zoo_archs_phase(card: str) -> list[dict]:
             torch.cuda.empty_cache()
 
         # ---- B3 at this arch's prefill shape, against its plain version  #
-        hq, hkv, d, dv = attn_heads(cfg)
-        # the path's layout: (B, S, H, D) activations viewed as (B, H, S, D)
-        q, k, v = (torch.randn((b, seq, h, w), generator=gen, device="cuda").to(torch.bfloat16)
-                   .transpose(1, 2) for h, w in ((hq, d), (hkv, d), (hkv, dv)))
-
-        def call(q=q, k=k, v=v):
-            return flash_ops.flash_attention(q, k, v, causal=True, scale=d ** -0.5)
-        got = call()
-        with plain_kernels():
-            ref = call()
-            plain_ms = cuda_ms(call, iters=3)
-        torch.cuda.synchronize()
-        diff = (got.float() - ref.float()).abs()
-        err = float(diff.max())
-        ok = bool((diff <= TOL_BF16_OUT[0] + TOL_BF16_OUT[1] * ref.float().abs()).all())
-        check(ok, f"flash {arch}: kernel and plain version differ (max |err| {err:.3e})")
-        ev_ms = cuda_ms(call, iters=10)
-        dev_ms = device_ms(call, "flash_fwd_bf16", iters=10)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=hq != hkv), iters=10)
-        b_ms, b_by = bound(*flash_work(b, hq, hkv, seq, seq, d, dv, 2), BF16_FLOPS_PER_S)
-        print(f"flash_fwd {arch} B={b} Hq={hq} Hkv={hkv} S={seq} D={d} Dv={dv} bf16 causal on "
-              f"{card}: max |err| {err:.3e} (tolerance atol, rtol {TOL_BF16_OUT}); kernel "
-              f"{ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
-              flush=True)
-        rows.append({"name": f"flash_fwd ({arch})", "route": "cuda", "source": FLASH_SRC,
-                     "replaces": "src/repro/kernels/flash/kernel.py:43", "launches": launched,
-                     "max_abs_err": err, "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-        del q, k, v, got, ref
+        rows.append(flash_prefill_row(card, gen, arch, cfg, b, seq, launched))
         torch.cuda.empty_cache()
     return rows
+
+
+def flash_prefill_row(card: str, gen, label: str, cfg, b: int, seq: int, launched: int) -> dict:
+    """B3 at ``cfg``'s bf16 causal prefill shape (B, S = ``seq``) on seeded
+    inputs in the path's layout, held to its plain version (TOL_BF16_OUT)
+    and timed beside the plain version and scaled_dot_product_attention;
+    its kernels-line row with ``launched`` launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import ops as flash_ops
+
+    hq, hkv, d, dv = attn_heads(cfg)
+    # the path's layout: (B, S, H, D) activations viewed as (B, H, S, D)
+    q, k, v = (torch.randn((b, seq, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+               .transpose(1, 2) for h, w in ((hq, d), (hkv, d), (hkv, dv)))
+
+    def call():
+        return flash_ops.flash_attention(q, k, v, causal=True, scale=d ** -0.5)
+    got = call()
+    with plain_kernels():
+        ref = call()
+        plain_ms = cuda_ms(call, iters=3)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= TOL_BF16_OUT[0] + TOL_BF16_OUT[1] * ref.float().abs()).all())
+    check(ok, f"flash {label}: kernel and plain version differ (max |err| {err:.3e})")
+    ev_ms = cuda_ms(call, iters=10)
+    dev_ms = device_ms(call, "flash_fwd_bf16", iters=10)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=hq != hkv), iters=10)
+    b_ms, b_by = bound(*flash_work(b, hq, hkv, seq, seq, d, dv, 2), BF16_FLOPS_PER_S)
+    print(f"flash_fwd {label} B={b} Hq={hq} Hkv={hkv} S={seq} D={d} Dv={dv} bf16 causal on "
+          f"{card}: max |err| {err:.3e} (tolerance atol, rtol {TOL_BF16_OUT}); kernel "
+          f"{ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
+          flush=True)
+    return {"name": f"flash_fwd ({label})", "route": "cuda", "source": FLASH_SRC,
+            "replaces": "src/repro/kernels/flash/kernel.py:43", "launches": launched,
+            "max_abs_err": err, "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
 def ingest_phase(card: str) -> None:
@@ -3748,6 +3787,332 @@ def pipeline_phase(card: str) -> list[dict]:
     return [row]
 
 
+# --------------------------------------------------------------------- #
+# the example scripts and the sharding layer (items 40-44)
+# --------------------------------------------------------------------- #
+EDGE_DEPLOY = ROOT / "tests" / "golden" / "torch_edge_deploy.json"
+TOL_DEPLOY = 1e-12      # relative: float64 re-derivations from equal assignments
+SERVE_REQUESTS = 80     # serve_traffic's default, two bursts
+SHARD_ARCH, SHARD_B, SHARD_S = "internlm2-1.8b", 2, 1024
+
+
+def same_deploy_record(got: dict, want: dict, label: str) -> None:
+    check(got["assign_sha256"] == want["assign_sha256"] and got["monotone"] == want["monotone"],
+          f"{label}: assignment or monotone flag differs from {EDGE_DEPLOY.name}")
+    rel = abs(got["bottleneck_s"] - want["bottleneck_s"]) / abs(want["bottleneck_s"])
+    check(rel <= TOL_DEPLOY, f"{label}: bottleneck_s {got['bottleneck_s']!r} against "
+          f"{want['bottleneck_s']!r} ({rel:.2e} relative, tolerance {TOL_DEPLOY})")
+
+
+def examples_phase(card: str) -> list[dict]:
+    """The example scripts' twins on the card (see the module docstring,
+    items 40-42): edge_pipeline_deploy's table and quickstart held to
+    tests/golden/torch_edge_deploy.json through B1's block template,
+    serve_traffic's two bursts held to schedule_many and the golden pool;
+    B1 at the table's largest bucket held to its plain version and
+    timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch import edge_pipeline_deploy as deploy
+    from repro_torch.core import RespectScheduler, build_model_graph
+    from repro_torch.core.batching import pack_padded
+    from repro_torch.kernels.ptr import ops
+    from repro_torch.kernels.ptr.decode import decode_batch, decode_batch_reference
+    from repro_torch.quickstart import quickstart
+    from repro_torch.serve_traffic import serve_traffic
+
+    gold = json.loads(EDGE_DEPLOY.read_text())
+    sched, trained = deploy.load_agent(ROOT / deploy.AGENT, None)
+    check(not trained and sched.device.type == "cuda"
+          and sched.hidden == gold["meta"]["hidden"],
+          f"examples: expected the untrained seed-0 agent on the card, got trained={trained} "
+          f"hidden {sched.hidden} on {sched.device}")
+
+    # ---- edge_pipeline_deploy's table, counted ----------------------- #
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    rows = deploy.deploy_table(sched)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(len(rows) == len(gold["deploy"]) == 30, f"examples: {len(rows)} deploy rows")
+    for got, want in zip(rows, gold["deploy"]):
+        check((got["model"], got["k"], got["n"]) == (want["model"], want["k"], want["n"]),
+              f"deploy rows out of order: {got['model']} k={got['k']}")
+        for method in deploy.METHODS:
+            same_deploy_record(got[method], want[method],
+                               f"edge_pipeline_deploy {got['model']} k={got['k']} {method}")
+    check(launches == {"ptr_decode_block": 30},
+          f"edge_pipeline_deploy: launches {launches}, expected 30 ptr_decode_block (one a "
+          "schedule call, hidden 256)")
+    differ = [f"{r['model']} k={r['k']}" for r in rows
+              if r["respect"]["assign_sha256"] != r["exact"]["assign_sha256"]]
+    speedups = [r["speedup"] for r in rows]
+    print(f"edge_pipeline_deploy on {card}: 30 rows (10 Table-I models x k = 4, 5, 6) equal "
+          f"{EDGE_DEPLOY.name} (sha256 and monotone flags equal, bottleneck_s within "
+          f"{TOL_DEPLOY} relative) in {t_table:.3f} s (host clock, first call, exact solver and "
+          f"compiler emulation included); B1 launches by template {launches}; RESPECT differs "
+          f"from exact in {len(differ)} rows ({', '.join(differ)}); mean RESPECT speedup over "
+          f"the compiler emulation {np.mean(speedups):.4f}x (max {np.max(speedups):.4f}x)",
+          flush=True)
+
+    # ---- quickstart on ResNet50 at k = 4, counted --------------------- #
+    want = gold["quickstart"]
+    sched.clear_cache()
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    out = quickstart(sched, want["model"], want["stages"])
+    torch.cuda.synchronize()
+    q_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(q_launches == {"ptr_decode_block": 1},
+          f"quickstart: launches {q_launches}, expected one ptr_decode_block")
+    by_name = {r["scheduler"]: r for r in out["rows"]}
+    for name, method in (("compiler", "compiler"), ("exact", "exact"), ("RESPECT", "respect")):
+        same_deploy_record(by_name[name], want[method], f"quickstart {name}")
+    check([(p["stage"], p["ops"], p["over_cache"]) for p in out["placement"]]
+          == [(p["stage"], p["ops"], p["over_cache"]) for p in want["placement"]]
+          and all(abs(p["param_bytes"] - w["param_bytes"]) <= TOL_DEPLOY * w["param_bytes"]
+                  for p, w in zip(out["placement"], want["placement"])),
+          "quickstart: RESPECT's per-stage placement differs from the golden file")
+    print(f"quickstart {want['model']} k={want['stages']} on {card}: the three schedules and "
+          f"RESPECT's per-stage placement equal {EDGE_DEPLOY.name}; RESPECT "
+          f"{by_name['RESPECT']['solve_s'] * 1e3:.2f} ms to solve (host clock), launches "
+          f"{q_launches}", flush=True)
+
+    # ---- B1's block template at the table's largest bucket ------------ #
+    g = build_model_graph("InceptionResNetv2")
+    net, D = sched.net, sched.max_deg
+    batch = pack_padded([g], max_deg=D).to("cuda")
+    n = batch.bucket_n
+    with torch.inference_mode():
+        C, (h0, c0), emb = net.encode(batch.feats, batch.n_valid)
+        args = (net, C, emb, h0, c0, batch.parent_mat, batch.n_valid)
+        before = ops.LAUNCHES["ptr_decode_block"]
+        k_out = decode_batch(*args)
+        p_out = decode_batch_reference(*args)
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["ptr_decode_block"] == before + 1,
+              "examples B1 check: the block template did not launch")
+        valid = torch.arange(n, device="cuda")[None, :] < batch.n_valid[:, None].long()
+        check(torch.equal(torch.where(valid, k_out[0], -1), torch.where(valid, p_out[0], -1)),
+              f"examples B1 bucket {n}: orders differ from the plain version")
+        err = max(float((k_out[1] - p_out[1]).abs().max()),
+                  float((k_out[2] - p_out[2]).abs().max()))
+        check(err <= TOL_LOGP, f"examples B1 bucket {n}: logp/entropy error {err:.3e}")
+        ev_ms = cuda_ms(lambda: decode_batch(*args), iters=5)
+        dev_ms = device_ms(lambda: decode_batch(*args), "ptr_decode_block", iters=5)
+        plain_ms = cuda_ms(lambda: decode_batch_reference(*args), iters=2)
+    b_ms, b_by = bound(*decode_work([g], k_out[0].cpu().numpy(), n, net.hidden, D))
+    print(f"ptr_decode edge_pipeline_deploy bucket {n}, B=1 (InceptionResNetv2) H={net.hidden} "
+          f"(ptr_decode_block) on {card}: kernel {ev_ms:.4f} ms (CUDA events; device "
+          f"{dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), orders "
+          f"equal, max |err| logp/ent {err:.2e} (tolerance {TOL_LOGP})", flush=True)
+    kernel_rows = [{"name": "ptr_decode_block (edge_pipeline_deploy)", "route": "cuda",
+                    "source": "src/repro_torch/kernels/ptr/csrc/ptr_decode.cu",
+                    "replaces": "src/repro/kernels/ptr/decode.py:84",
+                    "launches": launches.get("ptr_decode_block", 0), "max_abs_err": err,
+                    "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None}]
+    del sched, net, C, emb, args
+
+    # ---- serve_traffic: two bursts of 80 requests, counted ------------ #
+    serve_gold = gold["serve_traffic"]
+    small = RespectScheduler.init(seed=0, hidden=serve_gold["hidden"])
+    small.load_kernels()
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    out = serve_traffic(small, SERVE_REQUESTS, stages=serve_gold["stages"])
+    torch.cuda.synchronize()
+    s_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    pool, st = out["pool"], out["stats"]
+    want = small.schedule_many(pool, serve_gold["stages"], use_cache=False)
+    for burst in out["bursts"]:
+        for i, r in zip(burst["pool_index"], burst["results"]):
+            check(np.array_equal(r.assignment, want[i].assignment)
+                  and r.assignment.tolist() == serve_gold["pool"][i]["assignment"]
+                  and r["served_by"] == "policy",
+                  f"serve_traffic {burst['tag']}: pool graph {i} differs from schedule_many's "
+                  "or the golden pool's")
+    second = out["bursts"][1]
+    first_idx = set(out["bursts"][0]["pool_index"])
+    check(st.failed == 0 and st.degraded == 0 and st.retries == 0 and st.worker_restarts == 0
+          and st.completed == st.requests == 2 * SERVE_REQUESTS,
+          f"serve_traffic: failed {st.failed}, degraded {st.degraded}, retries {st.retries}, "
+          f"restarts {st.worker_restarts}, completed {st.completed} of {st.requests}")
+    check(first_idx == set(range(len(pool))) and all(r["cache_hit"] for r in second["results"])
+          and st.cache_misses == len(pool),
+          f"serve_traffic: burst 2 not served from the cache and dedup (burst 1 drew "
+          f"{sorted(first_idx)}, misses {st.cache_misses})")
+    check(set(s_launches) == {"ptr_decode_cluster"},
+          f"serve_traffic: launches {s_launches}, expected ptr_decode_cluster only (hidden 64)")
+    rates = ", ".join(f"{b['tag'].split(' (')[0]} {len(b['results']) / b['seconds']:.1f} graphs/s"
+                      f" ({b['seconds']:.3f} s)" for b in out["bursts"])
+    print(f"serve_traffic on {card}: warm-up {out['warm_s']:.3f} s ({len(out['warm_keys'])} "
+          f"batch shapes), {rates} (host clock); p50 {st.p50_ms:.2f} ms p99 {st.p99_ms:.2f} ms; "
+          f"batches {st.batches} (largest {st.max_batch_observed}), hits {st.cache_hits}, "
+          f"misses {st.cache_misses}, dedups {st.dedup_hits}; 0 failed, degraded or retried; "
+          f"every result equal to schedule_many's and the golden pool's; launches {s_launches}",
+          flush=True)
+    del small
+    return kernel_rows
+
+
+def sharding_phase(card: str) -> list[dict]:
+    """The sharded step makers on a one-device DeviceMesh on the card (see
+    the module docstring, items 43-44): internlm2-1.8b at full width in
+    bf16, prefill, one decode step and one train step through the step makers
+    against the single-device calls; every returned sharding against the
+    resolver's; B3 at the prefill's shape held to its plain version."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import (make_decode_step, make_optimizer, make_prefill_step,
+                                    make_train_fn, make_train_step, named_leaves,
+                                    single_device_mesh)
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import NamedSharding, axis_sizes, resolve_axes
+
+    t_phase = time.perf_counter()
+    had_group = dist.is_initialized()
+    mesh = single_device_mesh()
+    check(mesh.device_type == "cuda" and axis_sizes(mesh) == {"data": 1, "model": 1},
+          f"sharding: mesh {mesh}")
+    cfg = get_config(SHARD_ARCH)
+    model = build_model(cfg)
+    meta = build_model(cfg, device="meta")
+    params = model.init_params(seed=0)
+    b, s = SHARD_B, SHARD_S
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    n_attn = cfg.pattern().count("a")
+
+    def resolved(axes_tree, shapes, sh_tree, label) -> int:
+        """Every leaf's sharding is the resolver's on ``mesh``; returns the
+        leaf count."""
+        axes = dict(named_leaves(axes_tree))
+        shp = dict(named_leaves(shapes))
+        got = dict(named_leaves(sh_tree))
+        check(set(axes) == set(shp) == set(got), f"sharding {label}: trees differ")
+        for name, ax in axes.items():
+            want = NamedSharding(mesh, resolve_axes(ax, tuple(shp[name].shape), mesh))
+            check(got[name] == want, f"sharding {label} {name}: {got[name]} against {want}")
+        return len(axes)
+
+    def cache_equal(a: dict, c: dict) -> bool:
+        la, lc = named_leaves(a), named_leaves(c)
+        return [n for n, _ in la] == [n for n, _ in lc] and all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(la, lc))
+
+    # ---- prefill through its step maker, counted ------------------------- #
+    specs, axes = model.input_records(ShapeConfig("sharding", s, b, "prefill"))
+    fn, (p_sh, b_sh) = make_prefill_step(model, mesh, specs, axes)
+    n_p = resolved(model.param_axes(), meta.init_params(), p_sh, "params")
+    resolved(axes, specs, b_sh, "batch")
+    # on the one-device mesh each placement puts the whole tensor on the card
+    for name, leaf in named_leaves(params)[:4]:
+        sh = dict(named_leaves(p_sh))[name]
+        check(torch.equal(distribute_tensor(leaf, mesh, sh.placements).to_local(), leaf),
+              f"sharding: {name} distributed by {sh.placements} is not the whole tensor")
+    for key in kbuild.LAUNCHES:
+        kbuild.LAUNCHES[key] = 0
+    logits, cache = fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kbuild.LAUNCHES.items() if v}
+    check(launches == {"flash_fwd": n_attn},
+          f"sharded prefill: launches {launches}, expected {n_attn} flash_fwd (one a layer)")
+    want_logits, want_cache = model.prefill(params, {"tokens": tokens})
+    check(torch.equal(logits, want_logits) and cache_equal(cache, want_cache),
+          "sharded prefill: logits or cache differ from Model.prefill's")
+    del cache, want_cache
+
+    # ---- one decode step through its step maker -------------------------- #
+    dfn, (p_sh2, tok_sh, c_sh) = make_decode_step(model, mesh, b, s + 1)
+    check(p_sh2 == p_sh, "sharding: the decode step's parameter shardings differ")
+    check(tok_sh == NamedSharding(mesh, resolve_axes(("batch", None), (b, 1), mesh)),
+          f"sharding: token sharding {tok_sh}")
+    n_c = resolved(model.cache_axes(), meta.init_cache(b, s + 1), c_sh, "cache")
+    _, cache = model.prefill(params, {"tokens": tokens}, max_len=s + 1)
+    ref_cache = copy.deepcopy(cache)
+    tok = logits.argmax(-1)
+    for key in kbuild.LAUNCHES:
+        kbuild.LAUNCHES[key] = 0
+    step_logits, cache = dfn(params, tok, cache, s)
+    torch.cuda.synchronize()
+    d_launches = {k: v for k, v in kbuild.LAUNCHES.items() if v}
+    ref_logits, ref_cache = model.decode_step(params, tok, ref_cache, s)
+    check(torch.equal(step_logits, ref_logits) and cache_equal(cache, ref_cache),
+          "sharded decode step: logits or cache differ from Model.decode_step's")
+    check(not d_launches, f"sharded decode step: launches {d_launches}, expected none")
+    del cache, ref_cache
+
+    # ---- one train step through its step maker --------------------------- #
+    tcfg = TrainConfig(microbatches=1, lr=1e-3, warmup_steps=10, weight_decay=0.01)
+    tspecs, taxes = model.input_records(ShapeConfig("sharding", s, b, "train"))
+    tfn, (tp_sh, o_sh, tb_sh), optimizer = make_train_step(model, mesh, tcfg, tspecs, taxes)
+    check(tp_sh == p_sh and o_sh.mu == p_sh and o_sh.nu == p_sh and o_sh.master is None
+          and o_sh.step == NamedSharding(mesh, resolve_axes((), (), mesh)),
+          "sharding: the optimizer state's shardings do not mirror the parameters'")
+    resolved(taxes, tspecs, tb_sh, "train batch")
+    batch = {"tokens": tokens}
+
+    def one_step(step_fn, opt):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")      # cuBLAS' workspace note under deterministic mode
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                new_p, _, metrics = step_fn(params, opt.init(params), batch)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        host = {n: t.cpu() for n, t in named_leaves(new_p)}
+        return host, {k: v.cpu() for k, v in metrics.items()}
+
+    for key in kbuild.LAUNCHES:
+        kbuild.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    got_p, got_m = one_step(tfn, optimizer)
+    t_step = time.perf_counter() - t0
+    t_launches = {k: v for k, v in kbuild.LAUNCHES.items() if v}
+    ref_opt = make_optimizer(tcfg)
+    want_p, want_m = one_step(make_train_fn(model, tcfg, ref_opt), ref_opt)
+    moved = max(float((got_p[n].float() - p.cpu().float()).abs().max())
+                for n, p in named_leaves(params))
+    same = [n for n in got_p if torch.equal(got_p[n], want_p[n])]
+    check(all(torch.equal(got_m[k], want_m[k]) for k in ("loss", "grad_norm", "step"))
+          and len(same) == len(got_p),
+          f"sharded train step: metrics {got_m} against {want_m}; {len(got_p) - len(same)} of "
+          f"{len(got_p)} parameter leaves differ")
+    check(bool(torch.isfinite(got_m["loss"])) and moved > 0,
+          f"sharded train step: loss {got_m['loss']}, parameters moved {moved}")
+    check(t_launches == {"flash_fwd": n_attn},
+          f"sharded train step: launches {t_launches}, expected {n_attn} flash_fwd (forward)")
+    print(f"sharding {SHARD_ARCH} on {card}: full config ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, bf16, seeded weights), B={b} S={s} on a one-device DeviceMesh "
+          f"(data=1, model=1, cuda, one gloo rank): {n_p} parameter, {n_c} cache and the batch's "
+          f"shardings equal the resolver's; make_prefill_step bit-equal to Model.prefill "
+          f"(launches {launches}); make_decode_step (one step) bit-equal to Model.decode_step "
+          f"(logits and cache; no kernel launch); make_train_step (one step, microbatches 1, "
+          f"under torch.use_deterministic_algorithms) equal to make_train_fn's: loss "
+          f"{float(got_m['loss']):.6f}, grad_norm {float(got_m['grad_norm']):.6f} and all "
+          f"{len(got_p)} parameter leaves bit-equal (moved up to {moved:.3e}); {t_step:.3f} s a "
+          f"step (host clock, first call), launches {t_launches}", flush=True)
+    del got_p, want_p, params, model
+    torch.cuda.empty_cache()
+    row = flash_prefill_row(card, gen, f"{SHARD_ARCH} sharded prefill", cfg, b, s,
+                            launches.get("flash_fwd", 0))
+    if not had_group and dist.is_initialized():
+        dist.destroy_process_group()
+    print(f"sharding phase on {card}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [row]
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -4115,6 +4480,11 @@ def run() -> dict:
     # ---- the zoo's other archs train (B3 under autograd); last, as the
     # largest models of the run's training paths -------------------------- #
     kernels += zoo_train_phase(card)
+
+    # ---- the example scripts' twins (B1), then the sharded step makers
+    # on a one-device mesh (B3) ------------------------------------------- #
+    kernels += examples_phase(card)
+    kernels += sharding_phase(card)
     return {"kernels": kernels, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "card": card}
 
@@ -4132,7 +4502,7 @@ def main() -> int:
     if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
             and SEEDED_GOLDEN.exists() and TRAIN_GOLDEN.exists() and EVAL_BENCH.exists()
             and INGEST_BENCH.exists() and INGEST_HASHES.exists() and INGEST_ZOO_HASHES.exists()
-            and LM_TRAIN_GOLDEN.exists() and PARTITIONS.exists()):
+            and LM_TRAIN_GOLDEN.exists() and PARTITIONS.exists() and EDGE_DEPLOY.exists()):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))

@@ -1,5 +1,4 @@
-"""The LM zoo's train step (the reference's ``repro.launch.steps``, single
-device).
+"""The LM zoo's step makers (the reference's ``repro.launch.steps``).
 
 ``make_train_fn(model, tcfg, optimizer)`` returns the step
 ``(params, opt_state, batch) -> (params, opt_state, metrics)``:
@@ -21,9 +20,22 @@ device).
 Parameters are a nested dict of tensors that do not require grad; the step
 returns new ones.  ``torch.profiler.record_function`` ranges ``lm.forward``
 (each microbatch's loss), ``lm.backward`` (its gradients, and their sum)
-and ``lm.optimizer`` (clip and update) split a profiled step.  The
-reference's shardings belong to data and model parallelism, which the port
-does not have.
+and ``lm.optimizer`` (clip and update) split a profiled step.
+
+The sharded step makers take a mesh (an abstract one or a ``DeviceMesh``,
+:mod:`repro_torch.parallel.sharding`):
+
+* ``param_shardings``, ``cache_shardings``, ``batch_shardings`` and
+  ``opt_shardings`` resolve the model's logical axes against the mesh, with
+  shapes from ``meta``-device inits (nothing allocated); the optimizer's
+  moments and master copies mirror their parameters' shardings and its
+  step is replicated.  They work on any mesh, the reference's 256- and
+  512-chip ones included.
+* ``make_train_step``, ``make_prefill_step`` and ``make_decode_step``
+  return the step and its input shardings.  On a mesh whose axes all have
+  size 1 the step is the single-device one (``make_train_fn``,
+  ``Model.prefill``, ``Model.decode_step``); a larger axis raises
+  ``NotImplementedError``: sharded execution across cards is not ported.
 """
 
 from __future__ import annotations
@@ -33,8 +45,12 @@ from torch.profiler import record_function
 
 from .. import optim
 from ..configs.base import TrainConfig
+from ..parallel.sharding import (NamedSharding, PartitionSpec, axis_sizes, sharding_for,
+                                 tree_shardings)
 
-__all__ = ["make_optimizer", "make_train_fn", "named_leaves", "value_and_grad"]
+__all__ = ["make_optimizer", "make_train_fn", "named_leaves", "value_and_grad",
+           "param_shardings", "batch_shardings", "cache_shardings", "opt_shardings",
+           "make_train_step", "make_prefill_step", "make_decode_step"]
 
 
 def make_optimizer(tcfg: TrainConfig) -> optim.Optimizer:
@@ -109,3 +125,79 @@ def make_train_fn(model, tcfg: TrainConfig, optimizer: optim.Optimizer):
         return params, opt_state, {"loss": loss, "grad_norm": gnorm, "step": opt_state.step}
 
     return train_step
+
+
+def _meta_model(model):
+    from ..models.model import Model
+    return Model(model.cfg, torch.device("meta"))
+
+
+def _one_device(mesh) -> None:
+    """Raise where a mesh axis is larger than 1."""
+    for name, size in axis_sizes(mesh).items():
+        if size > 1:
+            raise NotImplementedError(
+                f"mesh axis {name!r} has size {size}: sharded execution across cards is not "
+                "ported; the step makers run on a mesh whose axes all have size 1")
+
+
+def param_shardings(model, mesh) -> dict:
+    return tree_shardings(model.param_axes(), _meta_model(model).init_params(), mesh)
+
+
+def batch_shardings(specs: dict, axes: dict, mesh) -> dict:
+    """``specs`` (records, or tensors) and their logical ``axes`` ->
+    shardings, as :meth:`~repro_torch.models.model.Model.input_records`
+    gives them."""
+    return tree_shardings(axes, specs, mesh)
+
+
+def cache_shardings(model, mesh, batch: int, max_len: int) -> dict:
+    return tree_shardings(model.cache_axes(), _meta_model(model).init_cache(batch, max_len), mesh)
+
+
+def opt_shardings(optimizer: optim.Optimizer, model, mesh) -> optim.OptState:
+    """The optimizer state's shardings: each moment (and master copy) its
+    parameter's, the step replicated."""
+    p_sh = param_shardings(model, mesh)
+    state = optimizer.init(_meta_model(model).init_params())
+
+    def mirror(shapes):
+        return None if shapes is None else optim.tree_map(lambda _, sh: sh, shapes, p_sh)
+
+    return optim.OptState(step=NamedSharding(mesh, PartitionSpec()), mu=mirror(state.mu),
+                          nu=mirror(state.nu), master=mirror(state.master))
+
+
+def make_train_step(model, mesh, tcfg: TrainConfig, specs: dict, axes: dict):
+    """(step, (param, optimizer-state, batch shardings), optimizer).  The
+    step is :func:`make_train_fn`'s."""
+    _one_device(mesh)
+    optimizer = make_optimizer(tcfg)
+    shardings = (param_shardings(model, mesh), opt_shardings(optimizer, model, mesh),
+                 batch_shardings(specs, axes, mesh))
+    return make_train_fn(model, tcfg, optimizer), shardings, optimizer
+
+
+def make_prefill_step(model, mesh, specs: dict, axes: dict):
+    """(``prefill(params, batch)``, (param shardings, batch shardings))."""
+    _one_device(mesh)
+
+    def prefill(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill, (param_shardings(model, mesh), batch_shardings(specs, axes, mesh))
+
+
+def make_decode_step(model, mesh, batch: int, max_len: int):
+    """(``decode(params, token, cache, kv_len)``, (param, token and cache
+    shardings)).  The step writes into ``cache``, as ``Model.decode_step``
+    does."""
+    _one_device(mesh)
+
+    def decode(params, token, cache, kv_len):
+        return model.decode_step(params, token, cache, kv_len)
+
+    tok_sh = sharding_for(("batch", None), (batch, 1), mesh)
+    return decode, (param_shardings(model, mesh), tok_sh,
+                    cache_shardings(model, mesh, batch, max_len))

@@ -8,7 +8,8 @@ Layouts follow the reference (``repro.models.attention``):
   marking the filled prefix; decode writes its new entries into the cache
   in place;
 * projection weights 3-D — (d, H, Dh), and (H, Dh, d) for ``wo`` — when
-  ``n_heads % 16 == 0``, else 2-D (the reference's default layouts);
+  the ``head_sharded_layouts`` flag is on and ``n_heads % 16 == 0``, else
+  2-D (the reference's layouts); the forwards take either;
 * cross-attention (whisper's decoder) takes its keys and values from
   ``kv_source`` (the encoder output), without rotary, and is never causal;
   in prefill it returns the projected cross K/V as its cache, and decode
@@ -28,10 +29,17 @@ import math
 import torch
 
 from ..kernels.flash import ops as flash_ops
+from . import flags
 from .common import Init, apply_rotary, dtype_of, rms_norm, rotary_embedding
 
-__all__ = ["init_gqa", "gqa_forward", "init_gqa_cache", "init_mla", "init_mla_cache",
-           "mla_forward"]
+__all__ = ["init_gqa", "gqa_axes", "gqa_forward", "init_gqa_cache", "gqa_cache_axes",
+           "init_mla", "mla_axes", "init_mla_cache", "mla_cache_axes", "mla_forward"]
+
+
+def _head_layout(cfg) -> bool:
+    """3-D per-head projection weights: the flag, where the heads split
+    evenly over the production tensor-parallel width of 16."""
+    return flags.get("head_sharded_layouts") and cfg.n_heads % 16 == 0
 
 
 def init_gqa(init: Init, cfg):
@@ -39,7 +47,7 @@ def init_gqa(init: Init, cfg):
     dh = cfg.resolved_head_dim
     dt = dtype_of(cfg)
     std = d ** -0.5
-    if h % 16 == 0:
+    if _head_layout(cfg):
         p = {
             "wq": init.normal((d, h, dh), std, dt),
             "wk": init.normal((d, kv, dh), std, dt),
@@ -59,9 +67,27 @@ def init_gqa(init: Init, cfg):
     return p
 
 
+def gqa_axes(cfg):
+    if _head_layout(cfg):
+        ax = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+              "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+    else:
+        ax = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+              "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qk_norm:
+        ax["q_norm"] = (None,)
+        ax["k_norm"] = (None,)
+    return ax
+
+
 def init_gqa_cache(init: Init, cfg, batch: int, max_len: int):
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": init.full(shape, 0.0, dtype_of(cfg)), "v": init.full(shape, 0.0, dtype_of(cfg))}
+
+
+def gqa_cache_axes(cfg):
+    ax = ("batch", "cache_seq", "cache_heads", None)
+    return {"k": ax, "v": ax}
 
 
 def _project(x, w, heads: int, dh: int):
@@ -143,10 +169,20 @@ def init_mla(init: Init, cfg):
     }
 
 
+def mla_axes(cfg):
+    return {"wq_a": ("embed", None), "q_norm": (None,), "wq_b": (None, "heads"),
+            "wkv_a": ("embed", None), "kv_norm": (None,), "wk_b": (None, "heads"),
+            "wv_b": (None, "heads"), "wo": ("heads", "embed")}
+
+
 def init_mla_cache(init: Init, cfg, batch: int, max_len: int):
     dt = dtype_of(cfg)
     return {"ckv": init.full((batch, max_len, cfg.kv_lora_rank), 0.0, dt),
             "krope": init.full((batch, max_len, cfg.qk_rope_head_dim), 0.0, dt)}
+
+
+def mla_cache_axes(cfg):
+    return {"ckv": ("batch", "cache_seq", None), "krope": ("batch", "cache_seq", None)}
 
 
 def _mla_project_q(p, cfg, x, positions):

@@ -11,6 +11,9 @@
 * ``c`` — decoder block with cross-attention to the encoder output
   (whisper): causal self-attention, cross-attention, MLP (``e`` and ``c``
   blocks are always GQA with a dense MLP).
+
+``block_axes`` / ``block_cache_axes`` give each block's logical-sharding
+trees, of the structure of its parameters and its cache.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from . import mlp as mlp_mod
 from . import ssm
 from .common import Init, dtype_of, rms_norm
 
-__all__ = ["TOKENS", "check_supported", "init_block", "init_block_cache", "block_forward"]
+__all__ = ["TOKENS", "check_supported", "init_block", "block_axes", "init_block_cache",
+           "block_cache_axes", "block_forward"]
 
 TOKENS = ("a", "A", "m", "x", "s", "e", "c")
 
@@ -63,6 +67,24 @@ def init_block(init: Init, cfg, tok: str):
     return p
 
 
+def block_axes(cfg, tok: str):
+    check_supported(cfg, tok)
+    if tok == "m":
+        return {"ln": (None,), "mamba": ssm.mamba2_axes(cfg)}
+    if tok == "x":
+        return {"ln": (None,), "mlstm": ssm.mlstm_axes(cfg)}
+    if tok == "s":
+        return {"ln": (None,), "slstm": ssm.slstm_axes(cfg)}
+    ax = {"ln1": (None,),
+          "attn": attn.mla_axes(cfg) if _use_mla(cfg, tok) else attn.gqa_axes(cfg),
+          "ln2": (None,),
+          "mlp": mlp_mod.moe_axes(cfg) if _use_moe(cfg, tok) else mlp_mod.mlp_axes(cfg)}
+    if tok == "c":
+        ax["ln_x"] = (None,)
+        ax["cross"] = attn.gqa_axes(cfg)
+    return ax
+
+
 def init_block_cache(init: Init, cfg, tok: str, batch: int, max_len: int):
     check_supported(cfg, tok)
     if tok == "m":
@@ -79,6 +101,23 @@ def init_block_cache(init: Init, cfg, tok: str, batch: int, max_len: int):
         c = {"self": c, "cross_k": init.full(shape, 0.0, dtype_of(cfg)),
              "cross_v": init.full(shape, 0.0, dtype_of(cfg))}
     return c
+
+
+def block_cache_axes(cfg, tok: str):
+    check_supported(cfg, tok)
+    if tok == "m":
+        return ssm.mamba2_cache_axes(cfg)
+    if tok == "x":
+        return ssm.mlstm_cache_axes(cfg)
+    if tok == "s":
+        return ssm.slstm_cache_axes(cfg)
+    if _use_mla(cfg, tok):
+        return attn.mla_cache_axes(cfg)
+    ax = attn.gqa_cache_axes(cfg)
+    if tok == "c":
+        kv_ax = ("batch", None, "cache_heads", None)
+        ax = {"self": ax, "cross_k": kv_ax, "cross_v": kv_ax}
+    return ax
 
 
 def block_forward(p, cfg, tok: str, x, positions, *, mode: str = "prefill", cache=None,

@@ -1,5 +1,6 @@
-"""Shared model building blocks: parameter draws, RMS and layer norms,
-rotary, and the token-mean cross-entropy of the losses.
+"""Shared model building blocks: parameter draws, annotated parameters
+(a value beside its logical sharding axes), input records, RMS and layer
+norms, rotary, and the token-mean cross-entropy of the losses.
 
 The reference's RMS norm has a custom VJP only to keep the residual
 gradient in the activation dtype under XLA; autograd through the cast back
@@ -9,13 +10,15 @@ to ``x``'s dtype gives that here.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from ..core import prng
 
-__all__ = ["DTYPES", "dtype_of", "Init", "KeyStream", "rms_norm", "layer_norm", "rotary_embedding",
+__all__ = ["DTYPES", "dtype_of", "Init", "KeyStream", "Annotated", "param", "split_annotated",
+           "lift_layers", "TensorSpec", "rms_norm", "layer_norm", "rotary_embedding",
            "apply_rotary", "softmax_cross_entropy"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -67,6 +70,50 @@ class Init:
 
     def full(self, shape, value: float, dtype: torch.dtype) -> torch.Tensor:
         return torch.full((*self.lead, *shape), value, dtype=dtype, device=self.device)
+
+
+@dataclasses.dataclass
+class Annotated:
+    """A parameter leaf and its logical axes (one name or None a dim)."""
+    value: Any
+    axes: tuple
+
+
+def param(init: Init, shape, axes, dtype: torch.dtype = torch.bfloat16,
+          scale: float | None = None, kind: str = "normal") -> Annotated:
+    """One annotated parameter: ``kind`` ``"zeros"``, ``"ones"`` or
+    ``"normal"`` (``N(0, 1) * scale``, fan-in scaling when ``scale`` is
+    None)."""
+    if kind in ("zeros", "ones"):
+        return Annotated(init.full(shape, float(kind == "ones"), dtype), tuple(axes))
+    if scale is None:
+        fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+        scale = fan_in ** -0.5
+    return Annotated(init.normal(shape, scale, dtype), tuple(axes))
+
+
+def split_annotated(tree):
+    """A tree (nested dicts) of :class:`Annotated` leaves -> (value tree,
+    logical-axes tree)."""
+    if isinstance(tree, Annotated):
+        return tree.value, tree.axes
+    pairs = {k: split_annotated(v) for k, v in tree.items()}
+    return {k: v for k, (v, _) in pairs.items()}, {k: a for k, (_, a) in pairs.items()}
+
+
+def lift_layers(axes_tree):
+    """An axes tree with a leading ``"layers"`` axis on every leaf: the
+    tree of a stack of layers."""
+    if isinstance(axes_tree, dict):
+        return {k: lift_layers(v) for k, v in axes_tree.items()}
+    return ("layers", *axes_tree)
+
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype, nothing allocated (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -22,16 +22,19 @@ from ``kv_len``, which counts the prefix.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
 from .. import trace_hooks
-from . import blocks
-from .common import Init, dtype_of, rms_norm, softmax_cross_entropy
+from . import blocks, flags
+from .common import Init, dtype_of, lift_layers, rms_norm, softmax_cross_entropy
 
 __all__ = [
-    "decompose_pattern", "init_lm", "init_lm_cache", "lm_forward", "lm_loss", "lm_prefill",
-    "pad_cache_to", "lm_decode_step", "params_from_numpy", "tree_from_numpy",
+    "decompose_pattern", "init_lm", "lm_axes", "init_lm_cache", "lm_cache_axes", "lm_forward",
+    "lm_loss", "lm_prefill", "pad_cache_to", "lm_decode_step", "params_from_numpy",
+    "tree_from_numpy",
 ]
 
 # cache leaves with a sequence axis (padded by pad_cache_to): GQA K/V and the
@@ -63,6 +66,20 @@ def init_lm(init: Init, cfg):
     return params
 
 
+def lm_axes(cfg):
+    """The logical-sharding tree of :func:`init_lm`'s parameters."""
+    unit, n_full, tail = decompose_pattern(cfg)
+    ax = {"embed": ("vocab", "embed_nofsdp"), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("embed_nofsdp", "vocab")
+    if "A" in unit:
+        ax["shared_attn"] = blocks.block_axes(cfg, "A")
+    ax["blocks"] = {f"u{i}": lift_layers(blocks.block_axes(cfg, tok))
+                    for i, tok in enumerate(unit) if tok != "A" and n_full > 0}
+    ax["tail"] = {f"t{i}": blocks.block_axes(cfg, tok) for i, tok in enumerate(tail)}
+    return ax
+
+
 def init_lm_cache(init: Init, cfg, batch: int, max_len: int):
     unit, n_full, tail = decompose_pattern(cfg)
     return {"blocks": {f"u{i}": blocks.init_block_cache(init.stacked(n_full), cfg, tok,
@@ -70,6 +87,14 @@ def init_lm_cache(init: Init, cfg, batch: int, max_len: int):
                        for i, tok in enumerate(unit) if n_full > 0},
             "tail": {f"t{i}": blocks.init_block_cache(init, cfg, tok, batch, max_len)
                      for i, tok in enumerate(tail)}}
+
+
+def lm_cache_axes(cfg):
+    """The logical-sharding tree of :func:`init_lm_cache`'s cache."""
+    unit, n_full, tail = decompose_pattern(cfg)
+    return {"blocks": {f"u{i}": lift_layers(blocks.block_cache_axes(cfg, tok))
+                       for i, tok in enumerate(unit) if n_full > 0},
+            "tail": {f"t{i}": blocks.block_cache_axes(cfg, tok) for i, tok in enumerate(tail)}}
 
 
 def _layer(tree, i: int):
@@ -209,17 +234,33 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _meta_params(cfg) -> dict:
+    if cfg.family == "audio":
+        from .whisper import init_whisper
+        return init_whisper(Init(torch.device("meta")), cfg)
+    return init_lm(Init(torch.device("meta")), cfg)
+
+
 def params_from_numpy(cfg, tree, device) -> dict:
     """Load the reference's ``init_lm`` pytree (``init_whisper``'s for the
     audio family), as nested dicts of numpy arrays, into the port's
     parameters on ``device``.  Every leaf keeps its dtype; the tree must have
-    the structure and shapes of :func:`init_lm` (``init_whisper``)."""
-    if cfg.family == "audio":
-        from .whisper import init_whisper
-        want = init_whisper(Init(torch.device("meta")), cfg)
-    else:
-        want = init_lm(Init(torch.device("meta")), cfg)
-    return tree_from_numpy(want, tree, device)
+    the structure and shapes of :func:`init_lm` (``init_whisper``) under
+    some setting of the layout flags (:mod:`.flags`): the current one is
+    tried first, and an error names what it expected."""
+    names = ("fused_w13", "head_sharded_layouts")
+    current = tuple(flags.get(n) for n in names)
+    settings = [current] + [v for v in itertools.product((True, False), repeat=2)
+                            if v != current]
+    first = None
+    for values in settings:
+        with flags.flags(**dict(zip(names, values))):
+            want = _meta_params(cfg)
+        try:
+            return tree_from_numpy(want, tree, device)
+        except ValueError as e:
+            first = first or e
+    raise first
 
 
 def tree_from_numpy(want: dict, tree, device, path: str = "") -> dict:

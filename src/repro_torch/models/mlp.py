@@ -1,6 +1,8 @@
-"""Feed-forward layers (``repro.models.mlp``): the dense SwiGLU MLP in the
-reference's default fused (d, 2, f) gate+up layout (or the unfused
-``w1``/``w3``/``w2`` of an MoE's shared expert), and the top-k MoE.
+"""Feed-forward layers (``repro.models.mlp``): the dense SwiGLU MLP, in the
+fused (d, 2, f) gate+up layout or, with the ``fused_w13`` flag off, the
+unfused ``w1``/``w3``/``w2`` (the layout of an MoE's shared expert), and the
+top-k MoE.  ``mlp_axes`` / ``moe_axes`` are the logical-sharding trees of
+the same structure (:mod:`repro_torch.parallel.sharding`).
 
 The MoE keeps the reference's dispatch exactly: a float32 router, softmax
 over every expert, top-k renormalized by the clamped sum; each routed slot's
@@ -18,17 +20,29 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import flags
 from .common import Init, dtype_of
 
-__all__ = ["init_mlp", "mlp_forward", "init_moe", "moe_route", "moe_forward"]
+__all__ = ["init_mlp", "mlp_axes", "mlp_forward", "init_moe", "moe_axes", "moe_route",
+           "moe_forward"]
 
 
 def init_mlp(init: Init, cfg, d_ff: int | None = None):
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     dt = dtype_of(cfg)
-    return {"w13": init.normal((d, 2, f), d ** -0.5, dt),
+    if flags.get("fused_w13"):
+        return {"w13": init.normal((d, 2, f), d ** -0.5, dt),
+                "w2": init.normal((f, d), f ** -0.5, dt)}
+    return {"w1": init.normal((d, f), d ** -0.5, dt),
+            "w3": init.normal((d, f), d ** -0.5, dt),
             "w2": init.normal((f, d), f ** -0.5, dt)}
+
+
+def mlp_axes(cfg):
+    if flags.get("fused_w13"):
+        return {"w13": ("embed", None, "mlp"), "w2": ("mlp", "embed")}
+    return {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"), "w2": ("mlp", "embed")}
 
 
 def mlp_forward(p, x):
@@ -55,6 +69,16 @@ def init_moe(init: Init, cfg):
                        "w3": init.normal((d, sf), d ** -0.5, dt),
                        "w2": init.normal((sf, d), sf ** -0.5, dt)}
     return p
+
+
+def moe_axes(cfg):
+    ax = {"router": ("embed", None),
+          "w1": ("experts", "embed_nofsdp", "expert_mlp"),
+          "w3": ("experts", "embed_nofsdp", "expert_mlp"),
+          "w2": ("experts", "expert_mlp", "embed_nofsdp")}
+    if cfg.moe.n_shared_experts:
+        ax["shared"] = {"w1": ("embed", "mlp"), "w3": ("embed", "mlp"), "w2": ("mlp", "embed")}
+    return ax
 
 
 def moe_route(p, cfg, xf):

@@ -14,9 +14,15 @@ reference's names:
 * ``decode_step(params, token, cache, kv_len)`` — (logits, cache), writing
   the step into ``cache``;
 * ``init_cache(batch, max_len)``;
-* ``input_specs(shape)`` — the model's inputs for a shape cell as empty
-  tensors on the ``meta`` device (the reference's ``ShapeDtypeStruct``
-  stand-ins; the port has no sharding axes).
+* ``param_axes()`` / ``cache_axes()`` — the logical-sharding trees of the
+  parameters and the cache (same structure; one name or None a dim), which
+  :mod:`repro_torch.parallel.sharding` resolves against a mesh;
+* ``input_records(shape)`` — the reference's ``input_specs``: ``(specs,
+  axes)`` for every model input of a shape cell, ``specs`` as
+  :class:`~repro_torch.models.common.TensorSpec` (shape, dtype) records in
+  place of ``ShapeDtypeStruct``, decode's ``kv_len`` included;
+* ``input_specs(shape)`` — the same inputs (``kv_len`` aside) as empty
+  tensors on the ``meta`` device, which ingest traces.
 
 ``count_params``, ``active_params`` and ``analytic_flops`` (6·N·D training,
 2·N·D inference, N the parameters a token touches) count on the ``meta``
@@ -38,7 +44,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from . import blocks, lm, whisper
-from .common import Init, KeyStream
+from .common import Init, KeyStream, TensorSpec
 
 __all__ = ["Model", "build_model", "count_params", "active_params", "analytic_flops"]
 
@@ -86,26 +92,41 @@ class Model:
             return whisper.init_whisper_cache(init, self.cfg, batch, max_len)
         return lm.init_lm_cache(init, self.cfg, batch, max_len)
 
-    def input_specs(self, shape: ShapeConfig) -> dict:
-        """The model inputs of one shape cell, as empty ``meta`` tensors:
-        ``tokens`` (B, S) int32 (and ``audio_embed`` (B, encoder_seq, d)
-        bf16 for whisper; for the VLM ``patches`` (B, n_patches, d) bf16
-        and ``tokens`` (B, S - n_patches)) for train and prefill; ``token``
-        (B, 1) for decode."""
+    def param_axes(self) -> dict:
+        return whisper.whisper_axes(self.cfg) if self._audio else lm.lm_axes(self.cfg)
+
+    def cache_axes(self) -> dict:
+        return whisper.whisper_cache_axes(self.cfg) if self._audio else lm.lm_cache_axes(self.cfg)
+
+    def input_records(self, shape: ShapeConfig) -> tuple[dict, dict]:
+        """(specs, logical axes) of the model inputs of one shape cell (the
+        reference's ``input_specs``): for train and prefill ``tokens`` (B,
+        S) int32, and ``audio_embed`` (B, encoder_seq, d) bf16 for whisper;
+        for the VLM ``patches`` (B, n_patches, d) bf16 and ``tokens`` (B,
+        S - n_patches); for decode ``token`` (B, 1) and the scalar
+        ``kv_len``."""
         b, s = shape.global_batch, shape.seq_len
-        meta = torch.device("meta")
+        i32, bf16 = torch.int32, torch.bfloat16
         if shape.kind == "decode":
-            return {"token": torch.empty((b, 1), dtype=torch.int32, device=meta)}
-        if self.cfg.family == "vlm":
-            s -= self.cfg.n_patches
-        specs = {"tokens": torch.empty((b, s), dtype=torch.int32, device=meta)}
-        if self.cfg.family == "vlm":
-            specs["patches"] = torch.empty((b, self.cfg.n_patches, self.cfg.d_model),
-                                           dtype=torch.bfloat16, device=meta)
+            return ({"token": TensorSpec((b, 1), i32), "kv_len": TensorSpec((), i32)},
+                    {"token": ("batch", None), "kv_len": ()})
         if self._audio:
-            specs["audio_embed"] = torch.empty((b, self.cfg.encoder_seq, self.cfg.d_model),
-                                               dtype=torch.bfloat16, device=meta)
-        return specs
+            return ({"audio_embed": TensorSpec((b, self.cfg.encoder_seq, self.cfg.d_model), bf16),
+                     "tokens": TensorSpec((b, s), i32)},
+                    {"audio_embed": ("batch", None, None), "tokens": ("batch", None)})
+        if self.cfg.family == "vlm":
+            return ({"patches": TensorSpec((b, self.cfg.n_patches, self.cfg.d_model), bf16),
+                     "tokens": TensorSpec((b, s - self.cfg.n_patches), i32)},
+                    {"patches": ("batch", None, None), "tokens": ("batch", None)})
+        return {"tokens": TensorSpec((b, s), i32)}, {"tokens": ("batch", None)}
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """The inputs of :meth:`input_records` as empty ``meta`` tensors,
+        decode's ``kv_len`` (an int argument of ``decode_step``) aside."""
+        specs, _ = self.input_records(shape)
+        meta = torch.device("meta")
+        return {k: torch.empty(r.shape, dtype=r.dtype, device=meta)
+                for k, r in specs.items() if k != "kv_len"}
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:

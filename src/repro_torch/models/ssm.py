@@ -32,9 +32,10 @@ from .. import trace_hooks
 from ..kernels.ssd import ops as ssd_ops
 from .common import Init, dtype_of, rms_norm
 
-__all__ = ["init_mamba2", "mamba2_forward", "init_mamba2_cache",
-           "init_mlstm", "mlstm_forward", "init_mlstm_cache",
-           "init_slstm", "slstm_forward", "init_slstm_cache", "SlstmScan", "slstm_scan"]
+__all__ = ["init_mamba2", "mamba2_axes", "mamba2_forward", "init_mamba2_cache",
+           "mamba2_cache_axes", "init_mlstm", "mlstm_axes", "mlstm_forward", "init_mlstm_cache",
+           "mlstm_cache_axes", "init_slstm", "slstm_axes", "slstm_forward", "init_slstm_cache",
+           "slstm_cache_axes", "SlstmScan", "slstm_scan"]
 
 
 def _mamba_dims(cfg):
@@ -62,11 +63,21 @@ def init_mamba2(init: Init, cfg):
     }
 
 
+def mamba2_axes(cfg):
+    return {"in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+            "a_log": (None,), "dt_bias": (None,), "d_skip": (None,), "norm_w": ("mlp",),
+            "out_proj": ("mlp", "embed")}
+
+
 def init_mamba2_cache(init: Init, cfg, batch: int):
     d_inner, nh, g, n, ph = _mamba_dims(cfg)
     conv_dim = d_inner + 2 * g * n
     return {"conv": init.full((batch, cfg.ssm.conv_kernel - 1, conv_dim), 0.0, dtype_of(cfg)),
             "state": init.full((batch, nh, n, ph), 0.0, torch.float32)}
+
+
+def mamba2_cache_axes(cfg):
+    return {"conv": ("batch", None, "act_mlp"), "state": ("batch", "cache_heads", None, None)}
 
 
 def _causal_conv(x, w, b, tail=None):
@@ -149,11 +160,21 @@ def init_mlstm(init: Init, cfg):
     }
 
 
+def mlstm_axes(cfg):
+    return {"up": ("embed", "mlp"), "wq": ("mlp", "heads"), "wk": ("mlp", "heads"),
+            "wv": ("mlp", "heads"), "w_gates": ("mlp", None), "norm_w": ("mlp",),
+            "down": ("mlp", "embed")}
+
+
 def init_mlstm_cache(init: Init, cfg, batch: int):
     """Matrix memory C (B, nh, ph_k, ph_v) and normalizer n (B, nh, ph_k)."""
     _, nh, ph = _mlstm_dims(cfg)
     return {"C": init.full((batch, nh, ph, ph), 0.0, torch.float32),
             "n": init.full((batch, nh, ph), 0.0, torch.float32)}
+
+
+def mlstm_cache_axes(cfg):
+    return {"C": ("batch", "cache_heads", None, None), "n": ("batch", "cache_heads", None)}
 
 
 def mlstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
@@ -213,6 +234,11 @@ def init_slstm(init: Init, cfg):
     }
 
 
+def slstm_axes(cfg):
+    return {"w_x": ("embed", None), "r_h": ("heads", None, None), "b": (None,),
+            "norm_w": (None,), "down": (None, "embed")}
+
+
 def init_slstm_cache(init: Init, cfg, batch: int):
     nh = cfg.n_heads
     dh = cfg.d_model // nh
@@ -220,6 +246,11 @@ def init_slstm_cache(init: Init, cfg, batch: int):
     return {"c": init.full(z, 0.0, torch.float32), "n": init.full(z, 0.0, torch.float32),
             "h": init.full(z, 0.0, torch.float32),
             "m": init.full((batch, nh), 0.0, torch.float32)}
+
+
+def slstm_cache_axes(cfg):
+    ax = ("batch", "cache_heads", None)
+    return {"c": ax, "n": ax, "h": ax, "m": ("batch", "cache_heads")}
 
 
 def _cell_math(xt, c, n, h, m, r_h, nh: int, dh: int):

@@ -18,11 +18,11 @@ import torch
 
 from .. import trace_hooks
 from . import blocks
-from .common import Init, dtype_of, rms_norm, softmax_cross_entropy
+from .common import Init, dtype_of, lift_layers, rms_norm, softmax_cross_entropy
 from .lm import _layer, _store
 
-__all__ = ["init_whisper", "init_whisper_cache", "whisper_loss", "whisper_prefill",
-           "whisper_decode_step"]
+__all__ = ["init_whisper", "whisper_axes", "init_whisper_cache", "whisper_cache_axes",
+           "whisper_loss", "whisper_prefill", "whisper_decode_step"]
 
 
 def init_whisper(init: Init, cfg):
@@ -37,10 +37,25 @@ def init_whisper(init: Init, cfg):
     }
 
 
+def whisper_axes(cfg):
+    return {
+        "embed": ("vocab", "embed_nofsdp"),
+        "enc_pos": (None, "embed_nofsdp"),
+        "enc_norm": (None,),
+        "final_norm": (None,),
+        "encoder": lift_layers(blocks.block_axes(cfg, "e")),
+        "decoder": lift_layers(blocks.block_axes(cfg, "c")),
+    }
+
+
 def init_whisper_cache(init: Init, cfg, batch: int, max_len: int):
     """Per decoder layer (stacked): self-attention K/V of ``max_len`` and
     the cross K/V over the encoder's ``encoder_seq`` frames."""
     return blocks.init_block_cache(init.stacked(cfg.n_layers), cfg, "c", batch, max_len)
+
+
+def whisper_cache_axes(cfg):
+    return lift_layers(blocks.block_cache_axes(cfg, "c"))
 
 
 def _encode(params, cfg, audio_embed):

@@ -1,0 +1,260 @@
+"""Logical-axis sharding rules (``repro.parallel.sharding``), resolved against
+an abstract mesh or a ``torch.distributed`` device mesh.
+
+Every parameter, cache entry and model input carries *logical* axis names
+(the models' ``*_axes`` trees); :func:`resolve_axes` maps them onto the axes
+of a mesh with the reference's rules (:data:`DEFAULT_RULES`, MaxText-style):
+``batch`` over ``("pod", "data")``, ``embed`` over ``data`` (FSDP), heads,
+MLP and vocabulary over ``model`` (tensor parallelism), and so on.  Two rules
+decide every spec, as in the reference:
+
+* a mesh axis that an earlier dim claimed is dropped from later dims (the
+  mLSTM's ``(mlp, heads)`` both map to ``model``: the first wins);
+* a dim that its mesh axes do not divide is replicated (qwen3-14b's 40
+  heads on a 16-way ``model`` axis).
+
+A mesh is either an :class:`AbstractMesh` (ordered axis names and sizes, no
+devices: how the reference resolves against its 256- and 512-chip meshes)
+or a ``torch.distributed.device_mesh.DeviceMesh`` with named dims.  A
+resolved spec is a :class:`PartitionSpec` (one entry a tensor dim: a mesh
+axis name, a tuple of names, or None), and :func:`sharding_for` pairs it
+with its mesh in a :class:`NamedSharding`, whose ``placements`` on a
+``DeviceMesh`` are the ``Shard(d)`` / ``Replicate()`` that
+``torch.distributed.tensor.distribute_tensor`` takes.
+
+The port executes on one card: :func:`constrain` is a no-op without a mesh
+or on a mesh whose axes all have size 1 (the reference's call sites inside
+the forwards are no-ops on one device, and the port's forwards do not call
+it), and raises on a larger axis.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+
+__all__ = [
+    "DEFAULT_RULES",
+    "LogicalRules",
+    "AbstractMesh",
+    "PartitionSpec",
+    "NamedSharding",
+    "axis_sizes",
+    "is_axes",
+    "resolve_axes",
+    "sharding_for",
+    "constrain",
+    "tree_shardings",
+    "data_parallel_mesh",
+    "batch_sharding",
+]
+
+# logical name -> mesh axis (or tuple of axes, or None); the reference's table
+DEFAULT_RULES: dict[str, object] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": "data",
+    "embed_nofsdp": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "expert_mlp": "data",   # FSDP over the expert FF dim (kimi: 2 TB of
+                            # expert weights need 256-way, not 16-way, sharding)
+    "vocab": "model",
+    "state": None,
+    "conv": None,
+    "layers": None,
+    "act_embed": None,
+    "act_heads": "model",
+    "act_mlp": "model",
+    "act_seq": None,
+    # flash-decode-style cache layout: shard the SEQ axis of KV caches over
+    # the model axis; the dedup rule drops the later cache_heads claim
+    "cache_seq": "model",
+    "cache_heads": "model",
+}
+
+
+class _RulesState(threading.local):
+    def __init__(self):
+        self.rules = dict(DEFAULT_RULES)
+
+
+_STATE = _RulesState()
+
+
+@contextlib.contextmanager
+def LogicalRules(overrides: dict[str, object]):
+    """Temporarily override logical->mesh rules (this thread only)."""
+    old = dict(_STATE.rules)
+    _STATE.rules.update(overrides)
+    try:
+        yield
+    finally:
+        _STATE.rules = old
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis sizes and names, in order, with no devices."""
+    axis_sizes: tuple
+    axis_names: tuple
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"{len(self.axis_sizes)} sizes for {len(self.axis_names)} names")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+class PartitionSpec(tuple):
+    """One entry a tensor dim: a mesh axis name, a tuple of names, or None
+    (replicated)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a resolved spec."""
+    mesh: object
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple | None:
+        """Per mesh dim, ``Shard(d)`` for the tensor dim ``d`` that the spec
+        maps onto it, else ``Replicate()``; None on an abstract mesh."""
+        if isinstance(self.mesh, AbstractMesh):
+            return None
+        from torch.distributed.tensor import Replicate, Shard
+        dim_of = {}
+        for d, entry in enumerate(self.spec):
+            for name in (entry if isinstance(entry, tuple) else (entry,)):
+                if name is not None:
+                    dim_of[name] = d
+        return tuple(Shard(dim_of[n]) if n in dim_of else Replicate()
+                     for n in self.mesh.mesh_dim_names)
+
+
+def axis_sizes(mesh) -> dict:
+    """Axis name -> size of an :class:`AbstractMesh` or a named
+    ``DeviceMesh``."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("a DeviceMesh without mesh_dim_names cannot resolve logical axes")
+    return dict(zip(names, mesh.shape))
+
+
+def _mesh_axis_size(sizes: dict, axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        return math.prod(_mesh_axis_size(sizes, a) for a in axis)
+    return sizes.get(axis, 1)
+
+
+def _present(sizes: dict, axis):
+    """An axis assignment filtered down to the axes this mesh has."""
+    if axis is None:
+        return None
+    if isinstance(axis, (tuple, list)):
+        kept = tuple(a for a in axis if a in sizes)
+        return kept if kept else None
+    return axis if axis in sizes else None
+
+
+def resolve_axes(logical_axes, shape, mesh, rules=None) -> PartitionSpec:
+    """Logical axis names (one a dim, None = replicated) -> PartitionSpec.
+
+    A dim its mesh axes do not divide is replicated; a mesh axis claimed by
+    an earlier dim is dropped from later dims."""
+    rules = rules if rules is not None else _STATE.rules
+    sizes = axis_sizes(mesh)
+    spec = []
+    used: set = set()
+    for dim, name in zip(shape, logical_axes):
+        axis = _present(sizes, rules.get(name)) if name is not None else None
+        if axis is not None:
+            members = axis if isinstance(axis, tuple) else (axis,)
+            members = tuple(a for a in members if a not in used)
+            axis = members if len(members) > 1 else (members[0] if members else None)
+        if axis is not None and dim % _mesh_axis_size(sizes, axis) != 0:
+            axis = None
+        if axis is not None:
+            used.update(axis if isinstance(axis, tuple) else (axis,))
+        spec.append(axis)
+    return PartitionSpec(*spec)
+
+
+def sharding_for(logical_axes, shape, mesh, rules=None) -> NamedSharding:
+    return NamedSharding(mesh, resolve_axes(logical_axes, tuple(shape), mesh, rules))
+
+
+def constrain(x, logical_axes, mesh=None, rules=None):
+    """The reference's sharding constraint by logical names: ``x`` itself
+    without a mesh or on a mesh whose axes all have size 1.  The port does
+    not execute sharded across cards, so a larger axis raises."""
+    if mesh is not None:
+        for name, size in axis_sizes(mesh).items():
+            if size > 1:
+                raise NotImplementedError(f"constrain over mesh axis {name!r} of size {size}: "
+                                          "sharded execution across cards is not ported")
+    return x
+
+
+def data_parallel_mesh(n_devices: int | None = None, axis_name: str = "data", device=None):
+    """A one-axis ``DeviceMesh`` over the data-parallel world of this process
+    (:mod:`repro_torch.parallel.data`): its ``n_devices`` ranks (default:
+    all).  Without an initialised world a one-rank world is made
+    (:func:`repro_torch.launch.mesh.single_device_mesh`).  Asking for more
+    devices than the world has raises, as the reference does."""
+    from ..launch.mesh import single_device_mesh
+    from .data import current_world
+    world = current_world()
+    if world is None:
+        if n_devices not in (None, 1):
+            raise ValueError(f"asked for {n_devices} devices, have 1 (no data-parallel world "
+                             "is initialised)")
+        return single_device_mesh(device, axis_names=(axis_name,))
+    n = world.size if n_devices is None else n_devices
+    if n != world.size:
+        raise ValueError(f"asked for {n} devices, the data-parallel world has {world.size}")
+    from torch.distributed.device_mesh import init_device_mesh
+    from ..device import resolve_device
+    return init_device_mesh(resolve_device(device).type, (n,), mesh_dim_names=(axis_name,))
+
+
+def batch_sharding(mesh, axis_name: str = "data") -> NamedSharding:
+    """A leading batch dim split over ``axis_name``."""
+    return NamedSharding(mesh, PartitionSpec(axis_name))
+
+
+def is_axes(x) -> bool:
+    """An axes leaf: a tuple of names and Nones (the empty tuple of a
+    scalar included)."""
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None))) for a in x)
+
+
+def tree_shardings(spec_tree, shape_tree, mesh, rules=None):
+    """A tree (nested dicts) of logical-axes tuples and a tree of the same
+    structure whose leaves have a ``.shape`` (tensors, ``meta`` tensors,
+    :class:`~repro_torch.models.common.TensorSpec`) -> a tree of
+    :class:`NamedSharding`."""
+    if is_axes(spec_tree):
+        return sharding_for(spec_tree, shape_tree.shape, mesh, rules)
+    if set(spec_tree) != set(shape_tree):
+        raise ValueError(f"axes tree keys {sorted(spec_tree)} differ from the shapes' "
+                         f"{sorted(shape_tree)}")
+    return {k: tree_shardings(v, shape_tree[k], mesh, rules) for k, v in spec_tree.items()}
