@@ -282,7 +282,21 @@ Run from the repository root:  python3 chip_smoke.py
    (loss, grad_norm and every parameter bit for bit, both under
    torch.use_deterministic_algorithms: the embedding's gradient scatter
    otherwise adds in a nondeterministic order), one B3 launch a layer;
-44. B3 at that prefill's shape held to its plain version and timed.
+44. B3 at that prefill's shape held to its plain version and timed;
+45. (started before 40, on the host beside 40-44, the card hidden from it;
+   read last) the multi-pod dry run (repro_torch.launch.dryrun) in three
+   processes of their own:
+   the golden cells of tests/golden/torch_dryrun.json (the JAX package's
+   XLA lowering at 256/512 host devices) with argument and output bytes
+   equal (a prefill's cache in the decode layout, ROADMAP §C), model flops
+   equal, per-device flops within 5 %; each cell's three roofline terms,
+   dominant term, mfu_bound and GiB a device (a model at the H100's
+   published peaks);
+46. (last) internlm2-1.8b at 43's shapes on a 1 x 1 mesh, prefill and a
+   train step (one microbatch): the dry run's argument bytes equal to what
+   the card holds, its peak estimate beside torch.cuda.max_memory_allocated,
+   its step_lower_bound_s at most the measured median step (a step below
+   the bound fails: the roofline would be wrong); 24 B3 launches a prefill.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -306,9 +320,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "dnn_schedules.json"
 SEEDED_GOLDEN = ROOT / "tests" / "golden" / "torch_seeded_schedules.json"
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+sys.path.insert(0, str(ROOT / "src"))
+try:     # the H100's published peaks, the dry run's roofline's (one home for them)
+    from repro_torch.launch.roofline import HW
+except ImportError:      # outside a checkout, or without torch: main() says so
+    HW = {}
+HBM_BYTES_PER_S = HW.get("hbm_bw")        # H100 SXM device memory
+F32_FLOPS_PER_S = HW.get("f32_flops")     # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = HW.get("peak_flops")   # H100 SXM bf16 tensor cores, dense
 STAGES = 4
 TOL_LOGITS = 1e-4              # single step: float32 sums in another order
 TOL_LOGP = 1e-3                # whole decode: drift carried through n LSTM steps
@@ -4113,7 +4132,208 @@ def sharding_phase(card: str) -> list[dict]:
     return [row]
 
 
+DRYRUN_GOLDEN = ROOT / "tests" / "golden" / "torch_dryrun.json"
+DRYRUN_TIMEOUT = 900
+DRYRUN_REPS = 5          # timed calls of each step on the card (median)
+# the dry run, in processes of their own (one fake process group a process):
+# the golden cells in three shares, one with internlm2-1.8b at the sharding
+# phase's shapes on a 1 x 1 mesh (prefill, and a train step of one microbatch)
+DRYRUN_SHARES = 3
+DRYRUN_CHILD = r"""
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch.dryrun import lower_cell, trace_step
+from repro_torch.launch.roofline import roofline_from_cost
+from repro_torch.models.model import analytic_flops
+cells, arch, b, s = json.loads(sys.argv[1]), sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+out = {"golden": {}, "card": {}}
+for key in cells:
+    a, shape, mesh = key.split("__")
+    t0 = time.perf_counter()
+    rec = lower_cell(a, shape, mesh == "multi")
+    out["golden"][key] = {k: rec[k] for k in ("memory", "roofline", "outputs", "fallbacks")}
+    out["golden"][key]["seconds"] = time.perf_counter() - t0
+for kind in ("prefill", "train") if arch else ():
+    cfg = get_config(arch)
+    shape = ShapeConfig("card", s, b, kind)
+    res = trace_step(cfg, shape, (1, 1), ("data", "model"), microbatches=1, scopes=False)
+    rl = roofline_from_cost(res["cost"], 1, analytic_flops(cfg, shape))
+    out["card"][kind] = {"memory": res["memory"], "roofline": rl.as_dict()}
+print(json.dumps(out))
+"""
+
+
+def start_dryrun() -> list[subprocess.Popen]:
+    """The dry run's processes: they work on the host (meta tensors; the
+    card is hidden from them) beside the card's last phases, their output
+    in temporary files."""
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    cells = sorted(json.loads(DRYRUN_GOLDEN.read_text())["cells"])
+    procs = []
+    for i in range(DRYRUN_SHARES):
+        files = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+        proc = subprocess.Popen(     # the second share is the lightest: it takes the card's
+            [sys.executable, "-c", DRYRUN_CHILD, json.dumps(cells[i::DRYRUN_SHARES]),
+             SHARD_ARCH if i == 1 else "", str(SHARD_B), str(SHARD_S)],
+            cwd=ROOT, env=env, stdout=files[0], stderr=files[1])
+        proc.output_files = files
+        procs.append(proc)
+    return procs
+
+
+def dryrun_output(proc: subprocess.Popen) -> tuple[int, str, str]:
+    """(exit code, stdout, stderr) of the dry run's process, waited for."""
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure(f"dryrun: the dry run's process ran past {DRYRUN_TIMEOUT} s")
+    outs = []
+    for f in proc.output_files:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    return rc, outs[0], outs[1]
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return 0 if tree is None else tree.numel() * tree.element_size()
+
+
+def dryrun_phase(card: str, procs: list) -> None:
+    """(a) the dry run's golden cells against tests/golden/torch_dryrun.json
+    (the reference's, as tests/test_torch_dryrun.py holds them); (b)
+    internlm2-1.8b at the sharding phase's shapes on a 1 x 1 mesh: the
+    argument bytes equal to what the card holds, the peak estimate beside
+    torch.cuda.max_memory_allocated, the roofline's bound at most the
+    measured median step (prefill and a train step)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import make_prefill_step, make_train_step, single_device_mesh
+    from repro_torch.launch.dryrun import reference_problems
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    res = {"golden": {}, "card": {}}
+    for proc in procs:
+        rc, out, err = dryrun_output(proc)
+        check(rc == 0, f"dryrun: a dry run's process failed: {err[-3000:]}")
+        share = json.loads(out.strip().splitlines()[-1])
+        res["golden"].update(share["golden"])
+        res["card"].update(share["card"])
+    golden = json.loads(DRYRUN_GOLDEN.read_text())["cells"]
+    check(set(res["golden"]) == set(golden), "dryrun: golden cells differ")
+    for key, rec in sorted(res["golden"].items()):
+        ref, rl, mem = golden[key], rec["roofline"], rec["memory"]
+        problems = reference_problems(   # a prefill's cache in the decode layout (ROADMAP §C)
+            mem, rl["flops_per_device"], rl["model_flops"], ref,
+            rec["outputs"] if "__prefill_" in key else None)
+        check(not problems, f"dryrun {key}: {problems}")
+        print(f"dryrun {key} (model at published H100 peaks, not a measurement; reference "
+              f"flops ratio {rl['flops_per_device'] / ref['hlo_cost']['flops_per_device']:.4f}): "
+              f"compute {rl['compute_s']:.6g} s, memory {rl['memory_s']:.6g} s, collective "
+              f"{rl['collective_s']:.6g} s, dominant {rl['dominant']}, mfu_bound "
+              f"{rl['mfu_bound']:.4f}, {mem['peak_estimate_bytes'] / 2**30:.2f} GiB a device; "
+              f"traced in {rec['seconds']:.1f} s", flush=True)
+
+    # ---- (b) the one-card check: internlm2-1.8b, B = 2, S = 1024 -------- #
+    cfg = get_config(SHARD_ARCH)
+    model = build_model(cfg)
+    params = model.init_params(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (SHARD_B, SHARD_S), generator=gen,
+                           device="cuda").to(torch.int32)
+    batch = {"tokens": tokens}
+    mesh = single_device_mesh()
+    n_attn = cfg.pattern().count("a")
+
+    def timed(fn) -> tuple[float, int]:
+        """Median ms of DRYRUN_REPS calls (CUDA events, after one warm-up)
+        and the peak bytes allocated during them."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(DRYRUN_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), torch.cuda.max_memory_allocated()
+
+    specs, axes = model.input_records(ShapeConfig("card", SHARD_S, SHARD_B, "prefill"))
+    prefill, _ = make_prefill_step(model, mesh, specs, axes)
+    for key in kbuild.LAUNCHES:
+        kbuild.LAUNCHES[key] = 0
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kbuild.LAUNCHES.items() if v}
+    check(launches == {"flash_fwd": n_attn},
+          f"dryrun prefill: launches {launches}, expected {n_attn} flash_fwd")
+    held = {"prefill": tree_bytes(params) + tree_bytes(batch)}
+    ms = {}
+    ms["prefill"], peak_prefill = timed(lambda: prefill(params, batch))
+
+    tcfg = TrainConfig(microbatches=1, master_fp32=False)
+    tspecs, taxes = model.input_records(ShapeConfig("card", SHARD_S, SHARD_B, "train"))
+    train, _, optimizer = make_train_step(model, mesh, tcfg, tspecs, taxes)
+    opt = optimizer.init(params)
+    held["train"] = (tree_bytes(params) + tree_bytes(batch) + tree_bytes(opt.mu)
+                     + tree_bytes(opt.nu) + tree_bytes(opt.master) + tree_bytes(opt.step))
+    ms["train"], peak_train = timed(lambda: train(params, opt, batch))
+    peaks = {"prefill": peak_prefill, "train": peak_train}
+    for kind in ("prefill", "train"):
+        dry = res["card"][kind]
+        bound_ms = dry["roofline"]["step_lower_bound_s"] * 1e3
+        check(dry["memory"]["argument_bytes"] == held[kind],
+              f"dryrun {kind}: argument bytes {dry['memory']['argument_bytes']} against "
+              f"{held[kind]} held on the card")
+        check(bound_ms <= ms[kind], f"dryrun {kind}: measured {ms[kind]:.3f} ms is below the "
+              f"roofline's bound {bound_ms:.3f} ms: the roofline is wrong")
+        print(f"dryrun one-card {SHARD_ARCH} {kind} B={SHARD_B} S={SHARD_S} on {card}: "
+              f"argument bytes {held[kind]} equal to the card's; measured median "
+              f"{ms[kind]:.3f} ms against the bound {bound_ms:.3f} ms ({dry['roofline']['dominant']}"
+              f"-bound; measured / bound {ms[kind] / bound_ms:.3f}); peak estimate "
+              f"{dry['memory']['peak_estimate_bytes'] / 2**30:.3f} GiB beside "
+              f"max_memory_allocated {peaks[kind] / 2**30:.3f} GiB", flush=True)
+    del params, opt, model
+    torch.cuda.empty_cache()
+    print(f"dryrun phase on {card}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def run() -> dict:
+    """Every phase; the dry run's process (the last phase's) never outlives
+    the run."""
+    import torch
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    dry = []
+    try:
+        return run_phases(card, dry)
+    finally:
+        for proc in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(card: str, dry: list) -> dict:
     import numpy as np
     import torch
 
@@ -4125,11 +4345,6 @@ def run() -> dict:
     from repro_torch.kernels.ptr.decode import TEMPLATES, decode_batch, decode_batch_reference
     from repro_torch.kernels.ptr.kernel import pointer_step_cuda, step_cluster_size
     from repro_torch.kernels.ptr.ref import reference_pointer_step
-
-    card = card_line()
-    print(card, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t_build = ops.build_kernels()
     print(f"build: all four kernels in {t_build:.2f} s (nvcc, sm_90a, in parallel)", flush=True)
@@ -4482,9 +4697,14 @@ def run() -> dict:
     kernels += zoo_train_phase(card)
 
     # ---- the example scripts' twins (B1), then the sharded step makers
-    # on a one-device mesh (B3) ------------------------------------------- #
+    # on a one-device mesh (B3); the dry run's process works on the host
+    # beside them ----------------------------------------------------------- #
+    dry += start_dryrun()
     kernels += examples_phase(card)
     kernels += sharding_phase(card)
+
+    # ---- the multi-pod dry run's golden cells and its one-card check ----- #
+    dryrun_phase(card, dry)
     return {"kernels": kernels, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "card": card}
 

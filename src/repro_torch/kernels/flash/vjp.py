@@ -14,7 +14,9 @@ recomputes each key block's probabilities from the row log-sum-exp:
 
 Forward: kernel B3 with its lse output on CUDA tensors
 (:func:`~repro_torch.kernels.flash.kernel.flash_attention_cuda`), the plain
-version with its lse on CPU ones.  Backward: plain PyTorch, as the
+version with its lse on CPU ones.  On ``DTensor``s (the dry run's sharded
+trace) the backward runs on each device's local shards
+(:func:`sharded_backward`).  Backward: plain PyTorch, as the
 reference's is plain XLA (no Pallas kernel).  Its products take operands
 rounded to the input dtype and sum in float32, as the reference's
 ``preferred_element_type=float32`` dots do; a GQA group's key and value
@@ -28,17 +30,25 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_cuda
+from ... import trace_hooks
+from .kernel import attention_flops, flash_attention_cuda
 from .ref import attention_with_lse, expand_kv
 
-__all__ = ["flash_mha", "forward_with_lse", "flash_backward", "FlashAttention"]
+__all__ = ["flash_mha", "forward_with_lse", "flash_backward", "sharded_backward",
+           "FlashAttention"]
 
 
 def forward_with_lse(q, k, v, causal: bool, scale: float):
-    """(out, lse): B3 on CUDA tensors (the kernel writes the lse), the plain
-    version on CPU ones."""
+    """(out, lse): B3 on CUDA tensors (the kernel writes the lse), one kernel
+    operation of a shapes-only trace on meta ones, the plain version on CPU
+    ones."""
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, scale=scale, return_lse=True)
+    if q.is_meta:
+        (b, hq, sq, d), sk, dv = q.shape, k.shape[2], v.shape[-1]
+        return trace_hooks.kernel(
+            "flash_fwd", attention_flops(b, hq, sq, sk, d, dv, causal), (q, k, v),
+            lambda: (q.new_empty((b, hq, sq, dv)), q.new_empty((b, hq, sq), dtype=torch.float32)))
     return attention_with_lse(q, k, v, causal=causal, scale=scale)
 
 
@@ -56,7 +66,7 @@ def flash_backward(q, k, v, out, lse, dout, *, causal: bool, scale: float, block
     ke, ve = expand_kv(k, hq), expand_kv(v, hq)
     q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
     delta = (dout.float() * out.float()).sum(-1)                     # (b, hq, sq)
-    dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    dq = torch.zeros_like(q, dtype=torch.float32)                    # (b, hq, sq, d)
     dks, dvs = [], []
     for j0 in range(0, sk, block_k):
         kj, vj = rounded(ke[:, :, j0: j0 + block_k]), rounded(ve[:, :, j0: j0 + block_k])
@@ -77,6 +87,53 @@ def flash_backward(q, k, v, out, lse, dout, *, causal: bool, scale: float, block
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _contiguous_strides(shape) -> tuple:
+    out = [1]
+    for n in reversed(tuple(shape)[1:]):
+        out.insert(0, out[0] * n)
+    return tuple(out)
+
+
+def sharded_backward(q, k, v, out, lse, dout, *, causal: bool, scale: float, block_k: int):
+    """:func:`flash_backward` of ``DTensor`` operands (the dry run's sharded
+    trace), run by each device on its local shards, as the kernel runs
+    per device: batch and query heads keep the queries' shards; key and
+    value heads that the mesh axis does not divide stay whole, and a device
+    takes the ones its query heads read (its key and value gradients are
+    then partial sums over that axis)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    hq, hkv = q.shape[1], k.shape[1]
+    qp, kvp, kv_grad = [], [], []
+    for size, p in zip(mesh.shape, q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            qp.append(p), kvp.append(p), kv_grad.append(p)
+        elif isinstance(p, Shard) and p.dim == 1 and hkv % size == 0:
+            qp.append(p), kvp.append(p), kv_grad.append(p)
+        elif isinstance(p, Shard) and p.dim == 1:
+            qp.append(p), kvp.append(Replicate()), kv_grad.append(Partial())
+        else:
+            qp.append(Replicate()), kvp.append(Replicate()), kv_grad.append(Replicate())
+
+    def local(t, pl):
+        return t.redistribute(mesh, tuple(pl)).to_local()
+
+    lq, lout, ldout = local(q, qp), local(out, qp), local(dout, qp)
+    llse, lk, lv = local(lse, qp), local(k, kvp), local(v, kvp)
+    group = hq // hkv
+    need = max(1, lq.shape[1] // group)       # the kv heads the local query heads read
+    dq, dk, dv = flash_backward(lq, lk[:, :need], lv[:, :need], lout, llse, ldout,
+                                causal=causal, scale=scale, block_k=block_k)
+    if need < lk.shape[1]:
+        dk = torch.zeros_like(lk).index_copy_(1, torch.arange(need, device=lk.device), dk)
+        dv = torch.zeros_like(lv).index_copy_(1, torch.arange(need, device=lv.device), dv)
+
+    def wrap(t, like, pl):         # t is contiguous: its global strides are too
+        return DTensor.from_local(t.contiguous(), mesh, tuple(pl), run_check=False,
+                                  shape=like.shape, stride=_contiguous_strides(like.shape))
+    return wrap(dq, q, qp), wrap(dk, k, kv_grad), wrap(dv, v, kv_grad)
+
+
 class FlashAttention(torch.autograd.Function):
     """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D[v]) -> (B, Hq, Sq, Dv)."""
 
@@ -91,8 +148,9 @@ class FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=ctx.causal,
-                                    scale=ctx.scale, block_k=ctx.block_k)
+        backward = sharded_backward if hasattr(q, "device_mesh") else flash_backward
+        dq, dk, dv = backward(q, k, v, out, lse, dout, causal=ctx.causal,
+                              scale=ctx.scale, block_k=ctx.block_k)
         return dq, dk, dv, None, None, None
 
 

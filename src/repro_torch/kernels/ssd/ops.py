@@ -9,7 +9,9 @@ backward recomputes the plain chunkwise scan under autograd and
 differentiates it — what the reference does off the TPU, where it trains
 the SSD by autodiff of ``reference_ssd_chunked`` (the Pallas kernel has
 no VJP).  The Function sits below the padding, so the padding is
-differentiated by torch.
+differentiated by torch.  On ``DTensor``s (the dry run's sharded trace)
+the forward is one kernel operation of the trace and the backward runs on
+each device's local shards.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ class SsdScan(torch.autograd.Function):
         ctx.chunk = chunk
         if x.is_cuda:
             return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
+        if x.is_meta:
+            return _meta_kernel(x, dt, A, B, C, chunk, in_scale)
         y, hf = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
         return y.to(x.dtype), hf
 
@@ -46,18 +50,95 @@ class SsdScan(torch.autograd.Function):
     def backward(ctx, dy, dhf):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[:6]
-        leaves = [None if t is None else t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-        outs = [(i, g) for i, g in enumerate((dy, dhf)) if g is not None]
-        wanted = [t for t, n in zip(leaves, need) if n]
-        if not outs or not wanted:
-            return (None,) * 7
-        x, dt, A, B, C, sc = leaves
-        with torch.enable_grad():
-            y, hf = ssd_chunked(x, dt, A, B, C, chunk=ctx.chunk, in_scale=sc)
-            res = (y.to(x.dtype), hf)
-            grads = iter(torch.autograd.grad([res[i] for i, _ in outs], wanted,
-                                             [g for _, g in outs], allow_unused=True))
-        return tuple(next(grads) if n else None for n in need) + (None,)
+        if hasattr(saved[0], "device_mesh"):
+            return _sharded_backward(saved, need, dy, dhf, ctx.chunk) + (None,)
+        return _backward(saved, need, dy, dhf, ctx.chunk) + (None,)
+
+
+def _backward(saved, need, dy, dhf, chunk: int) -> tuple:
+    """The inputs' gradients (None where not needed): autograd of the plain
+    chunkwise scan, recomputed."""
+    leaves = [None if t is None else t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+    outs = [(i, g) for i, g in enumerate((dy, dhf)) if g is not None]
+    wanted = [t for t, n in zip(leaves, need) if n]
+    if not outs or not wanted:
+        return (None,) * 6
+    x, dt, A, B, C, sc = leaves
+    with torch.enable_grad():
+        y, hf = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=sc)
+        res = (y.to(x.dtype), hf)
+        grads = iter(torch.autograd.grad([res[i] for i, _ in outs], wanted,
+                                         [g for _, g in outs], allow_unused=True))
+    return tuple(next(grads) if n else None for n in need)
+
+
+def _sharded_backward(saved, need, dy, dhf, chunk: int) -> tuple:
+    """:func:`_backward` of ``DTensor`` operands (the dry run's sharded
+    trace), run by each device on its local shards: batch and heads keep
+    x's shards (dt, in_scale and A follow the heads, B and C the batch); the
+    gradients of A, B and C are partial sums over the axes a device sums
+    only its part of."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    x = saved[0]
+    mesh = x.device_mesh
+
+    def spread(dims_to, partial_on_heads=False, partial_on_batch=False):
+        out = []
+        for p in x.placements:
+            d = getattr(p, "dim", None)
+            if d == 0:
+                out.append(Partial() if partial_on_batch else
+                           (Shard(dims_to[0]) if dims_to[0] is not None else Replicate()))
+            elif d == 2:
+                out.append(Shard(dims_to[1]) if dims_to[1] is not None else
+                           (Partial() if partial_on_heads else Replicate()))
+            else:
+                out.append(Replicate())
+        return tuple(out)
+
+    # (input placements, gradient placements) of x, dt, A, B, C, in_scale
+    heads = (0, 2)
+    plan = [(spread(heads), spread(heads)), (spread(heads), spread(heads)),
+            (spread((None, 0)), spread((None, 0), partial_on_batch=True)),
+            (spread((0, None)), spread((0, None), partial_on_heads=True)),
+            (spread((0, None)), spread((0, None), partial_on_heads=True)),
+            (spread(heads), spread(heads))]
+    local = [t.redistribute(mesh, pl).to_local() if hasattr(t, "device_mesh") else t
+             for t, (pl, _) in zip(saved, plan)]      # a plain input is the same everywhere
+    # B and C stay whole along the heads' axis: a device takes the groups its
+    # heads read (heads are split in whole groups or within one)
+    h, h_loc, g = x.shape[2], local[0].shape[2], local[3].shape[2]
+    g_loc = max(1, g * h_loc // h)
+    full_bc = local[3].shape, local[4].shape
+    local[3], local[4] = local[3][:, :, :g_loc], local[4][:, :, :g_loc]
+    ydy = None if dy is None else dy.redistribute(mesh, spread(heads)).to_local()
+    hdh = None if dhf is None else dhf.redistribute(mesh, spread((0, 1))).to_local()
+    grads = list(_backward(local, need, ydy, hdh, chunk))
+    for i, shape in zip((3, 4), full_bc):
+        if grads[i] is not None and grads[i].shape != shape:
+            grads[i] = grads[i].new_zeros(shape).index_copy_(
+                2, torch.arange(g_loc, device=grads[i].device), grads[i])
+    out = []
+    for g, t, (_, gpl) in zip(grads, saved, plan):
+        if g is None or not hasattr(t, "device_mesh"):
+            out.append(g)
+            continue
+        stride = [1]
+        for n in reversed(tuple(t.shape)[1:]):
+            stride.insert(0, stride[0] * n)
+        out.append(DTensor.from_local(g.contiguous(), mesh, gpl, run_check=False,
+                                      shape=t.shape, stride=tuple(stride)))
+    return tuple(out)
+
+
+def _meta_kernel(x, dt, A, B, C, chunk: int, in_scale):
+    """The scan as one kernel operation of a shapes-only trace."""
+    bt, s, h, p = x.shape
+    n = B.shape[3]
+    inputs = (x, dt, A, B, C) + (() if in_scale is None else (in_scale,))
+    return trace_hooks.kernel(
+        "ssd_scan", scan_flops(bt, s, h, p, n, chunk), inputs,
+        lambda: (torch.empty_like(x), x.new_empty((bt, h, n, p), dtype=torch.float32)))
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, in_scale=None):
@@ -85,11 +166,6 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, in_scale=None):
     if x.is_cuda:
         return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
     if x.is_meta:
-        bt, _, h, p = x.shape
-        n = B.shape[3]
-        inputs = (x, dt, A, B, C) + (() if in_scale is None else (in_scale,))
-        return trace_hooks.kernel(
-            "ssd_scan", scan_flops(bt, s, h, p, n, chunk), inputs,
-            lambda: (torch.empty_like(x), x.new_empty((bt, h, n, p), dtype=torch.float32)))
+        return _meta_kernel(x, dt, A, B, C, chunk, in_scale)
     y, hf = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
     return y.to(x.dtype), hf

@@ -36,6 +36,10 @@ The sharded step makers take a mesh (an abstract one or a ``DeviceMesh``,
   size 1 the step is the single-device one (``make_train_fn``,
   ``Model.prefill``, ``Model.decode_step``); a larger axis raises
   ``NotImplementedError``: sharded execution across cards is not ported.
+  The one exception is a ``DeviceMesh`` over the ``fake`` process-group
+  backend, on which the dry run (:mod:`repro_torch.launch.dryrun`) traces
+  the same steps over ``DTensor``s as one rank of a world that does not
+  execute.
 """
 
 from __future__ import annotations
@@ -43,10 +47,10 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from .. import optim
+from .. import optim, trace_hooks
 from ..configs.base import TrainConfig
-from ..parallel.sharding import (NamedSharding, PartitionSpec, axis_sizes, sharding_for,
-                                 tree_shardings)
+from ..parallel.sharding import (AbstractMesh, NamedSharding, PartitionSpec, axis_sizes,
+                                 sharding_for, tree_shardings)
 
 __all__ = ["make_optimizer", "make_train_fn", "named_leaves", "value_and_grad",
            "param_shardings", "batch_shardings", "cache_shardings", "opt_shardings",
@@ -97,6 +101,22 @@ def value_and_grad(loss_fn, params: dict, batch: dict):
     return loss.detach(), _unflatten(zip(names, grads))
 
 
+def _microbatch(v, i: int, m: int):
+    """Slice ``i`` of ``m`` along the batch axis: rows ``i * B/m`` onward of
+    a tensor; of a ``DTensor`` sharded along the batch, slice ``i`` of every
+    device's rows (each device runs its own microbatches, as a sharded data
+    loader feeds them)."""
+    if hasattr(v, "device_mesh") and any(getattr(p, "dim", None) == 0 for p in v.placements):
+        from torch.distributed.tensor import DTensor
+        local = v.to_local()
+        size = local.shape[0] // m
+        return DTensor.from_local(local[i * size: (i + 1) * size], v.device_mesh, v.placements,
+                                  run_check=False, shape=(v.shape[0] // m, *v.shape[1:]),
+                                  stride=v.stride())
+    size = v.shape[0] // m
+    return v[i * size: (i + 1) * size]
+
+
 def make_train_fn(model, tcfg: TrainConfig, optimizer: optim.Optimizer):
     """The step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)`` of ``model`` (a :class:`~repro_torch.models.model.Model`)."""
@@ -104,12 +124,10 @@ def make_train_fn(model, tcfg: TrainConfig, optimizer: optim.Optimizer):
 
     def train_step(params, opt_state, batch):
         if m > 1:
-            size = next(iter(batch.values())).shape[0] // m
-            acc = optim.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                       device=p.device), params)
+            acc = optim.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             losses = []
-            for i in range(m):
-                mb = {k: v[i * size: (i + 1) * size] for k, v in batch.items()}
+            for i in trace_hooks.loop("microbatches", m):
+                mb = {k: _microbatch(v, i, m) for k, v in batch.items()}
                 loss, grads = value_and_grad(model.loss, params, mb)
                 with record_function("lm.backward"):
                     optim.tree_map(lambda a, g: a.add_(g.float()), acc, grads)
@@ -132,8 +150,20 @@ def _meta_model(model):
     return Model(model.cfg, torch.device("meta"))
 
 
+def _fake_mesh(mesh) -> bool:
+    """``mesh`` is a ``DeviceMesh`` over the ``fake`` process-group backend
+    (the dry run's, :mod:`repro_torch.launch.dryrun`: no peer executes)."""
+    if isinstance(mesh, AbstractMesh):
+        return False
+    import torch.distributed as dist
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
 def _one_device(mesh) -> None:
-    """Raise where a mesh axis is larger than 1."""
+    """Raise where a mesh axis is larger than 1, unless the mesh is over the
+    dry run's fake backend."""
+    if _fake_mesh(mesh):
+        return
     for name, size in axis_sizes(mesh).items():
         if size > 1:
             raise NotImplementedError(

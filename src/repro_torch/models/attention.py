@@ -30,7 +30,8 @@ import torch
 
 from ..kernels.flash import ops as flash_ops
 from . import flags
-from .common import Init, apply_rotary, dtype_of, rms_norm, rotary_embedding
+from .common import (Init, apply_rotary, column_sharded_product, constrain, dtype_of, rms_norm,
+                     rotary_embedding, whole_heads, whole_product, write_seq)
 
 __all__ = ["init_gqa", "gqa_axes", "gqa_forward", "init_gqa_cache", "gqa_cache_axes",
            "init_mla", "mla_axes", "init_mla_cache", "mla_cache_axes", "mla_forward"]
@@ -90,10 +91,21 @@ def gqa_cache_axes(cfg):
     return {"k": ax, "v": ax}
 
 
-def _project(x, w, heads: int, dh: int):
-    """x (B, S, d) through a 2-D or 3-D projection -> (B, S, heads, Dh)."""
+def _project(x, w, heads: int, dh: int, whole: bool = False):
+    """x (B, S, d) through a 2-D or 3-D projection -> (B, S, heads, Dh).
+
+    Under ``DTensor`` (the dry run's sharded trace) a projection whose
+    weight the ``model`` axis does not split is computed column-sharded and
+    gathered, or, with ``whole``, whole on every device (the reference's K
+    feeding attention, pinned by its constraint)."""
     b, s, d = x.shape
-    return (x @ w.reshape(d, -1)).reshape(b, s, heads, dh)
+    w = w.reshape(d, -1)
+    if hasattr(w, "device_mesh"):
+        y = whole_product(x, w) if whole else column_sharded_product(x, w)
+        y = whole_heads(y, heads)
+    else:
+        y = x @ w
+    return y.reshape(b, s, heads, dh)
 
 
 def _out(p, out):
@@ -120,7 +132,7 @@ def gqa_forward(p, cfg, x, positions, *, mode: str = "prefill", cache=None, kv_l
                                          cache["v"].transpose(1, 2), cache["k"].shape[1])
         return _out(p, out.transpose(1, 2)), None
     src = x if kv_source is None else kv_source
-    k = _project(src, p["wk"], kv, dh)
+    k = _project(src, p["wk"], kv, dh, whole=mode != "decode")
     v = _project(src, p["wv"], kv, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -129,11 +141,13 @@ def gqa_forward(p, cfg, x, positions, *, mode: str = "prefill", cache=None, kv_l
         cos, sin = rotary_embedding(positions, dh, cfg.rope_theta)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
+    q = constrain(q, ("batch", "act_seq", "act_heads", None))
+    k = constrain(k, ("batch", "act_seq", "cache_heads", None))
 
     if mode == "decode":
         s = x.shape[1]
-        cache["k"][:, kv_len: kv_len + s] = k
-        cache["v"][:, kv_len: kv_len + s] = v
+        write_seq(cache["k"], kv_len, k)
+        write_seq(cache["v"], kv_len, v)
         out = flash_ops.decode_attention(
             q.transpose(1, 2), cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
             kv_len + s).transpose(1, 2)
@@ -146,7 +160,7 @@ def gqa_forward(p, cfg, x, positions, *, mode: str = "prefill", cache=None, kv_l
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    return _out(p, out), new_cache
+    return _out(p, constrain(out, ("batch", "act_seq", "act_heads", None))), new_cache
 
 
 # --------------------------------------------------------------------- #
@@ -209,8 +223,8 @@ def mla_forward(p, cfg, x, positions, *, mode: str = "prefill", cache=None, kv_l
     k_rope = apply_rotary(kv[..., None, kvr:], cos, sin)[:, :, 0, :]
 
     if mode == "decode":
-        cache["ckv"][:, kv_len: kv_len + s] = ckv
-        cache["krope"][:, kv_len: kv_len + s] = k_rope
+        write_seq(cache["ckv"], kv_len, ckv)
+        write_seq(cache["krope"], kv_len, k_rope)
         # absorbed scores: q_nope through W_uk gives queries in the latent space
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(),
                              p["wk_b"].reshape(kvr, h, dn).float())

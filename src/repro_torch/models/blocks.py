@@ -23,7 +23,11 @@ import torch
 from . import attention as attn
 from . import mlp as mlp_mod
 from . import ssm
-from .common import Init, dtype_of, rms_norm
+from .common import Init, constrain, dtype_of, rms_norm
+
+# the residual stream's layout: each sublayer's output is reduced back to it
+# before the add (a row-parallel product's partial sums, under DTensor)
+_ACT = ("batch", "act_seq", "act_embed")
 
 __all__ = ["TOKENS", "check_supported", "init_block", "block_axes", "init_block_cache",
            "block_cache_axes", "block_forward"]
@@ -138,7 +142,7 @@ def block_forward(p, cfg, tok: str, x, positions, *, mode: str = "prefill", cach
             out, nc = ssm.slstm_forward(p["slstm"], cfg, h, mode=mode, cache=cache)
         else:
             raise NotImplementedError(f"block token {tok!r} is not ported yet")
-        return x + out, nc
+        return x + constrain(out, _ACT), nc
     check_supported(cfg, tok)
     self_cache = cache["self"] if tok == "c" and cache is not None else cache
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -148,7 +152,7 @@ def block_forward(p, cfg, tok: str, x, positions, *, mode: str = "prefill", cach
     else:
         out, nc = attn.gqa_forward(p["attn"], cfg, h, positions, mode=mode, cache=self_cache,
                                    kv_len=kv_len, causal=tok != "e")
-    x = x + out
+    x = x + constrain(out, _ACT)
     if tok == "c":
         hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
         if mode == "decode":   # cross K/V were projected once, at prefill
@@ -160,8 +164,8 @@ def block_forward(p, cfg, tok: str, x, positions, *, mode: str = "prefill", cach
                                            kv_source=enc_out)
             nc = {"self": nc, "cross_k": cross["k"], "cross_v": cross["v"]} \
                 if mode == "prefill" else None
-        x = x + qout
+        x = x + constrain(qout, _ACT)
     hm = rms_norm(x, p["ln2"], cfg.norm_eps)
     if _use_moe(cfg, tok):
-        return x + mlp_mod.moe_forward(p["mlp"], cfg, hm), nc
-    return x + mlp_mod.mlp_forward(p["mlp"], hm), nc
+        return x + constrain(mlp_mod.moe_forward(p["mlp"], cfg, hm), _ACT), nc
+    return x + constrain(mlp_mod.mlp_forward(p["mlp"], hm), _ACT), nc

@@ -18,8 +18,9 @@ import torch
 from ..core import prng
 
 __all__ = ["DTYPES", "dtype_of", "Init", "KeyStream", "Annotated", "param", "split_annotated",
-           "lift_layers", "TensorSpec", "rms_norm", "layer_norm", "rotary_embedding",
-           "apply_rotary", "softmax_cross_entropy"]
+           "lift_layers", "TensorSpec", "constrain", "distribute_tree", "write_seq",
+           "column_sharded_product", "whole_product", "whole_heads", "on_local_shards",
+           "rms_norm", "layer_norm", "rotary_embedding", "apply_rotary", "softmax_cross_entropy"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -116,6 +117,179 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
+def constrain(x, logical_axes):
+    """The reference's activation constraint at its call sites: a
+    ``DTensor`` (the dry run's sharded program) is redistributed to the
+    placements ``logical_axes`` resolve to
+    (:func:`repro_torch.parallel.sharding.constrain`); a plain tensor passes
+    through untouched."""
+    if not hasattr(x, "device_mesh"):
+        return x
+    from ..parallel.sharding import constrain as to_placements
+    return to_placements(x, logical_axes)
+
+
+def distribute_tree(make, axes_tree, like, rules=None):
+    """``make(init)`` — a tree (nested dicts) of fresh zeros drawn from an
+    :class:`Init` — on ``like``'s device; when ``like`` is a ``DTensor``,
+    as ``DTensor``s on its mesh at the placements ``axes_tree`` resolves
+    to, each device making only zeros of its local shape (the global shapes
+    come from a fake-tensor pass that allocates nothing)."""
+    if not hasattr(like, "device_mesh"):
+        return make(Init(like.device))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Shard
+
+    from ..parallel.sharding import is_axes, placements_for
+    mesh = like.device_mesh
+    with FakeTensorMode():
+        shapes = make(Init(torch.device("meta")))
+
+    def place(t, axes):
+        pl = placements_for(axes, t.shape, mesh, rules)
+        local = list(t.shape)
+        for size, p in zip(mesh.shape, pl):
+            if isinstance(p, Shard):
+                local[p.dim] //= size
+        return _from_local(torch.zeros(local, dtype=t.dtype, device=like.device), mesh, pl,
+                           t.shape)
+
+    def walk(tree, axes):
+        if is_axes(axes):
+            return place(tree, axes)
+        return {k: walk(v, axes[k]) for k, v in tree.items()}
+    return walk(shapes, axes_tree)
+
+
+def write_seq(dst, start: int, val, axis: int = 1) -> None:
+    """``dst[:, start: start + n] = val`` along ``axis`` (``val`` n long
+    there).  On a ``DTensor`` whose ``axis`` is sharded the write goes to the
+    device that owns the positions: it writes its share (at most its local
+    length) into its shard, as a sharded cache write does, and the trace
+    follows that device."""
+    n = val.shape[axis]
+    if not hasattr(dst, "device_mesh") or not any(
+            getattr(p, "dim", None) == axis for p in dst.placements):
+        dst[(slice(None),) * axis + (slice(start, start + n),)] = val
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == axis else p
+                 for p in dst.placements)
+    if hasattr(val, "device_mesh"):
+        val = val.redistribute(dst.device_mesh, want).to_local()
+    local = dst.to_local()
+    size = local.shape[axis]
+    m = min(n, size)
+    at = start % size if start % size + m <= size else size - m
+    local.narrow(axis, at, m).copy_(val.narrow(axis, 0, m))
+
+
+def column_sharded_product(x, w):
+    """``x @ w`` of ``DTensor``s with ``w``'s columns split over every mesh
+    axis that splits neither operand (and divides them): the product is
+    computed once across the mesh, each device its columns."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = []
+    for size, px, pw in zip(w.device_mesh.shape, x.placements, w.placements):
+        free = isinstance(px, Replicate) and isinstance(pw, Replicate)
+        pl.append(Shard(1) if free and w.shape[1] % size == 0 else pw)
+    if tuple(pl) != tuple(w.placements):
+        w = w.redistribute(w.device_mesh, tuple(pl))
+    return x @ w
+
+
+def whole_heads(y, heads: int):
+    """A ``DTensor`` whose last dim packs ``heads`` heads, gathered along
+    every mesh axis that splits that dim other than at head boundaries (so
+    that it unflattens into (heads, head_dim)); its gradient is split back."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = y.ndim - 1
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == last and heads % size else p
+               for size, p in zip(y.device_mesh.shape, y.placements))
+    return y if pl == tuple(y.placements) else y.redistribute(y.device_mesh, pl)
+
+
+def whole_product(x, w):
+    """``x @ w`` of ``DTensor``s with ``w``'s columns split only where ``w``
+    is stored split: ``x`` keeps only its batch shards, ``w`` is gathered
+    along its rows, and each device multiplies its local rows by its local
+    columns (all of them, along an axis that stores ``w`` whole).  In the
+    backward the weight's gradient is computed the same way, and the
+    input's gradient with the columns split across those axes (a partial
+    sum, reduced with the other sublayers' where the residual needs it)."""
+    return _WholeProduct.apply(x, w)
+
+
+class _WholeProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = x.device_mesh
+        px = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in x.placements)
+        pw = tuple(q if isinstance(q, Shard) and q.dim == 1 and not isinstance(p, Shard) else
+                   Replicate() for p, q in zip(px, w.placements))
+        po = tuple(Shard(x.ndim - 1) if isinstance(q, Shard) else p for p, q in zip(px, pw))
+        xl = x.redistribute(mesh, px).to_local()
+        wl = w.redistribute(mesh, pw).to_local()
+        ctx.save_for_backward(xl, wl)
+        ctx.meta = (mesh, px, pw, po, x.shape, w.shape)
+        return _from_local(xl @ wl, mesh, po, (*x.shape[:-1], w.shape[1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        xl, wl = ctx.saved_tensors
+        mesh, px, pw, po, xshape, wshape = ctx.meta
+        gl = g.redistribute(mesh, po).to_local()
+        rows = xl.reshape(-1, xl.shape[-1])
+        dw = rows.transpose(0, 1) @ gl.reshape(-1, gl.shape[-1])
+        pdw = tuple(Partial() if isinstance(p, Shard) else q for p, q in zip(px, pw))
+        # the input's gradient: columns split across the axes storing w whole
+        split = [size for size, p, q in zip(mesh.shape, px, pw)
+                 if not isinstance(p, Shard) and not isinstance(q, Shard)]
+        n = wl.shape[1]
+        for size in split:
+            n //= size
+        dx = gl[..., :n] @ wl[:, :n].transpose(0, 1)
+        pdx = tuple(p if isinstance(p, Shard) or isinstance(q, Shard) else Partial()
+                    for p, q in zip(px, pw))
+        pdx = tuple(Partial() if isinstance(q, Shard) else p for p, q in zip(pdx, pw))
+        return (_from_local(dx, mesh, pdx, xshape),
+                _from_local(dw.to(wl.dtype), mesh, pdw, wshape))
+
+
+def on_local_shards(fn, *xs, lead: int = 2):
+    """``fn(*xs)`` where every operand shares its ``lead`` leading dims (a
+    batched product): on ``DTensor``s each device applies ``fn`` to its
+    local shards, split along those dims as the last operand is (and whole
+    along the others); plain tensors go straight to ``fn``."""
+    ref = xs[-1]
+    if not hasattr(ref, "device_mesh"):
+        return fn(*xs)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = ref.device_mesh
+    pl = tuple(p if isinstance(p, Shard) and p.dim < lead else Replicate()
+               for p in ref.placements)
+    out = fn(*(x.redistribute(mesh, pl).to_local() for x in xs))
+    shape = list(out.shape)
+    for size, p in zip(mesh.shape, pl):
+        if isinstance(p, Shard):
+            shape[p.dim] *= size
+    return _from_local(out, mesh, pl, shape)
+
+
+def _from_local(t, mesh, placements, shape):
+    """A ``DTensor`` of global ``shape`` from a local tensor, made
+    contiguous (its global strides are then the contiguous ones)."""
+    from torch.distributed.tensor import DTensor
+    stride = [1]
+    for n in reversed(tuple(shape)[1:]):
+        stride.insert(0, stride[0] * n)
+    return DTensor.from_local(t.contiguous(), mesh, tuple(placements), run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm with float32 statistics, cast back to ``x``'s dtype."""
     xf = x.float()
@@ -152,13 +326,39 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
+def _sharded_nll(logits, labels):
+    """The token losses of ``DTensor`` logits whose vocabulary may be split
+    across the mesh (vocabulary-parallel): the log-sum-exp from each
+    shard's max and sum (reduced across the shards), the label's logit
+    picked by the device that holds it (a partial sum over the shards)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    m = logits.detach().amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    local = logits.to_local()
+    keep = tuple(p if isinstance(p, Shard) and p.dim < last else Replicate()
+                 for p in logits.placements)
+    lab = labels.redistribute(mesh, keep).to_local() if hasattr(labels, "device_mesh") \
+        else labels
+    n = local.shape[-1]                    # this device's vocabulary rows 0 .. n-1
+    inside = (lab >= 0) & (lab < n)
+    picked = local.gather(-1, lab.clamp(0, n - 1)[..., None].long())[..., 0] * inside
+    pl = tuple(Partial() if isinstance(p, Shard) and p.dim == last else k
+               for p, k in zip(logits.placements, keep))
+    picked = _from_local(picked, mesh, pl, lse.shape)
+    return lse.redistribute(mesh, keep) - picked.redistribute(mesh, keep)
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: torch.Tensor | None = None) -> torch.Tensor:
     """Token-mean cross-entropy in float32: logits (..., V), integer labels
     (...); with ``mask`` the mean over the masked-in tokens (at least one
     in the denominator)."""
     logits = logits.float()
-    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None].long())[..., 0]
+    if hasattr(logits, "device_mesh"):
+        nll = _sharded_nll(logits, labels)
+    else:
+        nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None].long())[..., 0]
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

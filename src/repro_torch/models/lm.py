@@ -29,7 +29,8 @@ import torch
 
 from .. import trace_hooks
 from . import blocks, flags
-from .common import Init, dtype_of, lift_layers, rms_norm, softmax_cross_entropy
+from .common import (Init, constrain, distribute_tree, dtype_of, lift_layers, rms_norm,
+                     softmax_cross_entropy, write_seq)
 
 __all__ = [
     "decompose_pattern", "init_lm", "lm_axes", "init_lm_cache", "lm_cache_axes", "lm_forward",
@@ -114,7 +115,7 @@ def _store(slot, new) -> None:
         if val is slot[key]:
             continue
         if key in _SEQ_CACHE_KEYS:
-            slot[key][:, : val.shape[1]] = val
+            write_seq(slot[key], 0, val)
         else:
             slot[key].copy_(val)
 
@@ -140,7 +141,7 @@ def _backbone(params, cfg, x, positions, *, mode, cache, kv_len):
 
 def _logits(params, cfg, x):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return constrain(x @ head, ("batch", "act_seq", "vocab"))
 
 
 def _n_prefix(cfg, batch) -> int:
@@ -165,6 +166,7 @@ def lm_forward(params, cfg, batch, *, mode, cache, kv_len=None):
     run every block (filling ``cache``; None in ``train``), final norm.
     Returns (x, n_prefix)."""
     x, n_prefix = _embed_inputs(params, cfg, batch)
+    x = constrain(x, ("batch", "act_seq", "act_embed"))
     positions = torch.arange(x.shape[1], device=x.device)
     if mode == "decode":
         positions = positions + kv_len
@@ -192,7 +194,8 @@ def lm_prefill(params, cfg, batch, *, max_len: int | None = None):
     included)."""
     b, s = batch["tokens"].shape
     s += _n_prefix(cfg, batch)
-    cache = init_lm_cache(Init(params["embed"].device), cfg, b, max(max_len or s, s))
+    cache = distribute_tree(lambda init: init_lm_cache(init, cfg, b, max(max_len or s, s)),
+                            lm_cache_axes(cfg), params["embed"])
     x, _ = lm_forward(params, cfg, batch, mode="prefill", cache=cache)
     return _logits(params, cfg, x[:, -1:, :]), cache
 

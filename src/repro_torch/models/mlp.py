@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from . import flags
-from .common import Init, dtype_of
+from .common import Init, constrain, dtype_of
 
 __all__ = ["init_mlp", "mlp_axes", "mlp_forward", "init_moe", "moe_axes", "moe_route",
            "moe_forward"]
@@ -46,13 +46,17 @@ def mlp_axes(cfg):
 
 
 def mlp_forward(p, x):
-    if "w13" in p:
+    if "w13" in p and hasattr(p["w13"], "device_mesh"):
+        # sharded (a DTensor): flattening (2, f) would interleave the shards
+        # of f, so the gate and up products run on the two slices
+        h = F.silu(x @ p["w13"][:, 0]) * (x @ p["w13"][:, 1])
+    elif "w13" in p:
         d, _, f = p["w13"].shape
         h13 = (x @ p["w13"].reshape(d, 2 * f)).reshape(*x.shape[:-1], 2, f)
         h = F.silu(h13[..., 0, :]) * h13[..., 1, :]
     else:
         h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+    return constrain(h, ("batch", "act_seq", "act_mlp")) @ p["w2"]
 
 
 def init_moe(init: Init, cfg):
@@ -95,7 +99,7 @@ def moe_forward(p, cfg, x, capacity_factor: float | None = None):
     e, k = m.n_experts, m.top_k
     b, s, d = x.shape
     t = b * s
-    xf = x.reshape(t, d)
+    xf = constrain(x.reshape(t, d), ("batch", None))
     cf = capacity_factor if capacity_factor is not None else m.capacity_factor
     capacity = max(int(t * k * cf / e), 1)
     _, top_p, top_e = moe_route(p, cfg, xf)
@@ -108,13 +112,15 @@ def moe_forward(p, cfg, x, capacity_factor: float | None = None):
     dest = dest.reshape(t * k)
     src = (xf[:, None, :] * keep.to(xf.dtype)[..., None]).reshape(t * k, d)
     buf = xf.new_zeros((e * capacity, d)).index_add(0, dest, src).reshape(e, capacity, d)
+    buf = constrain(buf, ("experts", None, None))
 
     h = F.silu(torch.bmm(buf, p["w1"])) * torch.bmm(buf, p["w3"])
+    h = constrain(h, ("experts", None, "expert_mlp"))
     y = torch.bmm(h, p["w2"]).reshape(e * capacity, d)
 
     gathered = y[dest].reshape(t, k, d)
     out = (gathered * torch.where(keep, top_p, 0.0)[..., None].to(y.dtype)).sum(1)
-    out = out.reshape(b, s, d)
+    out = constrain(out, ("batch", None)).reshape(b, s, d)
     if m.n_shared_experts:
         out = out + mlp_forward(p["shared"], x)
     return out.to(x.dtype)

@@ -37,6 +37,7 @@ plain PyTorch version.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -47,6 +48,18 @@ from . import blocks, lm, whisper
 from .common import Init, KeyStream, TensorSpec
 
 __all__ = ["Model", "build_model", "count_params", "active_params", "analytic_flops"]
+
+
+def _serving(fn):
+    """Run a serving entry point under ``torch.inference_mode``, or under
+    ``torch.no_grad`` when the parameters are ``DTensor``s (the dry run's
+    sharded trace: inference tensors do not take ``DTensor`` views)."""
+    @functools.wraps(fn)
+    def run(self, params, *args, **kwargs):
+        sharded = hasattr(params.get("embed"), "device_mesh")
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return fn(self, params, *args, **kwargs)
+    return run
 
 
 @dataclasses.dataclass
@@ -74,13 +87,13 @@ class Model:
             return whisper.whisper_loss(params, self.cfg, batch)
         return lm.lm_loss(params, self.cfg, batch)
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, params, batch, max_len: int | None = None):
         if self._audio:
             return whisper.whisper_prefill(params, self.cfg, batch, max_len=max_len)
         return lm.lm_prefill(params, self.cfg, batch, max_len=max_len)
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, params, token, cache, kv_len: int):
         if self._audio:
             return whisper.whisper_decode_step(params, self.cfg, token, cache, kv_len)

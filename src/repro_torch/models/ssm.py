@@ -30,7 +30,7 @@ from torch.autograd.function import once_differentiable
 
 from .. import trace_hooks
 from ..kernels.ssd import ops as ssd_ops
-from .common import Init, dtype_of, rms_norm
+from .common import Init, _from_local, constrain, dtype_of, on_local_shards, rms_norm
 
 __all__ = ["init_mamba2", "mamba2_axes", "mamba2_forward", "init_mamba2_cache",
            "mamba2_cache_axes", "init_mlstm", "mlstm_axes", "mlstm_forward", "init_mlstm_cache",
@@ -99,7 +99,7 @@ def mamba2_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     d_inner, nh, g, n, ph = _mamba_dims(cfg)
     b, s, _ = x.shape
 
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = constrain(x @ p["in_proj"], ("batch", "act_seq", "act_mlp"))
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner: 2 * d_inner + 2 * g * n]
     dt_raw = zxbcdt[..., zxbcdt.shape[-1] - nh:]
@@ -109,6 +109,11 @@ def mamba2_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     xs = xbc[..., :d_inner].reshape(b, s, nh, ph)
     Bm = xbc[..., d_inner: d_inner + g * n].reshape(b, s, g, n)
     Cm = xbc[..., d_inner + g * n:].reshape(b, s, g, n)
+    # under DTensor the packed projection's slices come back whole: the heads
+    # are split again, as the reference's layout has them
+    xs = constrain(xs, ("batch", "act_seq", "act_heads", None))
+    z = constrain(z, ("batch", "act_seq", "act_mlp"))
+    dt_raw = constrain(dt_raw, ("batch", "act_seq", "act_heads"))
 
     dt = torch.logaddexp(dt_raw.float() + p["dt_bias"], torch.zeros((), device=x.device))
     A = torch.exp(p["a_log"])
@@ -120,7 +125,8 @@ def mamba2_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
         Ch = Cm[:, 0].repeat_interleave(hpg, dim=1)
         dx = dt[:, 0, :, None] * xs[:, 0].float()                     # (b, nh, ph)
         h_new = a[..., None, None] * cache["state"] + Bh[..., None] * dx[:, :, None, :]
-        y = torch.einsum("bhn,bhnp->bhp", Ch.float(), h_new).reshape(b, s, nh, ph)
+        y = on_local_shards(lambda c, hh: torch.einsum("bhn,bhnp->bhp", c, hh),
+                            Ch.float(), h_new).reshape(b, s, nh, ph)
         new_cache = {"conv": new_tail, "state": h_new}
     elif mode in ("prefill", "train"):
         y, h_final = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=cfg.ssm.chunk)
@@ -131,6 +137,7 @@ def mamba2_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     y = y.to(x.dtype) + (p["d_skip"].to(x.dtype)[:, None] * xs).to(x.dtype)
     y = y.reshape(b, s, d_inner)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm_w"], cfg.norm_eps)
+    y = constrain(y, ("batch", "act_seq", "act_mlp"))
     return y @ p["out_proj"], new_cache
 
 
@@ -294,17 +301,17 @@ class SlstmScan(torch.autograd.Function):
     gradient is one ``einsum`` over the whole history."""
 
     @staticmethod
-    def forward(ctx, pre, r_h, nh: int):
+    def forward(ctx, pre, r_h, nh: int, traced: bool = False):
         b, s = pre.shape[:2]
         dh = pre.shape[-1] // (4 * nh)
         c = torch.zeros((s + 1, b, nh, dh), dtype=torch.float32, device=pre.device)
         n, h = torch.zeros_like(c), torch.zeros_like(c)
         m = torch.zeros((s + 1, b, nh), dtype=torch.float32, device=pre.device)
-        for t in range(s):
+        for t in _time_steps(s, False, traced):
             c[t + 1], n[t + 1], h[t + 1], m[t + 1] = _cell_math(
                 pre[:, t], c[t], n[t], h[t], m[t], r_h, nh, dh)
         ctx.save_for_backward(pre, r_h, c, n, h, m)
-        ctx.nh = nh
+        ctx.nh, ctx.traced = nh, traced
         return h[1:].transpose(0, 1).contiguous()
 
     @staticmethod
@@ -318,7 +325,7 @@ class SlstmScan(torch.autograd.Function):
         dn, dh_carry = torch.zeros_like(dc), torch.zeros_like(dc)
         dpres = torch.empty((s, b, nh, 4 * dh), dtype=torch.float32, device=pre.device)
         dhs = dhs.float()
-        for t in reversed(range(s)):
+        for t in _time_steps(s, True, ctx.traced):
             cp, np_, hp, mp = c[t], n[t], h[t], m[t]
             cn, nn, mn = c[t + 1], n[t + 1], m[t + 1]
             pre_t = pre[:, t].reshape(b, nh, 4 * dh).float() + torch.einsum("bhd,hdf->bhf", hp, r_h)
@@ -341,12 +348,46 @@ class SlstmScan(torch.autograd.Function):
             dh_carry = torch.einsum("bhf,hdf->bhd", dpre, r_h)
             dc, dn = dc_t * f_s[..., None], dn_t * f_s[..., None]
         dr_h = torch.einsum("sbhd,sbhf->hdf", h[:-1], dpres)
-        return dpres.transpose(0, 1).reshape(pre.shape).to(pre.dtype), dr_h, None
+        return dpres.transpose(0, 1).reshape(pre.shape).to(pre.dtype), dr_h, None, None
 
 
-def slstm_scan(pre, r_h, nh: int):
+def _time_steps(s: int, reverse: bool, traced: bool):
+    """The scan's time steps; ``traced``: the trace's loop (the dry run
+    traces one step and counts it ``s`` times, as the reference's analyzer
+    multiplies a scan body)."""
+    if traced:
+        return trace_hooks.loop("slstm.time", s)
+    return reversed(range(s)) if reverse else range(s)
+
+
+def slstm_scan(pre, r_h, nh: int, traced: bool = False):
     """The sLSTM's training scan through :class:`SlstmScan`."""
-    return SlstmScan.apply(pre, r_h, nh)
+    return SlstmScan.apply(pre, r_h, nh, traced)
+
+
+def _slstm_local(p, cfg, pre, mode: str):
+    """The sLSTM's time loop over ``DTensor``s (the dry run's sharded
+    trace): each device runs it on its local rows (the batch split as
+    ``pre``'s, every head whole), its loop traced as one step counted S
+    times.  Returns (y (B, S, nh, dh) float32, prefill's final state or
+    None)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, nh = pre.device_mesh, cfg.n_heads
+    dh = cfg.d_model // nh
+    pl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate() for q in pre.placements)
+    pre_l = pre.redistribute(mesh, pl).to_local()
+    r_h = p["r_h"].redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()
+    b_l, s = pre_l.shape[:2]
+    if mode == "train":
+        hs = slstm_scan(pre_l, r_h, nh, traced=True)
+        return _from_local(hs, mesh, pl, (pre.shape[0], s, nh, dh)), None
+    state = init_slstm_cache(Init(pre_l.device), cfg, b_l)
+    hs = pre_l.new_empty((b_l, s, nh, dh), dtype=torch.float32)
+    for t in trace_hooks.loop("slstm.time", s):
+        state = _slstm_cell({"r_h": r_h}, cfg, pre_l[:, t], state)
+        hs[:, t] = state["h"]
+    return (_from_local(hs, mesh, pl, (pre.shape[0], s, nh, dh)),
+            {k: _from_local(v, mesh, pl, (pre.shape[0], *v.shape[1:])) for k, v in state.items()})
 
 
 def slstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
@@ -356,7 +397,10 @@ def slstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     Returns (out, new_cache)."""
     b, s, d = x.shape
     pre = x @ p["w_x"] + p["b"].to(x.dtype)
-    if mode == "decode":
+    if mode != "decode" and hasattr(pre, "device_mesh"):
+        y, new_cache = _slstm_local(p, cfg, pre, mode)
+        y = y.reshape(b, s, d)
+    elif mode == "decode":
         new_cache = _slstm_cell(p, cfg, pre[:, 0], cache)
         y = new_cache["h"].reshape(b, 1, d)
     elif mode == "prefill":

@@ -18,7 +18,7 @@ import torch
 
 from .. import trace_hooks
 from . import blocks
-from .common import Init, dtype_of, lift_layers, rms_norm, softmax_cross_entropy
+from .common import Init, distribute_tree, dtype_of, lift_layers, rms_norm, softmax_cross_entropy
 from .lm import _layer, _store
 
 __all__ = ["init_whisper", "whisper_axes", "init_whisper_cache", "whisper_cache_axes",
@@ -99,7 +99,8 @@ def whisper_prefill(params, cfg, batch, *, max_len: int | None = None):
     tokens = batch["tokens"].to(device)
     enc_out = _encode(params, cfg, batch["audio_embed"].to(device))
     b, s = tokens.shape
-    cache = init_whisper_cache(Init(device), cfg, b, max(max_len or s, s))
+    cache = distribute_tree(lambda init: init_whisper_cache(init, cfg, b, max(max_len or s, s)),
+                            whisper_cache_axes(cfg), params["embed"])
     x = _decode_stack(params, cfg, params["embed"][tokens], torch.arange(s, device=device),
                       enc_out, mode="prefill", cache=cache, kv_len=None)
     return x[:, -1:, :] @ params["embed"].T, cache

@@ -22,10 +22,15 @@ with its mesh in a :class:`NamedSharding`, whose ``placements`` on a
 ``DeviceMesh`` are the ``Shard(d)`` / ``Replicate()`` that
 ``torch.distributed.tensor.distribute_tensor`` takes.
 
-The port executes on one card: :func:`constrain` is a no-op without a mesh
-or on a mesh whose axes all have size 1 (the reference's call sites inside
-the forwards are no-ops on one device, and the port's forwards do not call
-it), and raises on a larger axis.
+The forwards call :func:`constrain` where the reference constrains an
+activation.  On a plain tensor it is a no-op without a mesh or on a mesh
+whose axes all have size 1, and raises on a larger axis: the port executes
+on one card.  On a ``DTensor`` (the dry run's program over a fake process
+group, :mod:`repro_torch.launch.dryrun`) it redistributes the tensor to the
+resolved placements, as the reference's ``with_sharding_constraint`` pins a
+layout for XLA (``repro_torch.models.common`` has the forwards' side:
+``constrain`` at the reference's call sites, ``distribute_tree`` for a
+prefill's fresh cache, ``write_seq`` for a decode step's cache write).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import contextlib
 import dataclasses
 import math
 import threading
+
+import torch
 
 __all__ = [
     "DEFAULT_RULES",
@@ -46,6 +53,8 @@ __all__ = [
     "resolve_axes",
     "sharding_for",
     "constrain",
+    "placements_for",
+    "is_dtensor",
     "tree_shardings",
     "data_parallel_mesh",
     "batch_sharding",
@@ -202,10 +211,53 @@ def sharding_for(logical_axes, shape, mesh, rules=None) -> NamedSharding:
     return NamedSharding(mesh, resolve_axes(logical_axes, tuple(shape), mesh, rules))
 
 
+def is_dtensor(x) -> bool:
+    """``x`` is a ``torch.distributed.tensor.DTensor`` (checked without
+    importing it)."""
+    return hasattr(x, "device_mesh") and hasattr(x, "placements")
+
+
+def placements_for(logical_axes, shape, device_mesh, rules=None) -> tuple:
+    """The ``Shard``/``Replicate`` placements, one per dim of a named
+    ``DeviceMesh``, of a tensor of ``shape`` with ``logical_axes``."""
+    return sharding_for(logical_axes, tuple(shape), device_mesh, rules).placements
+
+
+class _Pin(torch.autograd.Function):
+    """Redistribute a ``DTensor`` to ``placements`` and its gradient to the
+    same placements, as the transpose of the reference's sharding
+    constraint constrains the cotangent (a row-parallel product's partial
+    sums are reduced where they arise, not carried on)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, want = grad.device_mesh, ctx.placements
+        # a gradient split along another dim is gathered first (a direct
+        # shard-to-shard move of an unevenly split dim is not exact)
+        mid = tuple(Replicate() if isinstance(p, Shard) and p != w else p
+                    for p, w in zip(grad.placements, want))
+        if mid != tuple(grad.placements):
+            grad = grad.redistribute(mesh, mid)
+        return grad.redistribute(mesh, want), None
+
+
 def constrain(x, logical_axes, mesh=None, rules=None):
-    """The reference's sharding constraint by logical names: ``x`` itself
-    without a mesh or on a mesh whose axes all have size 1.  The port does
-    not execute sharded across cards, so a larger axis raises."""
+    """The reference's sharding constraint by logical names.  A ``DTensor``
+    is redistributed to the resolved placements on its own mesh.  A plain
+    tensor is ``x`` itself without a mesh or on a mesh whose axes all have
+    size 1; the port does not execute sharded across cards, so a larger
+    axis raises."""
+    if is_dtensor(x):
+        want = placements_for(logical_axes, x.shape, x.device_mesh, rules)
+        if x.requires_grad and torch.is_grad_enabled():
+            return _Pin.apply(x, want)
+        return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
     if mesh is not None:
         for name, size in axis_sizes(mesh).items():
             if size > 1:
