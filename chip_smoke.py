@@ -292,11 +292,25 @@ Run from the repository root:  python3 chip_smoke.py
    equal, per-device flops within 5 %; each cell's three roofline terms,
    dominant term, mfu_bound and GiB a device (a model at the H100's
    published peaks);
-46. (last) internlm2-1.8b at 43's shapes on a 1 x 1 mesh, prefill and a
+46. internlm2-1.8b at 43's shapes on a 1 x 1 mesh, prefill and a
    train step (one microbatch): the dry run's argument bytes equal to what
    the card holds, its peak estimate beside torch.cuda.max_memory_allocated,
    its step_lower_bound_s at most the measured median step (a step below
-   the bound fails: the roofline would be wrong); 24 B3 launches a prefill.
+   the bound fails: the roofline would be wrong); 24 B3 launches a prefill;
+47. (last) sharded execution on real ranks (repro_torch.launch.ranks): four
+   ranks (NCCL one a card with four cards or more, else gloo with every rank
+   on card 0), first a probe of the functional collectives DTensor issues on
+   CUDA tensors (gloo's all-gather through
+   repro_torch.parallel.collectives, counted); internlm2-1.8b at full width
+   in bf16 on a (2, 2) (data, model) mesh: prefill B = 2, S = 1024 and 8
+   decode steps fed the single process's greedy tokens, two train steps
+   (microbatches 2) of a depth-cut model, the trained state saved on (2, 2)
+   and restored onto (4, 1) bit for bit; one full-width float32 zamba2-7b
+   mmmmmA unit on (1, 4): prefill, 4 greedy decode steps, the loss and
+   every gradient; each against the single-process call on the card (run
+   first, then freed); each rank's B3/B4 launches by counter and by
+   profiler name, every replicated value equal across ranks; B3 and B4 at
+   the ranks' local shapes held to their plain versions and timed.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -4314,6 +4328,342 @@ def dryrun_phase(card: str, procs: list) -> None:
     print(f"dryrun phase on {card}: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+SX_RANKS = 4                         # ranks of the sharded-execution world
+SX_ARCH, SX_MESH, SX_B, SX_S = "internlm2-1.8b", (2, 2), 2, 1024
+SX_DECODE, SX_TRAIN_STEPS = 8, 2
+SX_TRAIN_LAYERS = 4                  # the train step's depth cut (layers only; see CHANGES.md)
+SX_RESUME_MESH = (4, 1)              # where the (2, 2) state is restored
+SX_UNIT = dict(arch="zamba2-7b", mesh=(1, 4), b=2, s=256, decode=4, layers=6)  # float32
+TOL_SX_BF16 = (0.12, 2e-2)           # the zoo's bf16 bound (PERF.md §2, "Their agreement")
+TOL_SX_F32 = 1e-4                    # x max(1, |x|): the zoo's float32 bound
+SX_DIR = ROOT / "build" / "sharded_exec"
+
+
+def _sx_references(seed_tokens: int, arch: str, n_layers, dtype: str, b: int, s: int,
+                   decode: int, train: int, train_layers, grads: bool) -> tuple[dict, dict]:
+    """The single-process calls on the card that the ranks are held to:
+    prefill (cache of s + decode), ``decode`` greedy steps, ``train`` train
+    steps (microbatches 2; a model of ``train_layers`` layers) and, with
+    ``grads``, the loss and every gradient.  Returns (reference tensors on
+    the host, host-clock ms of each call)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch import make_optimizer, make_train_fn, named_leaves, value_and_grad
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(arch).scaled(dtype=dtype)
+    if n_layers is not None:
+        cfg = cfg.scaled(n_layers=n_layers)
+    model = build_model(cfg)
+    params = model.init_params(seed=0)
+    tokens = np.random.default_rng(seed_tokens).integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    ref, ms = {"tokens": torch.from_numpy(tokens)}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    logits, cache = timed("prefill", lambda: model.prefill(params, batch, max_len=s + decode))
+    ref["prefill/logits"] = logits.float().cpu()
+    ref.update({f"prefill/cache/{n}": t.float().cpu() for n, t in named_leaves(cache)})
+    for i in range(decode):
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        ref[f"decode/{i}/token"] = tok.cpu()
+        logits, cache = timed("decode", lambda: model.decode_step(params, tok, cache, s + i))
+        ref[f"decode/{i}/logits"] = logits.float().cpu()
+    del cache, logits
+    if grads:
+        loss, g = timed("grads", lambda: value_and_grad(model.loss, params, batch))
+        ref["grads/loss"] = loss.float().cpu()
+        ref.update({f"grads/{n}": t.float().cpu() for n, t in named_leaves(g)})
+        del g
+    if train:
+        if train_layers is not None:
+            del params
+            model = build_model(cfg.scaled(n_layers=train_layers))
+            params = model.init_params(seed=0)
+        tcfg = TrainConfig(microbatches=2)
+        opt = make_optimizer(tcfg)
+        fn = make_train_fn(model, tcfg, opt)
+        state = opt.init(params)
+        for i in range(train):
+            params, state, m = timed("train", lambda: fn(params, state, batch))
+            ref[f"train/{i}/loss"] = m["loss"].float().cpu()
+            ref[f"train/{i}/grad_norm"] = m["grad_norm"].float().cpu()
+        del state
+    del params, model
+    torch.cuda.empty_cache()
+    return ref, ms
+
+
+def _sx_errors(res: list, names, tol, label: str, f32: bool) -> float:
+    """Check every rank's errors of ``names`` against the reference; the
+    largest error.  bf16 (``tol`` (atol, rtol)): max(|d| - rtol |want|) <=
+    atol; float32 (``tol`` a factor): max |d| <= tol x max(1, max |want|)."""
+    worst = 0.0
+    for r in res:
+        for name in names:
+            check(name in r["errors"], f"{label}: rank {r['rank']} reported no {name}")
+            err, scale, over = r["errors"][name]
+            ok = err <= tol * max(1.0, scale) if f32 else over <= tol[0]
+            check(ok, f"{label}: rank {r['rank']} {name} off by {err:.3e} (reference max "
+                      f"{scale:.3e}; tolerance {tol})")
+            worst = max(worst, err)
+    return worst
+
+
+def _sx_local_rows(card: str, gen, label: str, flash_shape: tuple, flash_dtype, ssd_shape,
+                   launches: dict) -> list[dict]:
+    """B3 (and B4) at one rank's local shapes, held to their plain versions
+    and timed: kernels-line rows with ``launches`` (summed over the ranks)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    rows = []
+    b, hq, hkv, sq, d = flash_shape
+    f32 = flash_dtype == torch.float32
+    q, k, v = (torch.randn((b, sq, h, d), generator=gen, device="cuda").to(flash_dtype)
+               .transpose(1, 2) for h in (hq, hkv, hkv))
+
+    def call():
+        return flash_ops.flash_attention(q, k, v, causal=True, scale=d ** -0.5)
+    got = call()
+    with plain_kernels():
+        want = call()
+        plain_ms = cuda_ms(call, iters=3)
+    err = float((got.float() - want.float()).abs().max())
+    if f32:
+        check(err <= TOL_SX_F32 * max(1.0, float(want.abs().max())),
+              f"flash {label}: kernel and plain version differ (max |err| {err:.3e})")
+    else:
+        check(bool(((got.float() - want.float()).abs() <= TOL_BF16_OUT[0] + TOL_BF16_OUT[1]
+                    * want.float().abs()).all()),
+              f"flash {label}: kernel and plain version differ (max |err| {err:.3e})")
+    ev_ms = cuda_ms(call, iters=10)
+    dev_ms = device_ms(call, "flash_fwd_f32" if f32 else "flash_fwd_bf16", iters=10)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=hq != hkv), iters=10)
+    b_ms, b_by = bound(*flash_work(b, hq, hkv, sq, sq, d, d, 4 if f32 else 2),
+                       F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
+    print(f"flash_fwd {label} rank-local B={b} Hq={hq} Hkv={hkv} S={sq} D={d} "
+          f"{'float32' if f32 else 'bf16'} causal on {card}: max |err| {err:.3e}; kernel "
+          f"{ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+          f"{launches['flash_fwd']} launches over the ranks", flush=True)
+    rows.append({"name": f"flash_fwd ({label} rank-local)", "route": "cuda", "source": FLASH_SRC,
+                 "replaces": "src/repro/kernels/flash/kernel.py:43",
+                 "launches": launches["flash_fwd"], "max_abs_err": err,
+                 "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": lib_ms})
+    if ssd_shape is None:
+        return rows
+    bt, s, h, p, g, n, chunk = ssd_shape
+    x = torch.randn((bt, s, h, p), generator=gen, device="cuda")
+    Bm, Cm = (torch.randn((bt, s, g, n), generator=gen, device="cuda") for _ in range(2))
+    dt = F.softplus(torch.randn((bt, s, h), generator=gen, device="cuda") * 0.5 - 2.0)
+    A = torch.exp(0.2 * torch.randn((h,), generator=gen, device="cuda"))
+
+    def scan():
+        return ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y, hf = scan()
+    with plain_kernels():
+        wy, wh = scan()
+        plain_ms = cuda_ms(scan, iters=2)
+    err = max(float((y - wy).abs().max()), float((hf - wh).abs().max()))
+    check(err <= TOL_SX_F32 * max(1.0, float(wy.abs().max()), float(wh.abs().max())),
+          f"ssd {label}: kernel and plain version differ (max |err| {err:.3e})")
+    ev_ms = cuda_ms(scan, iters=10)
+    dev_ms = device_ms(scan, "ssd_scan_f32", iters=10)
+    b_ms, b_by = bound(*ssd_work(bt, s, h, p, g, n, chunk, 4, False), F32_FLOPS_PER_S)
+    print(f"ssd_scan {label} rank-local Bt={bt} S={s} H={h} P={p} G={g} N={n} chunk {chunk} "
+          f"float32 on {card}: max |err| {err:.3e}; kernel {ev_ms:.4f} ms (CUDA events; device "
+          f"{dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); "
+          f"{launches['ssd_scan']} launches over the ranks", flush=True)
+    rows.append({"name": f"ssd_scan ({label} rank-local)", "route": "cuda", "source": SSD_SRC,
+                 "replaces": "src/repro/kernels/ssd/kernel.py:41",
+                 "launches": launches["ssd_scan"], "max_abs_err": err,
+                 "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None})
+    return rows
+
+
+def sharded_exec_phase(card: str) -> list[dict]:
+    """Item 47: the LM zoo's steps on four real ranks against the single
+    process, with B3/B4 on each rank's local shards."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import ranks
+    from repro_torch.parallel.data import run_ranks
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= SX_RANKS else "gloo"
+    shutil.rmtree(SX_DIR, ignore_errors=True)
+    SX_DIR.mkdir(parents=True)
+    cfg = get_config(SX_ARCH)
+    u = SX_UNIT
+
+    # ---- the single-process calls first, each freed before the world ---- #
+    ref, ms_single = _sx_references(0, SX_ARCH, None, "bfloat16", SX_B, SX_S, SX_DECODE,
+                                    SX_TRAIN_STEPS, SX_TRAIN_LAYERS, grads=False)
+    torch.save(ref, SX_DIR / "internlm2.pt")
+    uref, ums_single = _sx_references(1, u["arch"], u["layers"], "float32", u["b"], u["s"],
+                                      u["decode"], 0, None, grads=True)
+    torch.save(uref, SX_DIR / "zamba2.pt")
+    feed = [ref[f"decode/{i}/token"].numpy() for i in range(SX_DECODE)]
+    jobs = [dict(kind="collectives", mesh=(1, SX_RANKS)),
+            dict(kind="steps", arch=SX_ARCH, mesh=SX_MESH, tokens=ref["tokens"].numpy(),
+                 smoke=False, dtype="bfloat16", decode=SX_DECODE, feed=feed,
+                 train=SX_TRAIN_STEPS, train_layers=SX_TRAIN_LAYERS, full_params=False,
+                 save_dir=str(SX_DIR / "ckpt"), resume_mesh=SX_RESUME_MESH, keep=False,
+                 reference=str(SX_DIR / "internlm2.pt"), profile=True),
+            dict(kind="steps", arch=u["arch"], mesh=u["mesh"], tokens=uref["tokens"].numpy(),
+                 seed=0, smoke=False, dtype="float32", n_layers=u["layers"], decode=u["decode"],
+                 grads=True, keep=False, reference=str(SX_DIR / "zamba2.pt"), profile=True)]
+    del ref, uref
+
+    # ---- the world -------------------------------------------------------- #
+    t0 = time.perf_counter()
+    out = run_ranks(ranks.run_jobs, SX_RANKS, backend=backend, device="cuda",
+                    share_device=backend == "gloo", timeout_s=900, args=(jobs,))
+    t_world = time.perf_counter() - t0
+    coll, lm, unit = ([o[j] for o in out] for j in range(3))
+    print(f"sharded exec world on {card}: backend {backend}, {n_cards} card(s), "
+          f"{SX_RANKS} ranks on {[c['device'] for c in coll]} "
+          f"({t_world:.1f} s with the ranks' start)", flush=True)
+
+    # ---- the collectives DTensor issues here ------------------------------ #
+    for c in coll:
+        check(all(c["ok"].values()), f"sharded exec: rank {c['rank']} collectives {c['ok']}")
+    uses = [dict(c["shared_card_uses"]) for c in coll]
+    print(f"sharded exec collectives on {card} ({backend}, CUDA tensors, along a 4-way axis): "
+          f"{sorted(coll[0]['ok'])} equal to the host's results on every rank; the shared "
+          f"card's all-gather taken {uses} times by rank (the functional all-gather through "
+          "it, and once called directly)", flush=True)
+    if backend == "gloo":
+        check(all(u_.get("all_gather_into_tensor", 0) == 2 for u_ in uses),
+              f"sharded exec: the shared card's all-gather taken {uses} times, expected 2 a rank")
+
+    # ---- internlm2-1.8b on (2, 2) ----------------------------------------- #
+    names = (["prefill/logits"] + [f"decode/{i}/logits" for i in range(SX_DECODE)]
+             + [k for k in lm[0]["errors"] if k.startswith("prefill/cache/")])
+    err_serve = _sx_errors(lm, names, TOL_SX_BF16, f"{SX_ARCH} {SX_MESH}", f32=False)
+    train_names = [f"train/{i}/{k}" for i in range(SX_TRAIN_STEPS) for k in ("loss", "grad_norm")]
+    err_train = _sx_errors(lm, train_names, TOL_SX_BF16, f"{SX_ARCH} {SX_MESH} train", f32=False)
+    same_tok = sum(lm[0]["errors"][f"decode/{i}/token"][0] == 0 for i in range(SX_DECODE))
+    n_train_layers = SX_TRAIN_LAYERS or cfg.n_layers
+    for r in lm:
+        want = {"prefill": cfg.n_layers, "decode": 0, "train": 2 * n_train_layers * SX_TRAIN_STEPS}
+        got = {ph: r["launches"][ph]["flash_fwd"] for ph in want}
+        check(got == want and all(r["launches"][ph]["ssd_scan"] == 0 for ph in want),
+              f"{SX_ARCH} {SX_MESH} rank {r['rank']}: B3 launches {got}, expected {want}")
+        named = sum(v for k, v in r["kernel_names"].items() if "flash_fwd_bf16" in k)
+        check(named == cfg.n_layers and len(r["kernel_names"]) == 1,
+              f"{SX_ARCH} {SX_MESH} rank {r['rank']}: kernels by name {r['kernel_names']}")
+        check(r["cache_at_shardings"] and r["train_at_shardings"],
+              f"{SX_ARCH} rank {r['rank']}: outputs off their shardings")
+        res = r["resume"]
+        check(res["equal"] == res["leaves"] and res["at_shardings"],
+              f"{SX_ARCH} rank {r['rank']}: restore onto {SX_RESUME_MESH}: {res}")
+    for group in (lm, unit):
+        for r in group[1:]:
+            diff = [k for k, v in group[0]["digests"].items() if r["digests"].get(k) != v]
+            check(not diff, f"sharded exec: rank {r['rank']} differs from rank 0 in {diff[:4]}")
+
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+    rk = lm[0]["ms"]
+    print(f"{SX_ARCH} sharded on {card}: {SX_MESH} (data, model), {backend}, full config "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} "
+          f"heads, bf16, seeded), B={SX_B} S={SX_S}: prefill logits and cache, {SX_DECODE} "
+          f"decode steps' logits (fed the single process's greedy tokens; the ranks' own argmax "
+          f"agreed at {same_tok} of {SX_DECODE}) within the zoo's bf16 bound {TOL_SX_BF16} of "
+          f"the single process (max |err| {err_serve:.3e}); {SX_TRAIN_STEPS} train steps "
+          f"(microbatches 2, {n_train_layers} of {cfg.n_layers} layers: depth cut) loss and "
+          f"grad_norm max |err| {err_train:.3e}; B3 launches by rank "
+          f"{[r['launches']['prefill']['flash_fwd'] for r in lm]} a prefill, "
+          f"{[r['launches']['train']['flash_fwd'] for r in lm]} in the train steps, 0 in decode; "
+          f"by profiler name {[r['kernel_names'] for r in lm][0]} on rank 0; every replicated "
+          f"value equal on the {SX_RANKS} ranks", flush=True)
+    rig = ("ranks sharing one card: a correctness rig, not scaling" if backend == "gloo"
+           else "one rank a card")
+    print(f"{SX_ARCH} sharded host-clock ms on {card} (rank 0 beside the single process; "
+          f"{rig}): "
+          f"prefill {med(rk['prefill']):.1f} (under the profiler) against "
+          f"{med(ms_single['prefill']):.1f}, decode "
+          f"step {med(rk['decode']):.1f} against {med(ms_single['decode']):.1f}, train step "
+          f"{med(rk['train']):.1f} against {med(ms_single['train']):.1f}; peak allocated by "
+          f"rank {[round(r['peak_bytes'] / 2 ** 30, 2) for r in lm]} GiB", flush=True)
+    res = lm[0]["resume"]
+    print(f"{SX_ARCH} elastic resume on {card}: the trained state ({res['leaves']} leaves) saved "
+          f"on {SX_MESH} in {med(rk['save']):.0f} ms and restored onto {tuple(res['mesh'])} in "
+          f"{med(rk['restore']):.0f} ms: every leaf bit-equal, at the target's placements, on "
+          f"every rank", flush=True)
+
+    # ---- the float32 zamba2-7b unit on (1, 4) ------------------------------ #
+    unames = (["prefill/logits", "grads/loss"] + [f"decode/{i}/logits" for i in range(u["decode"])]
+              + [k for k in unit[0]["errors"] if k.startswith(("prefill/cache/", "grads/"))])
+    err_unit = _sx_errors(unit, unames, TOL_SX_F32, f"{u['arch']} unit {u['mesh']}", f32=True)
+    toks = [unit[0]["errors"][f"decode/{i}/token"][0] for i in range(u["decode"])]
+    check(not any(toks), f"{u['arch']} unit: greedy tokens differ from the single process's")
+    for r in unit:
+        got = {ph: r["launches"][ph] for ph in ("prefill", "decode", "grads")}
+        want = {"prefill": {"flash_fwd": 1, "ssd_scan": 5}, "decode": {"flash_fwd": 0,
+                "ssd_scan": 0}, "grads": {"flash_fwd": 1, "ssd_scan": 5}}
+        check(got == want, f"{u['arch']} unit rank {r['rank']}: launches {got}, expected {want}")
+        names_ = r["kernel_names"]
+        check(sum(v for k, v in names_.items() if "flash_fwd_f32" in k) == 1
+              and sum(v for k, v in names_.items() if "ssd_scan_f32" in k) == 5,
+              f"{u['arch']} unit rank {r['rank']}: kernels by name {names_}")
+    uk = unit[0]["ms"]
+    print(f"{u['arch']} float32 unit sharded on {card}: {u['mesh']} (data, model), full width, "
+          f"{u['layers']} layers mmmmmA, B={u['b']} S={u['s']}: prefill logits and cache, "
+          f"{u['decode']} greedy decode steps (tokens equal), the loss and every gradient within "
+          f"{TOL_SX_F32} x max(1, |x|) of the single process (max |err| {err_unit:.3e}); launches "
+          f"by rank {[r['launches']['prefill'] for r in unit]} a prefill and a loss, 0 in "
+          f"decode; by profiler name {unit[0]['kernel_names']} on rank 0; host-clock ms rank 0 "
+          f"beside the single process: prefill {med(uk['prefill']):.1f} (under the profiler) "
+          f"against "
+          f"{med(ums_single['prefill']):.1f}, decode step {med(uk['decode']):.1f} against "
+          f"{med(ums_single['decode']):.1f}, loss and gradients {med(uk['grads']):.1f} against "
+          f"{med(ums_single['grads']):.1f}", flush=True)
+
+    # ---- B3/B4 at the ranks' local shapes against their plain versions ----- #
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    data, model_ax = SX_MESH
+    lm_launches = {k: sum(r["launches"][ph][k] for r in lm for ph in r["launches"])
+                   for k in ranks.KERNELS}
+    u_launches = {k: sum(r["launches"][ph][k] for r in unit for ph in r["launches"])
+                  for k in ranks.KERNELS}
+    rows = _sx_local_rows(card, gen, f"{SX_ARCH} {SX_MESH}",
+                          (SX_B // data, cfg.n_heads // model_ax, cfg.n_kv_heads // model_ax,
+                           SX_S, cfg.resolved_head_dim), torch.bfloat16, None, lm_launches)
+    ucfg = get_config(u["arch"])
+    m = u["mesh"][1]
+    nh = ucfg.ssm.expand * ucfg.d_model // ucfg.ssm.head_dim
+    rows += _sx_local_rows(card, gen, f"{u['arch']} unit {u['mesh']}",
+                           (u["b"], ucfg.n_heads // m, ucfg.n_kv_heads // m, u["s"],
+                            ucfg.resolved_head_dim), torch.float32,
+                           (u["b"], u["s"], nh // m, ucfg.ssm.head_dim, 1, ucfg.ssm.state_dim,
+                            ucfg.ssm.chunk), u_launches)
+    shutil.rmtree(SX_DIR, ignore_errors=True)
+    print(f"sharded exec phase on {card}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def run() -> dict:
     """Every phase; the dry run's process (the last phase's) never outlives
     the run."""
@@ -4705,6 +5055,9 @@ def run_phases(card: str, dry: list) -> dict:
 
     # ---- the multi-pod dry run's golden cells and its one-card check ----- #
     dryrun_phase(card, dry)
+
+    # ---- sharded execution on real ranks: four ranks, (2, 2) and (1, 4) -- #
+    kernels += sharded_exec_phase(card)
     return {"kernels": kernels, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "card": card}
 

@@ -1,0 +1,134 @@
+#!/usr/bin/env python
+"""Write the golden file of the reference's own sharded train step.
+
+    JAX_PLATFORMS=cpu python scripts/make_sharded_golden.py \
+        [--out tests/golden/torch_sharded_steps.json]
+
+The JAX package's ``repro.launch.steps.make_train_step`` on
+``small_test_mesh(2, 4)`` over 8 XLA host devices (this process sets
+``--xla_force_host_platform_device_count=8`` before JAX starts, as
+``tests/test_distributed.py`` does for its subprocesses), jitted with its
+in- and out-shardings: SMOKE internlm2-1.8b in float32, ``TrainConfig(
+microbatches=2)``, two steps on one batch of 8 x 16 tokens from
+``numpy.random.default_rng(0)``.  The parameters are the port's
+``Model.init_params(seed=0, host=True)`` (threefry on the host, in numpy:
+the same bits on every machine), carried into JAX as arrays; their sha256
+is recorded beside each step's loss, grad_norm and parameter leaf norms.
+
+``tests/test_torch_sharded_exec.py`` holds the port's (2, 4) world of gloo
+ranks to this file.  The file is rewritten only by this script (~15 s).
+"""
+
+from __future__ import annotations
+
+import os
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import argparse  # noqa: E402
+import hashlib  # noqa: E402
+import json  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
+
+OUT = ROOT / "tests" / "golden" / "torch_sharded_steps.json"
+ARCH = "internlm2-1.8b"
+MESH = (2, 4)
+BATCH, SEQ, STEPS, MICROBATCHES = 8, 16, 2, 2
+
+
+def port_params() -> dict:
+    """The port's host-drawn SMOKE float32 parameters, as numpy (name ->
+    array, keys sorted at each level)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import named_leaves
+    from repro_torch.models.model import build_model
+    model = build_model(get_smoke_config(ARCH).scaled(dtype="float32"), device="cpu")
+    return {name: t.numpy() for name, t in named_leaves(model.init_params(seed=0, host=True))}
+
+
+def params_sha256(flat: dict) -> str:
+    h = hashlib.sha256()
+    for name in sorted(flat):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(flat[name]).tobytes())
+    return h.hexdigest()
+
+
+def tokens() -> np.ndarray:
+    return np.random.default_rng(0).integers(0, 256, (BATCH, SEQ)).astype(np.int32)
+
+
+def _path_name(path) -> str:
+    return "/".join(k.key for k in path)
+
+
+def _as_reference_tree(flat: dict, shapes):
+    """``flat`` as JAX arrays in the structure of the reference's
+    ``init_params`` (``shapes``: its ``eval_shape``), each leaf checked."""
+    import jax
+    import jax.numpy as jnp
+
+    def leaf(path, spec):
+        a = flat[_path_name(path)]
+        assert a.shape == spec.shape and a.dtype == spec.dtype, (_path_name(path), a.shape)
+        return jnp.asarray(a)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", type=Path, default=OUT)
+    args = ap.parse_args()
+
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import TrainConfig, get_smoke_config
+    from repro.launch import steps
+    from repro.launch.mesh import small_test_mesh
+    from repro.models.model import build_model
+    from repro.utils.jaxcompat import set_mesh
+
+    flat = port_params()
+    cfg = get_smoke_config(ARCH).scaled(dtype="float32")
+    mesh = small_test_mesh(data=MESH[0], model=MESH[1])
+    model = build_model(cfg, remat=False)
+    specs = {"tokens": jax.ShapeDtypeStruct((BATCH, SEQ), jnp.int32)}
+    axes = {"tokens": ("batch", None)}
+    out_steps = []
+    with set_mesh(mesh):
+        jfn, (p_sh, o_sh, b_sh), opt = steps.make_train_step(
+            model, mesh, TrainConfig(microbatches=MICROBATCHES), specs, axes)
+        shapes = jax.eval_shape(model.init_params, jax.random.PRNGKey(0))
+        params = jax.device_put(_as_reference_tree(flat, shapes), p_sh)
+        opt_state = jax.jit(opt.init, out_shardings=o_sh)(params)
+        batch = jax.device_put({"tokens": jnp.asarray(tokens())}, b_sh)
+        for _ in range(STEPS):
+            params, opt_state, m = jfn(params, opt_state, batch)
+            leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+            norms = {_path_name(path): float(np.linalg.norm(
+                np.asarray(v, np.float64).ravel())) for path, v in leaves}
+            out_steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                              "step": int(m["step"]), "leaf_norms": norms})
+    wq = params["blocks"]["u0"]["attn"]["wq"]
+    rec = {"jax": jax.__version__, "devices": jax.device_count(), "arch": ARCH,
+           "config": "SMOKE, dtype float32", "mesh": {"data": MESH[0], "model": MESH[1]},
+           "train_config": {"microbatches": MICROBATCHES},
+           "tokens": f"numpy.random.default_rng(0).integers(0, 256, ({BATCH}, {SEQ})), int32",
+           "params": "repro_torch Model.init_params(seed=0, host=True)",
+           "params_sha256": params_sha256(flat),
+           "wq_shards": len({d.id for d in wq.sharding.device_set}),
+           "steps": out_steps}
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(rec, indent=1) + "\n")
+    print(f"wrote {args.out}: losses {[s['loss'] for s in out_steps]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -27,6 +27,17 @@ blocking=False)`` copies the tree to the host at once and writes it on a
 thread, and the ``keep`` newest steps are retained.  A trainer state saved
 by either package restores in the other (the leaf names are the
 reference's ``tree_flatten_with_path`` names).
+
+Sharded trees (the reference's reshard-on-load).  A tree with ``DTensor``
+leaves is gathered by every rank (a collective), written by rank 0 alone
+before ``save`` returns (a sharded save is always blocking), and every rank
+then waits at a barrier, so each one sees the step once ``save`` returns.
+The files are the same as a single device's.  ``load_pytree``,
+``restore`` and ``restore_latest`` take ``shardings`` (a tree of
+:class:`~repro_torch.parallel.sharding.NamedSharding` on a ``DeviceMesh``,
+of the target's structure): each rank reads the full leaves and keeps its
+shard at the target's placements, whatever mesh wrote them; a ``DTensor``
+leaf of the target without a sharding keeps its own placements.
 """
 
 from __future__ import annotations
@@ -88,10 +99,35 @@ def _treedef(tree: dict) -> str:
     return f"PyTreeDef({rec(tree)})"
 
 
+def _is_sharded(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_is_sharded(v) for v in tree.values())
+    return hasattr(tree, "device_mesh")
+
+
+def _writer() -> bool:
+    """This process writes: rank 0 of an initialised world, or no world."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier()
+
+
 def save_pytree(tree: dict, directory: str | Path) -> None:
     """Write a tree of nested dicts (numpy arrays or tensors as leaves) to
     ``directory`` atomically: into ``<directory>.tmp`` first (a stale one is
-    removed), then renamed over ``directory``."""
+    removed), then renamed over ``directory``.  A tree of ``DTensor``s is
+    gathered by every rank and written by rank 0; every rank returns after
+    the rename."""
+    if _is_sharded(tree):
+        host = _gathered_host_copy(tree)
+        if _writer():
+            save_pytree(host, directory)
+        _barrier()
+        return
     directory = Path(directory)
     tmp = directory.with_suffix(".tmp")
     if tmp.exists():
@@ -140,21 +176,23 @@ def load_pytree_dict(directory: str | Path) -> dict:
     return out
 
 
-def load_pytree(directory: str | Path, target: dict) -> dict:
+def load_pytree(directory: str | Path, target: dict, shardings=None) -> dict:
     """Restore into the structure of ``target`` (nested dicts of tensors;
     their values are ignored): each leaf read by its slash-joined name,
-    cast to the target leaf's dtype and put on its device.  A missing leaf
-    or a shape that differs raises."""
+    cast to the target leaf's dtype and put on its device; with
+    ``shardings`` (a tree of ``NamedSharding`` like ``target``), or where
+    the target leaf is a ``DTensor``, as a ``DTensor`` of which this rank
+    keeps its shard.  A missing leaf or a shape that differs raises."""
     stored = read_leaves(directory)
 
-    def rec(t, prefix):
+    def rec(t, sh, prefix):
         out = {}
         for k in sorted(t):
             v = t[k]
             if v is None:
                 out[k] = None
             elif isinstance(v, dict):
-                out[k] = rec(v, f"{prefix}{k}/")
+                out[k] = rec(v, None if sh is None else sh[k], f"{prefix}{k}/")
             else:
                 name = prefix + str(k)
                 if name not in stored:
@@ -163,10 +201,44 @@ def load_pytree(directory: str | Path, target: dict) -> dict:
                 if tuple(arr.shape) != tuple(v.shape):
                     raise ValueError(f"shape mismatch for {name}: checkpoint {arr.shape} "
                                      f"vs {tuple(v.shape)}")
-                out[k] = _tensor(arr).to(device=v.device, dtype=v.dtype)
+                out[k] = _placed(arr, v, None if sh is None else sh[k])
         return out
 
-    return rec(target, "")
+    return rec(target, shardings, "")
+
+
+def _placed(arr: np.ndarray, like, sharding):
+    """The stored ``arr`` in ``like``'s dtype, on its device, or as a
+    ``DTensor`` at ``sharding`` (else at ``like``'s placements where it is
+    one), of which this rank reads and keeps only its own region."""
+    if sharding is not None:
+        mesh, placements = sharding.mesh, tuple(sharding.placements)
+    elif hasattr(like, "device_mesh"):
+        mesh, placements = like.device_mesh, tuple(like.placements)
+    else:
+        return _tensor(arr).to(device=like.device, dtype=like.dtype)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from ..parallel.sharding import mesh_device
+    shape, off = compute_local_shape_and_global_offset(arr.shape, mesh, placements)
+    region = np.ascontiguousarray(arr[tuple(slice(o, o + n) for o, n in zip(off, shape))])
+    local = _tensor(region.reshape(shape)).to(device=mesh_device(mesh), dtype=like.dtype)
+    full = torch.empty(arr.shape, dtype=like.dtype, device="meta")
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=full.shape,
+                              stride=full.stride())
+
+
+def _gathered_host_copy(tree):
+    """A tree of ``DTensor``s gathered leaf by leaf (every rank takes part
+    in each gather); the writer keeps each full leaf's host copy, the other
+    ranks None."""
+    if isinstance(tree, dict):
+        return {k: _gathered_host_copy(v) for k, v in tree.items()}
+    if tree is None:
+        return None
+    full = tree.full_tensor() if hasattr(tree, "device_mesh") else tree
+    return _host_copy(full) if _writer() else None
 
 
 def _host_copy(tree):
@@ -194,8 +266,18 @@ class CheckpointManager:
     def save(self, step: int, tree: dict, blocking: bool = True) -> None:
         """Write ``tree`` as step ``step``.  The tree is copied to the host
         before this returns; with ``blocking=False`` the files are written
-        on a thread (one save in flight: a second one waits)."""
+        on a thread (one save in flight: a second one waits).  A tree of
+        ``DTensor``s is gathered and written by rank 0 before this returns
+        on every rank."""
         self.wait()
+        if _is_sharded(tree):
+            host_tree = _gathered_host_copy(tree)
+            if _writer():
+                save_pytree(host_tree, self._step_dir(step))
+                (self.directory / "LATEST").write_text(self._step_dir(step).name)
+                self._gc()
+            _barrier()
+            return
         host_tree = _host_copy(tree)
 
         def write():
@@ -243,12 +325,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: dict) -> dict:
-        return load_pytree(self._step_dir(step), target)
+    def restore(self, step: int, target: dict, shardings=None) -> dict:
+        return load_pytree(self._step_dir(step), target, shardings)
 
-    def restore_latest(self, target: dict):
+    def restore_latest(self, target: dict, shardings=None):
         """(step, tree) of the newest complete step, or (None, None)."""
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, target)
+        return step, self.restore(step, target, shardings)

@@ -31,8 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "KERNELS", "BUILD_DIR", "KernelError", "build_kernels", "refuse_grad",
-           "load_function", "check"]
+__all__ = ["LAUNCHES", "KERNELS", "BUILD_DIR", "KernelError", "build_kernels", "refuse_dtensor",
+           "refuse_grad", "load_function", "check"]
 
 
 class KernelError(RuntimeError):
@@ -162,6 +162,15 @@ def check(name: str, code: int) -> None:
         lib = next(lib for (nm, _), lib in _libs.items() if nm == name)
         msg = lib.kernel_error_string(code).decode()
         raise KernelError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise when any of ``tensors`` is a ``DTensor``: a launcher reads raw
+    device pointers, so it takes one rank's local tensors only
+    (:func:`repro_torch.kernels.sharded.on_shards` passes them)."""
+    if any(hasattr(t, "device_mesh") for t in tensors):
+        raise TypeError(f"{name} takes a rank's local tensors, not DTensors; call it through "
+                        "repro_torch.kernels.sharded.on_shards")
 
 
 def refuse_grad(name: str, hint: str, *tensors) -> None:

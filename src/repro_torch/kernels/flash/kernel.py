@@ -70,6 +70,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale: float | None = 
     Sq) float32 (-inf for a row with every key masked)."""
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda takes CUDA tensors")
+    build.refuse_dtensor("flash_attention_cuda", q, k, v)
     build.refuse_grad("flash_attention_cuda", "call ops.flash_attention, whose autograd "
                       "Function has the backward, or run under torch.no_grad()", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:

@@ -14,9 +14,10 @@ recomputes each key block's probabilities from the row log-sum-exp:
 
 Forward: kernel B3 with its lse output on CUDA tensors
 (:func:`~repro_torch.kernels.flash.kernel.flash_attention_cuda`), the plain
-version with its lse on CPU ones.  On ``DTensor``s (the dry run's sharded
-trace) the backward runs on each device's local shards
-(:func:`sharded_backward`).  Backward: plain PyTorch, as the
+version with its lse on CPU ones.  On ``DTensor``s both run on each rank's
+local shards: the forward by :func:`repro_torch.kernels.sharded.on_shards`,
+the backward by :func:`sharded_backward`, each rank taking the key and
+value heads its query heads read.  Backward: plain PyTorch, as the
 reference's is plain XLA (no Pallas kernel).  Its products take operands
 rounded to the input dtype and sum in float32, as the reference's
 ``preferred_element_type=float32`` dots do; a GQA group's key and value
@@ -31,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ... import trace_hooks
+from .. import sharded
 from .kernel import attention_flops, flash_attention_cuda
 from .ref import attention_with_lse, expand_kv
 
@@ -41,7 +43,11 @@ __all__ = ["flash_mha", "forward_with_lse", "flash_backward", "sharded_backward"
 def forward_with_lse(q, k, v, causal: bool, scale: float):
     """(out, lse): B3 on CUDA tensors (the kernel writes the lse), one kernel
     operation of a shapes-only trace on meta ones, the plain version on CPU
-    ones."""
+    ones; on ``DTensor``s over a real group, the same on each rank's local
+    shards."""
+    if hasattr(q, "device_mesh") and not q.is_meta:
+        return sharded.on_shards("flash_fwd", lambda *a: forward_with_lse(*a, causal, scale),
+                                 q, k, v)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, scale=scale, return_lse=True)
     if q.is_meta:
@@ -95,15 +101,15 @@ def _contiguous_strides(shape) -> tuple:
 
 
 def sharded_backward(q, k, v, out, lse, dout, *, causal: bool, scale: float, block_k: int):
-    """:func:`flash_backward` of ``DTensor`` operands (the dry run's sharded
-    trace), run by each device on its local shards, as the kernel runs
-    per device: batch and query heads keep the queries' shards; key and
-    value heads that the mesh axis does not divide stay whole, and a device
-    takes the ones its query heads read (its key and value gradients are
-    then partial sums over that axis)."""
+    """:func:`flash_backward` of ``DTensor`` operands, run by each rank on its
+    local shards, as the forward runs: batch and query heads keep the
+    queries' shards; key and value heads that the mesh axis does not divide
+    stay whole, and a rank takes the ones its query heads read
+    (:func:`repro_torch.kernels.sharded.read_index`, from its coordinate);
+    its key and value gradients are then partial sums over that axis."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = q.device_mesh
-    hq, hkv = q.shape[1], k.shape[1]
+    hkv = k.shape[1]
     qp, kvp, kv_grad = [], [], []
     for size, p in zip(mesh.shape, q.placements):
         if isinstance(p, Shard) and p.dim == 0:
@@ -115,18 +121,16 @@ def sharded_backward(q, k, v, out, lse, dout, *, causal: bool, scale: float, blo
         else:
             qp.append(Replicate()), kvp.append(Replicate()), kv_grad.append(Replicate())
 
-    def local(t, pl):
-        return t.redistribute(mesh, tuple(pl)).to_local()
-
-    lq, lout, ldout = local(q, qp), local(out, qp), local(dout, qp)
-    llse, lk, lv = local(lse, qp), local(k, kvp), local(v, kvp)
-    group = hq // hkv
-    need = max(1, lq.shape[1] // group)       # the kv heads the local query heads read
-    dq, dk, dv = flash_backward(lq, lk[:, :need], lv[:, :need], lout, llse, ldout,
+    qp, kvp = tuple(qp), tuple(kvp)
+    q, k = sharded.placed(q, qp), sharded.placed(k, kvp)
+    lq, lk, lv = q.to_local(), k.to_local(), sharded.placed(v, kvp).to_local()
+    lout, ldout, llse = (sharded.placed(t, qp).to_local() for t in (out, dout, lse))
+    index = sharded.read_index(q.shape[1], hkv, sharded.shard_offset(q, 1), lq.shape[1],
+                               sharded.shard_offset(k, 1))
+    dq, dk, dv = flash_backward(lq, sharded.take_read(lk, index, 1),
+                                sharded.take_read(lv, index, 1), lout, llse, ldout,
                                 causal=causal, scale=scale, block_k=block_k)
-    if need < lk.shape[1]:
-        dk = torch.zeros_like(lk).index_copy_(1, torch.arange(need, device=lk.device), dk)
-        dv = torch.zeros_like(lv).index_copy_(1, torch.arange(need, device=lv.device), dv)
+    dk, dv = sharded.put_read(dk, index, 1, lk.shape), sharded.put_read(dv, index, 1, lv.shape)
 
     def wrap(t, like, pl):         # t is contiguous: its global strides are too
         return DTensor.from_local(t.contiguous(), mesh, tuple(pl), run_check=False,

@@ -72,6 +72,7 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int, in_scale=None):
     Returns y (Bt, S, H, P) in x's dtype and h_final (Bt, H, N, P) float32."""
     if not x.is_cuda:
         raise ValueError("ssd_scan_cuda takes CUDA tensors")
+    build.refuse_dtensor("ssd_scan_cuda", x, dt, A, B, C, in_scale)
     build.refuse_grad("ssd_scan_cuda", "call ops.ssd_scan, whose autograd Function has the "
                       "backward, or run under torch.no_grad()", x, dt, A, B, C, in_scale)
     bt, s, h, p = x.shape

@@ -9,9 +9,11 @@ backward recomputes the plain chunkwise scan under autograd and
 differentiates it — what the reference does off the TPU, where it trains
 the SSD by autodiff of ``reference_ssd_chunked`` (the Pallas kernel has
 no VJP).  The Function sits below the padding, so the padding is
-differentiated by torch.  On ``DTensor``s (the dry run's sharded trace)
-the forward is one kernel operation of the trace and the backward runs on
-each device's local shards.
+differentiated by torch.  On ``DTensor``s over a real process group the
+forward runs on each rank's local shards
+(:func:`repro_torch.kernels.sharded.on_shards`: B4 on the card, the plain
+version on the CPU), and so does the backward; in the dry run's trace
+(shards on the ``meta`` device) the forward is one kernel operation.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import trace_hooks
+from .. import sharded
 from .kernel import scan_flops, ssd_scan_cuda
 from .ref import ssd_chunked
 
@@ -38,12 +41,7 @@ class SsdScan(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, A, B, C, in_scale)
         ctx.chunk = chunk
-        if x.is_cuda:
-            return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
-        if x.is_meta:
-            return _meta_kernel(x, dt, A, B, C, chunk, in_scale)
-        y, hf = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
-        return y.to(x.dtype), hf
+        return _scan(x, dt, A, B, C, chunk, in_scale)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -73,10 +71,12 @@ def _backward(saved, need, dy, dhf, chunk: int) -> tuple:
 
 
 def _sharded_backward(saved, need, dy, dhf, chunk: int) -> tuple:
-    """:func:`_backward` of ``DTensor`` operands (the dry run's sharded
-    trace), run by each device on its local shards: batch and heads keep
-    x's shards (dt, in_scale and A follow the heads, B and C the batch); the
-    gradients of A, B and C are partial sums over the axes a device sums
+    """:func:`_backward` of ``DTensor`` operands, run by each rank on its
+    local shards: batch and heads keep x's shards (dt, in_scale and A follow
+    the heads, B and C the batch); B and C stay whole along the heads' axis
+    and a rank takes the groups its heads read
+    (:func:`repro_torch.kernels.sharded.read_index`, from its coordinate).
+    The gradients of A, B and C are partial sums over the axes a rank sums
     only its part of."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     x = saved[0]
@@ -103,21 +103,19 @@ def _sharded_backward(saved, need, dy, dhf, chunk: int) -> tuple:
             (spread((0, None)), spread((0, None), partial_on_heads=True)),
             (spread((0, None)), spread((0, None), partial_on_heads=True)),
             (spread(heads), spread(heads))]
-    local = [t.redistribute(mesh, pl).to_local() if hasattr(t, "device_mesh") else t
-             for t, (pl, _) in zip(saved, plan)]      # a plain input is the same everywhere
-    # B and C stay whole along the heads' axis: a device takes the groups its
-    # heads read (heads are split in whole groups or within one)
-    h, h_loc, g = x.shape[2], local[0].shape[2], local[3].shape[2]
-    g_loc = max(1, g * h_loc // h)
+    dts = [t.redistribute(mesh, pl) if hasattr(t, "device_mesh") else t
+           for t, (pl, _) in zip(saved, plan)]        # a plain input is the same everywhere
+    local = [t.to_local() if hasattr(t, "device_mesh") else t for t in dts]
+    index = sharded.read_index(x.shape[2], saved[3].shape[2], sharded.shard_offset(dts[0], 2),
+                               local[0].shape[2], 0)
     full_bc = local[3].shape, local[4].shape
-    local[3], local[4] = local[3][:, :, :g_loc], local[4][:, :, :g_loc]
+    local[3], local[4] = (sharded.take_read(t, index, 2) for t in local[3:5])
     ydy = None if dy is None else dy.redistribute(mesh, spread(heads)).to_local()
     hdh = None if dhf is None else dhf.redistribute(mesh, spread((0, 1))).to_local()
     grads = list(_backward(local, need, ydy, hdh, chunk))
     for i, shape in zip((3, 4), full_bc):
-        if grads[i] is not None and grads[i].shape != shape:
-            grads[i] = grads[i].new_zeros(shape).index_copy_(
-                2, torch.arange(g_loc, device=grads[i].device), grads[i])
+        if grads[i] is not None:
+            grads[i] = sharded.put_read(grads[i], index, 2, shape)
     out = []
     for g, t, (_, gpl) in zip(grads, saved, plan):
         if g is None or not hasattr(t, "device_mesh"):
@@ -163,6 +161,18 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, in_scale=None):
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, dt, A, B, C, in_scale)):
         return SsdScan.apply(x, dt, A, B, C, in_scale, chunk)
+    return _scan(x, dt, A, B, C, chunk, in_scale)
+
+
+def _scan(x, dt, A, B, C, chunk: int, in_scale):
+    """The forward on one device's tensors: B4 on CUDA ones, one kernel
+    operation of a shapes-only trace on meta ones, the plain chunked scan on
+    CPU ones; on ``DTensor``s over a real group, the same on each rank's
+    local shards."""
+    if hasattr(x, "device_mesh") and not x.is_meta:
+        ops = (x, dt, A, B, C) + (() if in_scale is None else (in_scale,))
+        return sharded.on_shards("ssd_scan", lambda *a: _scan(
+            *a[:5], chunk, a[5] if len(a) > 5 else None), *ops)
     if x.is_cuda:
         return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
     if x.is_meta:

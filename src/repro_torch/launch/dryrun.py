@@ -55,6 +55,7 @@ from pathlib import Path
 import torch
 
 from .. import trace_hooks
+from ..kernels import sharded
 from ..configs import (ARCH_IDS, SHAPES, ShapeConfig, TrainConfig, get_config, get_smoke_config,
                        shape_applicable)
 from .cost import StepCost
@@ -224,8 +225,8 @@ class _Trace(torch.utils._python_dispatch.TorchDispatchMode):
         mesh = next(t.device_mesh for t in inputs if hasattr(t, "device_mesh"))
         inputs = tuple(t if hasattr(t, "device_mesh") else _replicated_dtensor(t, mesh)
                        for t in inputs)
-        placed, out_placements = _KERNEL_ALIGN[name](inputs)
-        local_in = [t.to_local() for t in placed]
+        placed, out_placements = sharded.ALIGN[name](inputs)
+        local_in = sharded.local_operands(name, placed)
         self._in_kernel = True
         try:
             outs = make_outputs()
@@ -354,51 +355,6 @@ def _op_flops(name: str, args, outs) -> float:
 
 
 # ------------------------------------------------------------------ kernels
-def _spread(t, mesh_pl, dims_from, dims_to):
-    """Placements for ``t``: the reference tensor's ``Shard(d)`` for ``d`` in
-    ``dims_from`` mapped to ``dims_to`` where ``t`` divides, else
-    ``Replicate``."""
-    from torch.distributed.tensor import Replicate, Shard
-    mesh = t.device_mesh
-    out = []
-    for size, p in zip(mesh.shape, mesh_pl):
-        d = getattr(p, "dim", None)
-        if d in dims_from:
-            to = dims_to[dims_from.index(d)]
-            if to is not None and t.shape[to] % size == 0:
-                out.append(Shard(to))
-                continue
-        out.append(Replicate())
-    return tuple(out)
-
-
-def _placed(t, pl):
-    return t if tuple(t.placements) == pl else t.redistribute(t.device_mesh, pl)
-
-
-def _align_flash(inputs):
-    q, k, v = inputs
-    qp = _spread(q, q.placements, (0, 1), (0, 1))
-    q = _placed(q, qp)
-    k = _placed(k, _spread(k, qp, (0, 1), (0, 1)))
-    v = _placed(v, _spread(v, qp, (0, 1), (0, 1)))
-    return (q, k, v), (qp, _spread(q, qp, (0, 1), (0, 1)))
-
-
-def _align_ssd(inputs):
-    x = inputs[0]
-    xp = _spread(x, x.placements, (0, 2), (0, 2))
-    placed = [_placed(x, xp),
-              _placed(inputs[1], _spread(inputs[1], xp, (0, 2), (0, 2))),
-              _placed(inputs[2], _spread(inputs[2], xp, (0, 2), (None, 0))),
-              _placed(inputs[3], _spread(inputs[3], xp, (0, 2), (0, None))),
-              _placed(inputs[4], _spread(inputs[4], xp, (0, 2), (0, None)))]
-    if len(inputs) > 5:
-        placed.append(_placed(inputs[5], _spread(inputs[5], xp, (0, 2), (0, 2))))
-    x = placed[0]
-    return tuple(placed), (xp, _spread(x, xp, (0, 2), (0, 1)))
-
-
 def _flash_flops(local) -> float:
     """B3's two products over every (query, key) pair, as the plain version
     and the reference's chunked attention compute them."""
@@ -418,7 +374,6 @@ def _ssd_flops(local) -> float:
     return 2.0 * bt * h * (-(-s // q)) * (q * q * n + q * q * p + 2 * q * n * p)
 
 
-_KERNEL_ALIGN = {"flash_fwd": _align_flash, "ssd_scan": _align_ssd}
 _KERNEL_FLOPS = {"flash_fwd": _flash_flops, "ssd_scan": _ssd_flops}
 _SSD_CHUNK = contextvars.ContextVar("ssd_chunk", default=64)   # the traced model's chunk
 
@@ -473,10 +428,6 @@ def _opt_tree(state) -> dict:
             **({"master": state.master} if state.master is not None else {})}
 
 
-def _to_sharding(t, sharding):
-    return t if not hasattr(t, "device_mesh") else _placed(t, sharding.placements)
-
-
 # ------------------------------------------------------------------ one cell
 def trace_step(cfg, shape: ShapeConfig, mesh_shape: tuple, mesh_names: tuple,
                microbatches: int = 1, scopes: bool = True, detail: int = 0) -> dict:
@@ -484,11 +435,8 @@ def trace_step(cfg, shape: ShapeConfig, mesh_shape: tuple, mesh_names: tuple,
     ``mesh_shape`` over ``mesh_names`` (this process joins a fake world of
     its size).  Returns ``{"memory", "cost" (a StepCost), "timing",
     "fallbacks", "outputs", "trace"}``."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
     from ..models.model import build_model
     from ..optim import OptState
-    from ..parallel.sharding import NamedSharding, PartitionSpec
     from . import steps
 
     mesh = device_mesh(mesh_shape, mesh_names)
@@ -531,14 +479,11 @@ def trace_step(cfg, shape: ShapeConfig, mesh_shape: tuple, mesh_names: tuple,
     chunk_ = _SSD_CHUNK.set(cfg.ssm.chunk if cfg.ssm is not None else 64)
     t0 = time.perf_counter()
     try:
-        with implicit_replication(), tr:
+        with tr:
             out = run()
-            if shape.kind == "train":      # the step's declared output layouts
+            if shape.kind == "train":      # at the step's declared output layouts
                 new_p, new_o, metrics = out
-                rep = NamedSharding(mesh, PartitionSpec())
-                out = (_tmap(_to_sharding, new_p, p_sh),
-                       _tmap(_to_sharding, _opt_tree(new_o), _opt_tree(o_sh)),
-                       {k: _to_sharding(v, rep) for k, v in metrics.items()})
+                out = (new_p, _opt_tree(new_o), metrics)
         tr.sweep()
     finally:
         trace_hooks.RECORDER.reset(token_)

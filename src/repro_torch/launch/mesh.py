@@ -11,7 +11,10 @@ that resolving shardings needs:
 * small test: (data, model).
 
 :func:`single_device_mesh` builds a real ``DeviceMesh`` of one device (every
-axis of size 1) on the card or the CPU, over a one-rank process group.
+axis of size 1) on the card or the CPU, over a one-rank process group;
+:func:`device_mesh` one of any shape over the initialised world (its ranks
+spawned by :func:`repro_torch.parallel.data.run_ranks`), on which the step
+makers of :mod:`repro_torch.launch.steps` execute sharded.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import tempfile
 from ..parallel.sharding import AbstractMesh
 
 __all__ = ["make_production_mesh", "make_pipeline_mesh", "small_test_mesh",
-           "single_device_mesh"]
+           "single_device_mesh", "device_mesh"]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
@@ -61,3 +64,31 @@ def single_device_mesh(device=None, axis_names: tuple = ("data", "model")):
         import torch
         torch.cuda.set_device(dev.index or 0)
     return init_device_mesh(dev.type, (1,) * len(axis_names), mesh_dim_names=tuple(axis_names))
+
+
+def device_mesh(shape: tuple, names: tuple = ("data", "model"), device=None):
+    """A ``DeviceMesh`` of ``shape`` over ``names`` on the initialised world
+    of this process (rank-major: the last axis varies fastest), on the card
+    unless ``device`` names the CPU.  A world whose size is not
+    ``prod(shape)``, or no world, raises.  On the card over gloo (ranks
+    sharing one card) the functional all-gather takes
+    :func:`repro_torch.parallel.collectives.shared_card_all_gather`."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ..device import resolve_device
+    if len(shape) != len(names):
+        raise ValueError(f"{len(shape)} axis sizes for {len(names)} names")
+    if not dist.is_initialized():
+        raise ValueError(f"a {tuple(shape)} mesh needs an initialised world of "
+                         f"{math.prod(shape)} ranks (repro_torch.parallel.data.run_ranks)")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"a {tuple(shape)} mesh needs {math.prod(shape)} ranks, the world "
+                         f"has {dist.get_world_size()}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dist.get_backend() == "gloo":
+        from ..parallel.collectives import use_shared_card_collectives
+        use_shared_card_collectives()
+    return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(names))

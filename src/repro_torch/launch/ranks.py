@@ -1,0 +1,477 @@
+"""Rank bodies of sharded execution: the LM zoo's steps on a (data, model)
+``DeviceMesh`` of a world that :func:`repro_torch.parallel.data.run_ranks`
+spawned (gloo ranks on the CPU or sharing one card, or NCCL ranks one a
+card).  ``tests/test_torch_sharded_exec.py`` and ``chip_smoke.py`` run them.
+
+:func:`run_jobs` is the spawnable body: ``run_ranks(run_jobs, n,
+args=(jobs,))`` runs each job dict on every rank, in order, and returns one
+list of results a rank.  A job's ``"kind"`` names its function:
+
+* ``"steps"`` (:func:`steps_job`) — one arch on one mesh through the step
+  makers: prefill, greedy decode steps, the sharded ``value_and_grad`` and
+  train steps, and the trained state saved and restored onto another mesh
+  (reshard on load);
+* ``"train_loop"`` (:func:`train_loop_job`) — a sharded ``TrainLoop`` run
+  straight through, and stopped and resumed through ``shardings=``;
+* ``"collectives"`` (:func:`collectives_job`) — the functional collectives
+  that ``DTensor`` issues, on this world's devices;
+* ``"faults"`` (:func:`faults_job`) — the local-shard helpers on the
+  offsets of ranks other than 0 (``_sharded_nll``, ``write_seq``,
+  ``whole_product``'s backward, the flash and SSD backwards).
+
+Every value a job reports is gathered to a full tensor.  Each rank returns
+its sha256 under ``"digests"``, so that a caller can hold the ranks'
+replicated values to one another bit for bit; rank 0 also returns it as a
+numpy array under ``"arrays"`` (with ``keep=True``), and, given a
+``reference`` file (``torch.save`` of name -> tensor), every rank returns
+under ``"errors"`` its largest difference from the reference's tensor of
+that name, the reference's largest magnitude, and the largest difference
+less :data:`BF16_RTOL` times the reference's magnitude there.
+``"launches"`` counts a rank's B3 and B4 launches a phase, ``"ms"`` its
+host-clock milliseconds (the card synchronized first).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+import time
+
+import numpy as np
+import torch
+
+from .. import optim
+from ..configs import TrainConfig, get_config, get_smoke_config
+from ..kernels import build
+from ..models.common import TensorSpec
+from ..models.lm import params_from_numpy
+from ..models.model import build_model
+from ..parallel.sharding import gather_tree, shard_tree
+from .mesh import device_mesh
+from .steps import (make_decode_step, make_prefill_step, make_train_step, named_leaves,
+                    value_and_grad)
+
+__all__ = ["NAMES", "KERNELS", "BF16_RTOL", "JOBS", "run_jobs", "steps_job",
+           "train_loop_job", "collectives_job", "faults_job", "numpy_of"]
+
+#: the mesh axes of every job
+NAMES = ("data", "model")
+#: the launch counters a job reports (B3, B4)
+KERNELS = ("flash_fwd", "ssd_scan")
+#: the relative part of the zoo's bf16 bound: an error against a reference
+#: reports max(|d| - BF16_RTOL |want|), which that bound holds to its atol
+BF16_RTOL = 2e-2
+
+
+def numpy_of(t) -> np.ndarray:
+    """A full tensor (a ``DTensor`` gathered) as a host numpy array of its
+    own (a copy: a cache written in place later does not change it); a
+    bfloat16 one widened to float32 (exactly)."""
+    t = t.full_tensor() if hasattr(t, "device_mesh") else t
+    t = t.detach()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy())
+
+
+class _Report:
+    """A job's result: digests (every rank), arrays (rank 0, with ``keep``),
+    differences from a reference, launch counts and host-clock ms by
+    phase."""
+
+    def __init__(self, rank: int, device: torch.device, keep: bool = True,
+                 reference: str | None = None):
+        self.rank, self.device, self.keep = rank, device, keep
+        self.ref = {} if reference is None else torch.load(reference, map_location="cpu")
+        self.out = {"rank": rank, "device": str(device), "arrays": {}, "digests": {},
+                    "errors": {}, "launches": {}, "ms": {}}
+
+    def put(self, name: str, t) -> np.ndarray:
+        a = numpy_of(t)
+        self.out["digests"][name] = hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+        if self.keep and self.rank == 0:
+            self.out["arrays"][name] = a
+        if name in self.ref:
+            self._hold(name, torch.from_numpy(a), self.ref[name])
+        return a
+
+    def _hold(self, name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+        """Record ``got``'s errors against the reference's ``want``."""
+        got, want = got.double(), want.double()
+        d = (got - want).abs()
+        self.out["errors"][name] = (float(d.max()), float(want.abs().max()),
+                                    float((d - BF16_RTOL * want.abs()).max()))
+
+    def put_tree(self, prefix: str, tree) -> None:
+        for name, leaf in named_leaves(tree):
+            if leaf is not None:
+                self.put(f"{prefix}/{name}", leaf)
+
+    def put_shards(self, prefix: str, tree) -> None:
+        """A tree of sharded values: gathered and put with ``keep``; else
+        each rank's local shard held to its slice of the reference (no
+        gather, no digest: the shards differ by rank)."""
+        if self.keep:
+            self.put_tree(prefix, gather_tree(tree))
+            return
+        for name, leaf in named_leaves(tree):
+            key = f"{prefix}/{name}"
+            if leaf is not None and key in self.ref:
+                self._hold(key, _local(leaf), _local_slice(leaf, self.ref[key]))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Time a phase (appending to its list of ms) and count its B3/B4
+        launches: the counters are set to 0 just before it and read just
+        after."""
+        for k in build.LAUNCHES:
+            build.LAUNCHES[k] = 0
+        self._sync()
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.out["ms"].setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        counts = self.out["launches"].setdefault(name, dict.fromkeys(KERNELS, 0))
+        for k in KERNELS:
+            counts[k] += build.LAUNCHES[k]
+
+
+def _local(t) -> torch.Tensor:
+    """This rank's shard of ``t`` (``t`` itself if plain), on the host; a
+    partial sum reduced first."""
+    if hasattr(t, "device_mesh"):
+        from torch.distributed.tensor import Replicate
+        t = t.redistribute(t.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                                for p in t.placements)).to_local()
+    return t.detach().cpu()
+
+
+def _local_slice(t, full: torch.Tensor) -> torch.Tensor:
+    """The region of ``full`` (a host tensor of ``t``'s global shape) that
+    this rank's shard of the ``DTensor`` ``t`` holds."""
+    if not hasattr(t, "device_mesh"):
+        return full
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)
+    return full[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+
+
+def _model(arch: str, smoke: bool, dtype: str, n_layers: int | None, device):
+    cfg = (get_smoke_config if smoke else get_config)(arch).scaled(dtype=dtype)
+    if n_layers is not None:
+        cfg = cfg.scaled(n_layers=n_layers)
+    return build_model(cfg, device=device)
+
+
+def _params(model, params, seed: int, device):
+    """The numpy tree ``params`` on ``device``, or the model's seeded init
+    there (the same on every rank)."""
+    if params is not None:
+        return params_from_numpy(model.cfg, params, device)
+    return model.init_params(seed=seed)
+
+
+def _at(tree, shardings) -> bool:
+    """Every ``DTensor`` leaf of ``tree`` is at its sharding's placements."""
+    return all(tuple(t.placements) == sh.placements
+               for (_, t), (_, sh) in zip(named_leaves(tree), named_leaves(shardings))
+               if t is not None)
+
+
+def _kernel_names(fn) -> tuple:
+    """(``fn()``, the count of its device kernels by name, of those whose
+    name holds ``flash_fwd`` or ``ssd_scan``), run under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and ("flash_fwd" in e.name or "ssd_scan" in e.name):
+            out[e.name] = out.get(e.name, 0) + 1
+    return res, out
+
+
+def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, params=None,
+              seed: int = 0, smoke: bool = True, dtype: str = "float32",
+              n_layers: int | None = None, max_len=None,
+              decode: int = 3, feed=None, train: int = 0, microbatches: int = 2,
+              grads: bool = False, full_params: bool = True, train_layers: int | None = None,
+              save_dir: str | None = None, resume_mesh: tuple | None = None,
+              keep: bool = True, reference: str | None = None, profile: bool = False) -> dict:
+    """``arch`` on ``mesh`` through the step makers:
+
+    * the prefill of ``tokens`` into a cache of ``max_len`` (default S +
+      decode), and ``decode`` greedy steps: each reports the argmax of the
+      gathered logits as its token and feeds it, or ``feed[i]`` where given;
+    * the sharded ``value_and_grad`` of the loss (``grads``);
+    * ``train`` train steps (``TrainConfig(microbatches=...)``), parameters
+      gathered after the first (``full_params``), leaf norms after each; a
+      model of ``train_layers`` layers (its own seeded init) where given;
+    * with ``save_dir``, the trained parameters and optimizer state saved
+      there (``CheckpointManager``) and restored onto ``resume_mesh``: each
+      leaf compared bit for bit with the saved one and its placements with
+      the new mesh's shardings.
+
+    ``params`` is a numpy tree, else the seeded init (the same on every
+    rank); ``n_layers`` cuts the model's depth.  With ``profile`` the
+    prefill runs once more under the profiler and its B3/B4 kernels are
+    counted by name."""
+    rep = _Report(world.rank, device, keep, reference)
+    model = _model(arch, smoke, dtype, n_layers, device)
+    dmesh = device_mesh(mesh, NAMES, device)
+    b, s = tokens.shape
+    max_len = max_len or s + decode
+    specs, axes = {"tokens": TensorSpec((b, s), torch.int32)}, {"tokens": ("batch", None)}
+    prefill, (p_sh, b_sh) = make_prefill_step(model, dmesh, specs, axes)
+    dparams = shard_tree(_params(model, params, seed, device), p_sh)
+    batch = shard_tree({"tokens": torch.from_numpy(tokens).to(device)}, b_sh)
+    with rep.phase("prefill"):
+        if profile:
+            run = lambda: prefill(dparams, batch, max_len=max_len)      # noqa: E731
+            (logits, cache), rep.out["kernel_names"] = _kernel_names(run)
+        else:
+            logits, cache = prefill(dparams, batch, max_len=max_len)
+    rep.put("prefill/logits", logits)
+    rep.put_shards("prefill/cache", cache)
+    dec, (_, tok_sh, c_sh) = make_decode_step(model, dmesh, b, max_len)
+    rep.out["cache_at_shardings"] = _at(cache, c_sh)
+    for i in range(decode):
+        tok = logits.full_tensor()[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        rep.put(f"decode/{i}/token", tok)
+        if feed is not None:
+            tok = torch.from_numpy(feed[i]).to(device)
+        with rep.phase("decode"):
+            logits, cache = dec(dparams, shard_tree(tok, tok_sh), cache, s + i)
+        rep.put(f"decode/{i}/logits", logits)
+    if decode:
+        rep.put_shards("decode/cache", cache)
+    del cache, logits
+    if not (grads or train):
+        return rep.out
+    if train_layers is not None:
+        del dparams
+        model = _model(arch, smoke, dtype, train_layers, device)
+    tcfg = TrainConfig(microbatches=microbatches)
+    step, (p_sh, o_sh, _), optimizer = make_train_step(model, dmesh, tcfg, specs, axes)
+    if train_layers is not None:
+        dparams = shard_tree(_params(model, None, seed, device), p_sh)
+    if grads:
+        from torch.distributed.tensor.experimental import implicit_replication
+        with rep.phase("grads"), implicit_replication():
+            loss, g = value_and_grad(model.loss, dparams, batch)
+        rep.put("grads/loss", loss)
+        rep.put_shards("grads", g)
+        del g
+    opt_state = shard_tree(optimizer.init(dparams), o_sh)
+    for i in range(train):
+        with rep.phase("train"):
+            dparams, opt_state, metrics = step(dparams, opt_state, batch)
+        for k in ("loss", "grad_norm", "step"):
+            rep.put(f"train/{i}/{k}", metrics[k])
+        if rep.keep:
+            norms = [float(torch.linalg.vector_norm(t.full_tensor().double()))
+                     for _, t in named_leaves(dparams)]
+            rep.put(f"train/{i}/leaf_norms", torch.tensor(norms, dtype=torch.float64))
+        if i == 0 and full_params:
+            rep.put_tree("train/params", gather_tree(dparams))
+        rep.out["train_at_shardings"] = _at(dparams, p_sh) and _at(opt_state.tree(),
+                                                                   o_sh.tree())
+    rep.out["train_leaf_names"] = [n for n, _ in named_leaves(p_sh)]
+    if save_dir is not None:
+        _resume(rep, model, optimizer, {"params": dparams, "opt_state": opt_state.tree()},
+                save_dir, train, resume_mesh, device)
+    if device.type == "cuda":
+        rep.out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    return rep.out
+
+
+def _resume(rep, model, optimizer, state: dict, directory: str, step: int, mesh: tuple,
+            device) -> None:
+    """Save ``state`` as ``step`` in ``directory`` and restore it onto
+    ``mesh``: every rank holds its shard of each saved leaf and of the
+    restored one to the same region of the written file, bit for bit (so
+    restored equals saved, with no gather), and the restored leaves are at
+    the new mesh's shardings (reported gathered with ``keep``)."""
+    from ..checkpoint import CheckpointManager
+    from ..checkpoint.manager import _tensor, read_leaves
+    from .steps import opt_shardings, param_shardings
+    mgr = CheckpointManager(directory)
+    with rep.phase("save"):
+        mgr.save(step, state)
+    dmesh = device_mesh(mesh, NAMES, device)
+    sh = {"params": param_shardings(model, dmesh),
+          "opt_state": opt_shardings(optimizer, model, dmesh).tree()}
+    with rep.phase("restore"):
+        restored = mgr.restore(step, state, sh)
+    stored = read_leaves(mgr.directory / f"step_{step:08d}")
+    same = []
+    for (name, a), (_, r) in zip(named_leaves(state), named_leaves(restored)):
+        if a is not None:
+            full = _tensor(stored[name])
+            same.append(all(bool(torch.equal(_local(t), _local_slice(t, full))) for t in (a, r)))
+            if rep.keep:
+                rep.put(f"restored/{name}", r)
+    rep.out["resume"] = {"leaves": len(same), "equal": sum(same), "mesh": list(mesh),
+                         "at_shardings": _at(restored, sh)}
+
+
+def collectives_job(world, device, *, mesh: tuple = (1, 4)) -> dict:
+    """The functional collectives that ``DTensor`` issues, along ``model``
+    of ``mesh`` on this world's devices, against their results computed on
+    the host: all_gather_into_tensor (over gloo on the card:
+    :func:`~repro_torch.parallel.collectives.shared_card_all_gather`),
+    reduce_scatter_tensor, all_reduce and all_to_all_single, and, in a gloo
+    world, ``shared_card_all_gather`` called directly.  Reports each one's
+    agreement and this rank's uses of the shared card's route."""
+    import torch.distributed._functional_collectives as funcol
+
+    from ..parallel.collectives import USES, shared_card_all_gather
+    dmesh = device_mesh(mesh, NAMES, device)
+    group, n, r = dmesh.get_group(1), dmesh.size(1), dmesh.get_local_rank(1)
+    before = dict(USES)
+
+    def mine(j):
+        return torch.arange(4 * n, dtype=torch.float32) + 100 * j
+
+    x = mine(r).to(device)
+    want = {"all_gather_into_tensor": torch.cat([mine(j) for j in range(n)]),
+            "reduce_scatter_tensor": sum(mine(j) for j in range(n)).chunk(n)[r],
+            "all_reduce": sum(mine(j) for j in range(n)),
+            "all_to_all_single": torch.cat([mine(j).chunk(n)[r] for j in range(n)])}
+    got = {"all_gather_into_tensor": funcol.all_gather_tensor(x, 0, group),
+           "reduce_scatter_tensor": funcol.reduce_scatter_tensor(x, "sum", 0, group),
+           "all_reduce": funcol.all_reduce(x, "sum", group),
+           "all_to_all_single": funcol.all_to_all_single(x, None, None, group)}
+    if world.backend == "gloo":       # the shared card's route, called as itself
+        got["shared_card_all_gather"] = shared_card_all_gather(x, n, group.group_name)
+        want["shared_card_all_gather"] = want["all_gather_into_tensor"]
+    ok = {k: bool(torch.equal(torch.as_tensor(got[k]).cpu(), want[k])) for k in want}
+    return {"rank": world.rank, "device": str(device), "backend": world.backend, "ok": ok,
+            "shared_card_uses": {k: USES[k] - before.get(k, 0) for k in USES}}
+
+
+def train_loop_job(world, device, *, arch: str, mesh: tuple, directory: str, steps: int,
+                   stop: int, batch: int, seq: int, params=None, seed: int = 0,
+                   smoke: bool = True, dtype: str = "float32", microbatches: int = 2) -> dict:
+    """``TrainLoop`` on ``mesh``: ``steps`` steps straight through (in
+    ``directory``/full), and ``stop`` steps then a second loop to ``steps``
+    that resumes through ``shardings=`` (in ``directory``/resumed) from
+    parameters it was not given.  Batch ``i`` is the tokens of
+    ``numpy.random.default_rng(i)``.  Reports both runs' final parameters
+    and metrics."""
+    from ..runtime import TrainLoop, TrainLoopConfig
+    rep = _Report(world.rank, device)
+    model = _model(arch, smoke, dtype, None, device)
+    dmesh = device_mesh(mesh, NAMES, device)
+    specs, axes = {"tokens": TensorSpec((batch, seq), torch.int32)}, {"tokens": ("batch", None)}
+    step, (p_sh, o_sh, b_sh), optimizer = make_train_step(
+        model, dmesh, TrainConfig(microbatches=microbatches), specs, axes)
+    host = _params(model, params, seed, device)
+
+    def batch_fn(i):
+        toks = np.random.default_rng(i).integers(0, model.cfg.vocab_size, (batch, seq))
+        return shard_tree({"tokens": torch.from_numpy(toks.astype(np.int32)).to(device)}, b_sh)
+
+    def loop(total, start_params, sub):
+        dparams = shard_tree(start_params, p_sh)
+        opt_state = shard_tree(optimizer.init(dparams), o_sh)
+        tl = TrainLoop(step, batch_fn, dparams, opt_state,
+                       TrainLoopConfig(total_steps=total, save_every=stop, log_every=10 ** 9),
+                       f"{directory}/{sub}", shardings=(p_sh, o_sh))
+        res = tl.run()
+        return tl, res
+
+    full, full_res = loop(steps, host, "full")
+    loop(stop, host, "resumed")
+    resumed, resumed_res = loop(steps, optim.tree_map(torch.zeros_like, host), "resumed")
+    rep.out["resumed_from"] = resumed.start_step
+    rep.out["metrics"] = {"full": full_res, "resumed": resumed_res}
+    rep.out["resumed_at_shardings"] = _at(resumed.params, p_sh)
+    rep.put_tree("full", full.params)
+    rep.put_tree("resumed", resumed.params)
+    return rep.out
+
+
+def faults_job(world, device, *, mesh: tuple, nll: dict, seq: dict, product: dict,
+               flash: dict, ssd: dict) -> dict:
+    """The local-shard helpers on ``mesh`` (a 4-way ``model`` axis, so that
+    ranks 1-3 hold shards at offsets other than 0), each on numpy inputs:
+
+    * ``nll`` {"logits", "labels"}: ``softmax_cross_entropy`` with the
+      vocabulary split;
+    * ``seq`` {"cache", "val", "start"}: ``write_seq`` into a cache split
+      along the sequence, ``val`` straddling two ranks' shards;
+    * ``product`` {"x", "w"}: ``whole_product`` and the gradients of the
+      sum of its squares;
+    * ``flash`` {"q", "k", "v", "dout"}: ``flash_attention`` under autograd
+      with the query heads split and the key/value heads whole;
+    * ``ssd`` {"x", "dt", "A", "B", "C", "dy"}: ``ssd_scan`` under autograd
+      with the heads split and the B/C groups whole.
+
+    Reports each output and gradient, gathered."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ..kernels.flash.ops import flash_attention
+    from ..kernels.ssd.ops import ssd_scan
+    from ..models.common import softmax_cross_entropy, whole_product, write_seq
+    rep = _Report(world.rank, device)
+    dmesh = device_mesh(mesh, NAMES, device)
+    rep.out["model_rank"] = dmesh.get_local_rank(1)
+
+    def put(a, *placements, grad=False):
+        pl = tuple(placements) + (Replicate(),) * (dmesh.ndim - len(placements))
+        t = distribute_tensor(torch.from_numpy(a).to(device), dmesh, pl, src_data_rank=None)
+        return t.requires_grad_(grad) if grad else t
+
+    rep_, model_shard = Replicate(), lambda d: Shard(d)
+    with implicit_replication():
+        logits = put(nll["logits"], rep_, model_shard(2))
+        rep.put("nll/loss", softmax_cross_entropy(logits, put(nll["labels"])))
+
+        cache = put(seq["cache"], rep_, model_shard(1))
+        write_seq(cache, int(seq["start"]), put(seq["val"]))
+        rep.put("seq/cache", cache)
+
+        x, w = put(product["x"], grad=True), put(product["w"], grad=True)
+        y = whole_product(x, w)
+        torch.autograd.backward(y.square().sum())
+        rep.put("product/y", y)
+        rep.put("product/dx", x.grad)
+        rep.put("product/dw", w.grad)
+
+        q = put(flash["q"], rep_, model_shard(1), grad=True)
+        k, v = put(flash["k"], grad=True), put(flash["v"], grad=True)
+        out = flash_attention(q, k, v, causal=True)
+        torch.autograd.backward(out, put(flash["dout"], rep_, model_shard(1)))
+        rep.put("flash/out", out)
+        for name, t in (("dq", q), ("dk", k), ("dv", v)):
+            rep.put(f"flash/{name}", t.grad)
+
+        xs = put(ssd["x"], rep_, model_shard(2), grad=True)
+        dts = put(ssd["dt"], rep_, model_shard(2), grad=True)
+        A, Bm, Cm = (put(ssd[n], grad=True) for n in ("A", "B", "C"))
+        y, h = ssd_scan(xs, dts, A, Bm, Cm, chunk=int(ssd["chunk"]))
+        torch.autograd.backward(y, put(ssd["dy"], rep_, model_shard(2)))
+        rep.put("ssd/y", y)
+        rep.put("ssd/h", h)
+        for name, t in (("dx", xs), ("ddt", dts), ("dA", A), ("dB", Bm), ("dC", Cm)):
+            rep.put(f"ssd/{name}", t.grad)
+
+    return rep.out
+
+
+JOBS = {"steps": steps_job, "train_loop": train_loop_job, "collectives": collectives_job,
+        "faults": faults_job}
+
+
+def run_jobs(world, device, jobs: list) -> list:
+    """The spawnable body: every job of ``jobs`` (dicts with a ``"kind"``
+    of :data:`JOBS` and that function's keyword arguments) on this rank,
+    in order."""
+    return [JOBS[job["kind"]](world, device, **{k: v for k, v in job.items() if k != "kind"})
+            for job in jobs]

@@ -32,14 +32,19 @@ The sharded step makers take a mesh (an abstract one or a ``DeviceMesh``,
   step is replicated.  They work on any mesh, the reference's 256- and
   512-chip ones included.
 * ``make_train_step``, ``make_prefill_step`` and ``make_decode_step``
-  return the step and its input shardings.  On a mesh whose axes all have
-  size 1 the step is the single-device one (``make_train_fn``,
-  ``Model.prefill``, ``Model.decode_step``); a larger axis raises
-  ``NotImplementedError``: sharded execution across cards is not ported.
-  The one exception is a ``DeviceMesh`` over the ``fake`` process-group
-  backend, on which the dry run (:mod:`repro_torch.launch.dryrun`) traces
-  the same steps over ``DTensor``s as one rank of a world that does not
-  execute.
+  return the step and its input shardings; the step is the single-device
+  one (``make_train_fn``, ``Model.prefill``, ``Model.decode_step``).  On a
+  ``DeviceMesh`` it takes ``DTensor``s at those shardings
+  (:func:`repro_torch.parallel.sharding.shard_tree`) and runs under
+  ``implicit_replication``, so that plain tensors made inside the forwards
+  (rotary tables, masks) count as replicated; B3 and B4 run on each rank's
+  local shards.  The train step returns parameters and optimizer state at
+  their shardings and its metrics replicated (the reference's
+  ``out_shardings=(p_sh, o_sh, rep)``).  The mesh is a real world of ranks
+  (:func:`repro_torch.launch.mesh.device_mesh`), or the dry run's ``fake``
+  one (:mod:`repro_torch.launch.dryrun`: one rank traced, nothing
+  executed).  An :class:`AbstractMesh` with an axis larger than 1 raises
+  ``NotImplementedError``: it has no devices to execute on.
 """
 
 from __future__ import annotations
@@ -49,8 +54,8 @@ from torch.profiler import record_function
 
 from .. import optim, trace_hooks
 from ..configs.base import TrainConfig
-from ..parallel.sharding import (AbstractMesh, NamedSharding, PartitionSpec, axis_sizes,
-                                 sharding_for, tree_shardings)
+from ..parallel.sharding import (AbstractMesh, NamedSharding, PartitionSpec,
+                                 abstract_mesh_error, shard_tree, sharding_for, tree_shardings)
 
 __all__ = ["make_optimizer", "make_train_fn", "named_leaves", "value_and_grad",
            "param_shardings", "batch_shardings", "cache_shardings", "opt_shardings",
@@ -104,15 +109,19 @@ def value_and_grad(loss_fn, params: dict, batch: dict):
 def _microbatch(v, i: int, m: int):
     """Slice ``i`` of ``m`` along the batch axis: rows ``i * B/m`` onward of
     a tensor; of a ``DTensor`` sharded along the batch, slice ``i`` of every
-    device's rows (each device runs its own microbatches, as a sharded data
-    loader feeds them)."""
+    rank's rows (each rank runs its own microbatches, as a sharded data
+    loader feeds them), or, where a rank's rows do not split ``m`` ways,
+    rows ``i * B/m`` onward of the gathered batch."""
     if hasattr(v, "device_mesh") and any(getattr(p, "dim", None) == 0 for p in v.placements):
-        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor import DTensor, Replicate
         local = v.to_local()
         size = local.shape[0] // m
-        return DTensor.from_local(local[i * size: (i + 1) * size], v.device_mesh, v.placements,
-                                  run_check=False, shape=(v.shape[0] // m, *v.shape[1:]),
-                                  stride=v.stride())
+        if local.shape[0] % m == 0:
+            return DTensor.from_local(local[i * size: (i + 1) * size], v.device_mesh,
+                                      v.placements, run_check=False,
+                                      shape=(v.shape[0] // m, *v.shape[1:]), stride=v.stride())
+        v = v.redistribute(v.device_mesh, tuple(Replicate() if getattr(p, "dim", None) == 0
+                                                else p for p in v.placements))
     size = v.shape[0] // m
     return v[i * size: (i + 1) * size]
 
@@ -150,25 +159,44 @@ def _meta_model(model):
     return Model(model.cfg, torch.device("meta"))
 
 
-def _fake_mesh(mesh) -> bool:
-    """``mesh`` is a ``DeviceMesh`` over the ``fake`` process-group backend
-    (the dry run's, :mod:`repro_torch.launch.dryrun`: no peer executes)."""
+def _executable(mesh) -> None:
+    """Raise where ``mesh`` is abstract with an axis larger than 1."""
+    err = abstract_mesh_error(mesh)
+    if err is not None:
+        raise err
+
+
+def _on_mesh(step, mesh, out_shardings=None):
+    """``step`` run under ``implicit_replication`` on a ``DeviceMesh``, its
+    outputs moved to ``out_shardings``, a function of the step's arguments
+    returning a tree of shardings (or None, left where they are) of the
+    outputs' structure; on an abstract mesh ``step`` itself."""
     if isinstance(mesh, AbstractMesh):
-        return False
-    import torch.distributed as dist
-    return dist.is_initialized() and dist.get_backend() == "fake"
+        return step
+
+    def run(*args, **kwargs):
+        from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication():
+            out = step(*args, **kwargs)
+            return out if out_shardings is None else _placed(out, out_shardings(*args))
+    return run
 
 
-def _one_device(mesh) -> None:
-    """Raise where a mesh axis is larger than 1, unless the mesh is over the
-    dry run's fake backend."""
-    if _fake_mesh(mesh):
-        return
-    for name, size in axis_sizes(mesh).items():
-        if size > 1:
-            raise NotImplementedError(
-                f"mesh axis {name!r} has size {size}: sharded execution across cards is not "
-                "ported; the step makers run on a mesh whose axes all have size 1")
+def _placed(tree, shardings):
+    """``tree``'s tensor leaves at ``shardings`` (a tree of the same
+    structure; an ``OptState`` or a tuple is walked too): a ``DTensor``
+    redistributed, a plain tensor (the same on every rank, as the
+    optimizer's fresh step count) kept as each rank's shard of it, except on
+    a one-device mesh (where the step is the single-device one)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_placed(t, s) for t, s in zip(tree, shardings))
+    if isinstance(tree, optim.OptState):
+        return optim.OptState.from_tree(_placed(tree.tree(), shardings.tree()))
+    if isinstance(tree, dict):
+        return {k: _placed(v, shardings[k]) for k, v in tree.items()}
+    if tree is None or (not hasattr(tree, "device_mesh") and shardings.mesh.size() == 1):
+        return tree
+    return shard_tree(tree, shardings)
 
 
 def param_shardings(model, mesh) -> dict:
@@ -201,33 +229,39 @@ def opt_shardings(optimizer: optim.Optimizer, model, mesh) -> optim.OptState:
 
 def make_train_step(model, mesh, tcfg: TrainConfig, specs: dict, axes: dict):
     """(step, (param, optimizer-state, batch shardings), optimizer).  The
-    step is :func:`make_train_fn`'s."""
-    _one_device(mesh)
+    step is :func:`make_train_fn`'s; it returns parameters and optimizer
+    state at their shardings and the metrics replicated."""
+    _executable(mesh)
     optimizer = make_optimizer(tcfg)
-    shardings = (param_shardings(model, mesh), opt_shardings(optimizer, model, mesh),
-                 batch_shardings(specs, axes, mesh))
-    return make_train_fn(model, tcfg, optimizer), shardings, optimizer
+    p_sh, o_sh = param_shardings(model, mesh), opt_shardings(optimizer, model, mesh)
+    rep = NamedSharding(mesh, PartitionSpec())
+    step = _on_mesh(make_train_fn(model, tcfg, optimizer), mesh, lambda p, o, b: (
+        p_sh, o_sh, {k: rep for k in ("loss", "grad_norm", "step")}))
+    return step, (p_sh, o_sh, batch_shardings(specs, axes, mesh)), optimizer
 
 
 def make_prefill_step(model, mesh, specs: dict, axes: dict):
-    """(``prefill(params, batch)``, (param shardings, batch shardings))."""
-    _one_device(mesh)
+    """(``prefill(params, batch, max_len=None)``, (param shardings, batch
+    shardings)).  The cache (``max_len`` long, default the prompt's) comes
+    back at the decode step's cache shardings."""
+    _executable(mesh)
 
-    def prefill(params, batch):
-        return model.prefill(params, batch)
+    def prefill(params, batch, max_len=None):
+        return model.prefill(params, batch, max_len=max_len)
 
-    return prefill, (param_shardings(model, mesh), batch_shardings(specs, axes, mesh))
+    return _on_mesh(prefill, mesh), (param_shardings(model, mesh),
+                                     batch_shardings(specs, axes, mesh))
 
 
 def make_decode_step(model, mesh, batch: int, max_len: int):
     """(``decode(params, token, cache, kv_len)``, (param, token and cache
     shardings)).  The step writes into ``cache``, as ``Model.decode_step``
     does."""
-    _one_device(mesh)
+    _executable(mesh)
 
     def decode(params, token, cache, kv_len):
         return model.decode_step(params, token, cache, kv_len)
 
     tok_sh = sharding_for(("batch", None), (batch, 1), mesh)
-    return decode, (param_shardings(model, mesh), tok_sh,
-                    cache_shardings(model, mesh, batch, max_len))
+    return _on_mesh(decode, mesh), (param_shardings(model, mesh), tok_sh,
+                                    cache_shardings(model, mesh, batch, max_len))

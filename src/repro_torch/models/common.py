@@ -16,10 +16,12 @@ import numpy as np
 import torch
 
 from ..core import prng
+from ..kernels.sharded import shard_offset
 
 __all__ = ["DTYPES", "dtype_of", "Init", "KeyStream", "Annotated", "param", "split_annotated",
            "lift_layers", "TensorSpec", "constrain", "distribute_tree", "write_seq",
-           "column_sharded_product", "whole_product", "whole_heads", "on_local_shards",
+           "embed_lookup", "column_sharded_product", "whole_product", "whole_heads",
+           "on_local_shards",
            "rms_norm", "layer_norm", "rotary_embedding", "apply_rotary", "softmax_cross_entropy"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -163,10 +165,11 @@ def distribute_tree(make, axes_tree, like, rules=None):
 
 def write_seq(dst, start: int, val, axis: int = 1) -> None:
     """``dst[:, start: start + n] = val`` along ``axis`` (``val`` n long
-    there).  On a ``DTensor`` whose ``axis`` is sharded the write goes to the
-    device that owns the positions: it writes its share (at most its local
-    length) into its shard, as a sharded cache write does, and the trace
-    follows that device."""
+    there).  On a ``DTensor`` whose ``axis`` is sharded each rank writes the
+    positions its shard owns, at their offset inside the shard (from its
+    mesh coordinate); a write that straddles two shards is split between
+    their ranks, and a rank that owns none of the positions writes
+    nothing."""
     n = val.shape[axis]
     if not hasattr(dst, "device_mesh") or not any(
             getattr(p, "dim", None) == axis for p in dst.placements):
@@ -178,10 +181,56 @@ def write_seq(dst, start: int, val, axis: int = 1) -> None:
     if hasattr(val, "device_mesh"):
         val = val.redistribute(dst.device_mesh, want).to_local()
     local = dst.to_local()
-    size = local.shape[axis]
-    m = min(n, size)
-    at = start % size if start % size + m <= size else size - m
-    local.narrow(axis, at, m).copy_(val.narrow(axis, 0, m))
+    off = shard_offset(dst, axis)
+    lo, hi = max(start, off), min(start + n, off + local.shape[axis])
+    if lo < hi:
+        local.narrow(axis, lo - off, hi - lo).copy_(val.narrow(axis, lo - start, hi - lo))
+
+
+def embed_lookup(table, tokens):
+    """``table[tokens]``.  On a ``DTensor`` table whose rows (the
+    vocabulary) may be split across the mesh, each rank looks its tokens up
+    in its own rows, from its shard's offset, and the other ranks' rows give
+    zeros: the sum across the vocabulary's axes is the lookup, exactly (the
+    reference's vocabulary-parallel embedding).  Its gradient is added into
+    each rank's rows."""
+    if not hasattr(table, "device_mesh"):
+        return table[tokens]
+    return _Embedding.apply(table, tokens)
+
+
+class _Embedding(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, tokens):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh = table.device_mesh
+        tp = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in getattr(tokens, "placements", (Replicate(),) * mesh.ndim))
+        wp = tuple(q if isinstance(q, Shard) and q.dim == 0 and not isinstance(p, Shard) else
+                   Replicate() for p, q in zip(tp, table.placements))
+        tl = tokens.redistribute(mesh, tp).to_local() if hasattr(tokens, "device_mesh") \
+            else tokens
+        wd = table.redistribute(mesh, wp)
+        wl = wd.to_local()
+        idx = tl.long() - shard_offset(wd, 0)
+        inside = (idx >= 0) & (idx < wl.shape[0])
+        idx = idx.clamp(0, wl.shape[0] - 1)
+        out = wl[idx] * inside[..., None].to(wl.dtype)
+        ctx.save_for_backward(idx, inside)
+        ctx.meta = (mesh, tp, wp, wl.shape, table.shape)
+        po = tuple(Partial() if isinstance(q, Shard) else p for p, q in zip(tp, wp))
+        return _from_local(out, mesh, po, (*tokens.shape, table.shape[1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Shard
+        idx, inside = ctx.saved_tensors
+        mesh, tp, wp, local_shape, shape = ctx.meta
+        gl = g.redistribute(mesh, tp).to_local() * inside[..., None].to(g.dtype)
+        dw = gl.new_zeros(local_shape).index_add_(0, idx.reshape(-1),
+                                                  gl.reshape(-1, local_shape[1]))
+        pdw = tuple(Partial() if isinstance(p, Shard) else q for p, q in zip(tp, wp))
+        return _from_local(dw, mesh, pdw, shape), None
 
 
 def column_sharded_product(x, w):
@@ -246,12 +295,14 @@ class _WholeProduct(torch.autograd.Function):
         dw = rows.transpose(0, 1) @ gl.reshape(-1, gl.shape[-1])
         pdw = tuple(Partial() if isinstance(p, Shard) else q for p, q in zip(px, pw))
         # the input's gradient: columns split across the axes storing w whole
-        split = [size for size, p, q in zip(mesh.shape, px, pw)
-                 if not isinstance(p, Shard) and not isinstance(q, Shard)]
-        n = wl.shape[1]
-        for size in split:
-            n //= size
-        dx = gl[..., :n] @ wl[:, :n].transpose(0, 1)
+        # (each rank its own block, numbered by its coordinates on them)
+        block, n = 0, wl.shape[1]
+        for dim, (size, p, q) in enumerate(zip(mesh.shape, px, pw)):
+            if not isinstance(p, Shard) and not isinstance(q, Shard):
+                n //= size
+                block = block * size + mesh.get_local_rank(dim)
+        cols = slice(block * n, (block + 1) * n)
+        dx = gl[..., cols] @ wl[:, cols].transpose(0, 1)
         pdx = tuple(p if isinstance(p, Shard) or isinstance(q, Shard) else Partial()
                     for p, q in zip(px, pw))
         pdx = tuple(Partial() if isinstance(q, Shard) else p for p, q in zip(pdx, pw))
@@ -330,7 +381,8 @@ def _sharded_nll(logits, labels):
     """The token losses of ``DTensor`` logits whose vocabulary may be split
     across the mesh (vocabulary-parallel): the log-sum-exp from each
     shard's max and sum (reduced across the shards), the label's logit
-    picked by the device that holds it (a partial sum over the shards)."""
+    picked by the rank whose vocabulary rows hold it (a partial sum over
+    the shards; the labels shifted by the rank's first row)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh, last = logits.device_mesh, logits.ndim - 1
     m = logits.detach().amax(-1, keepdim=True)
@@ -340,9 +392,10 @@ def _sharded_nll(logits, labels):
                  for p in logits.placements)
     lab = labels.redistribute(mesh, keep).to_local() if hasattr(labels, "device_mesh") \
         else labels
-    n = local.shape[-1]                    # this device's vocabulary rows 0 .. n-1
+    n = local.shape[-1]                    # this rank's vocabulary rows off .. off + n - 1
+    lab = lab.long() - shard_offset(logits, last)
     inside = (lab >= 0) & (lab < n)
-    picked = local.gather(-1, lab.clamp(0, n - 1)[..., None].long())[..., 0] * inside
+    picked = local.gather(-1, lab.clamp(0, n - 1)[..., None])[..., 0] * inside
     pl = tuple(Partial() if isinstance(p, Shard) and p.dim == last else k
                for p, k in zip(logits.placements, keep))
     picked = _from_local(picked, mesh, pl, lse.shape)

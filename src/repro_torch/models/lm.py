@@ -29,8 +29,8 @@ import torch
 
 from .. import trace_hooks
 from . import blocks, flags
-from .common import (Init, constrain, distribute_tree, dtype_of, lift_layers, rms_norm,
-                     softmax_cross_entropy, write_seq)
+from .common import (Init, constrain, distribute_tree, dtype_of, embed_lookup, lift_layers,
+                     rms_norm, softmax_cross_entropy, write_seq)
 
 __all__ = [
     "decompose_pattern", "init_lm", "lm_axes", "init_lm_cache", "lm_cache_axes", "lm_forward",
@@ -154,7 +154,7 @@ def _embed_inputs(params, cfg, batch):
     """Token embeddings, with the vision stub's patches prefixed.  Returns
     (x (B, n_prefix + S, d), n_prefix)."""
     device = params["embed"].device
-    x = params["embed"][batch["tokens"].to(device)]
+    x = embed_lookup(params["embed"], batch["tokens"].to(device))
     n_prefix = _n_prefix(cfg, batch)
     if n_prefix:
         x = torch.cat([batch["patches"].to(device, x.dtype), x], dim=1)

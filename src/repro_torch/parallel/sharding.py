@@ -23,14 +23,21 @@ with its mesh in a :class:`NamedSharding`, whose ``placements`` on a
 ``torch.distributed.tensor.distribute_tensor`` takes.
 
 The forwards call :func:`constrain` where the reference constrains an
-activation.  On a plain tensor it is a no-op without a mesh or on a mesh
-whose axes all have size 1, and raises on a larger axis: the port executes
-on one card.  On a ``DTensor`` (the dry run's program over a fake process
-group, :mod:`repro_torch.launch.dryrun`) it redistributes the tensor to the
+activation.  On a ``DTensor`` — a step over a real ``DeviceMesh`` of
+several ranks, or the dry run's program over a fake process group
+(:mod:`repro_torch.launch.dryrun`) — it redistributes the tensor to the
 resolved placements, as the reference's ``with_sharding_constraint`` pins a
 layout for XLA (``repro_torch.models.common`` has the forwards' side:
 ``constrain`` at the reference's call sites, ``distribute_tree`` for a
-prefill's fresh cache, ``write_seq`` for a decode step's cache write).
+prefill's fresh cache, ``write_seq`` for a decode step's cache write).  A
+plain tensor is returned as it is without a mesh or on a mesh whose axes
+all have size 1; on a ``DeviceMesh`` with a larger axis each rank keeps its
+shard of it; an :class:`AbstractMesh` with a larger axis raises, since it
+has no devices to hold shards.
+
+:func:`shard_tree` is the twin of ``jax.device_put(tree, shardings)`` over a
+real mesh (each rank keeps its shard of a tree every rank made alike, with
+no communication), and :func:`gather_tree` returns full tensors.
 """
 
 from __future__ import annotations
@@ -58,6 +65,10 @@ __all__ = [
     "tree_shardings",
     "data_parallel_mesh",
     "batch_sharding",
+    "abstract_mesh_error",
+    "shard_tree",
+    "gather_tree",
+    "mesh_device",
 ]
 
 # logical name -> mesh axis (or tuple of axes, or None); the reference's table
@@ -247,23 +258,82 @@ class _Pin(torch.autograd.Function):
         return grad.redistribute(mesh, want), None
 
 
+def abstract_mesh_error(mesh) -> NotImplementedError | None:
+    """The error for executing on ``mesh`` where it is an
+    :class:`AbstractMesh` with an axis larger than 1 (no devices to run
+    on), else None."""
+    if not isinstance(mesh, AbstractMesh):
+        return None
+    for name, size in axis_sizes(mesh).items():
+        if size > 1:
+            return NotImplementedError(
+                f"mesh axis {name!r} has size {size} on an abstract mesh, which has no devices: "
+                "execute on a DeviceMesh over a process group of that many ranks "
+                "(repro_torch.launch.mesh.device_mesh)")
+    return None
+
+
 def constrain(x, logical_axes, mesh=None, rules=None):
     """The reference's sharding constraint by logical names.  A ``DTensor``
     is redistributed to the resolved placements on its own mesh.  A plain
     tensor is ``x`` itself without a mesh or on a mesh whose axes all have
-    size 1; the port does not execute sharded across cards, so a larger
-    axis raises."""
+    size 1; on a ``DeviceMesh`` with a larger axis each rank keeps its shard
+    of it (every rank holds the same ``x``); an abstract mesh with a larger
+    axis raises (:func:`abstract_mesh_error`)."""
     if is_dtensor(x):
         want = placements_for(logical_axes, x.shape, x.device_mesh, rules)
         if x.requires_grad and torch.is_grad_enabled():
             return _Pin.apply(x, want)
         return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
-    if mesh is not None:
-        for name, size in axis_sizes(mesh).items():
-            if size > 1:
-                raise NotImplementedError(f"constrain over mesh axis {name!r} of size {size}: "
-                                          "sharded execution across cards is not ported")
-    return x
+    if mesh is None:
+        return x
+    err = abstract_mesh_error(mesh)
+    if err is not None:
+        raise err
+    if all(size == 1 for size in axis_sizes(mesh).values()):
+        return x
+    return _shard(x, sharding_for(logical_axes, x.shape, mesh, rules))
+
+
+def _shard(x, sharding: NamedSharding):
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, sharding.mesh, sharding.placements, src_data_rank=None)
+
+
+def shard_tree(tree, shardings):
+    """``tree`` (nested dicts, or an ``OptState``, of tensors that every rank
+    made alike) as ``DTensor``s at ``shardings`` (the same structure of
+    :class:`NamedSharding` on a ``DeviceMesh``): each rank keeps its shard,
+    with no communication.  A None leaf stays None; a ``DTensor`` leaf is
+    redistributed to its sharding."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, shardings[k]) for k, v in tree.items()}
+    if hasattr(tree, "tree") and hasattr(type(tree), "from_tree"):     # an OptState
+        return type(tree).from_tree(shard_tree(tree.tree(), shardings.tree()))
+    if is_dtensor(tree):
+        pl = shardings.placements
+        return tree if tuple(tree.placements) == pl else tree.redistribute(tree.device_mesh, pl)
+    return _shard(tree.to(mesh_device(shardings.mesh)), shardings)
+
+
+def gather_tree(tree):
+    """``tree`` with every ``DTensor`` leaf as its full tensor (a collective:
+    every rank of the mesh must call it); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    if hasattr(tree, "tree") and hasattr(type(tree), "from_tree"):     # an OptState
+        return type(tree).from_tree(gather_tree(tree.tree()))
+    return tree.full_tensor() if is_dtensor(tree) else tree
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device of this rank's shards on ``mesh`` (its current card on a
+    CUDA mesh)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def data_parallel_mesh(n_devices: int | None = None, axis_name: str = "data", device=None):

@@ -12,10 +12,16 @@
 * **failure containment** — a step that raises is retried after restoring
   the last checkpoint, up to ``max_step_retries`` times; then it re-raises.
 
-Single device (the reference's resharding on load belongs to data
-parallelism, which the port does not have).  A step's time includes its
-device work: the loop synchronizes the card before it stops the clock, where
-the reference blocks until the metrics are ready.
+Sharded runs: with parameters and optimizer state as ``DTensor``s on a
+``DeviceMesh`` (the step of :func:`repro_torch.launch.steps.make_train_step`),
+every rank runs the loop; a save is gathered and written by rank 0
+(:class:`~repro_torch.checkpoint.CheckpointManager`), and
+``shardings=(param_shardings, opt_shardings)`` puts each restored leaf
+straight onto its sharding on resume, whatever mesh saved it, as the
+reference's ``try_resume`` does.  Without ``shardings`` a restored leaf
+takes the current state's placement.  A step's time includes its device
+work: the loop synchronizes the card before it stops the clock, where the
+reference blocks until the metrics are ready.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ class TrainLoop:
         config: TrainLoopConfig,
         ckpt_dir: str | Path,
         metrics_path: str | Path | None = None,
+        shardings: tuple | None = None,     # (param shardings, OptState of shardings)
     ):
         self.step_fn = step_fn
         self.batch_fn = batch_fn
@@ -72,6 +79,7 @@ class TrainLoop:
         self.ckpt = CheckpointManager(ckpt_dir, keep=config.keep_checkpoints)
         self.logger = MetricsLogger(metrics_path, print_every=config.log_every)
         self.timer = StepTimer()
+        self.shardings = shardings
         self.start_step = 0
         self._interrupted = False
 
@@ -87,7 +95,11 @@ class TrainLoop:
         latest = self.ckpt.latest_step()
         if latest is None:
             return 0
-        restored = self.ckpt.restore(latest, self._state())
+        sh = None
+        if self.shardings is not None:
+            p_sh, o_sh = self.shardings
+            sh = {"params": p_sh, "opt_state": o_sh.tree() if isinstance(o_sh, OptState) else o_sh}
+        restored = self.ckpt.restore(latest, self._state(), sh)
         self.params = restored["params"]
         o = restored["opt_state"]
         self.opt_state = OptState.from_tree(o) if isinstance(self.opt_state, OptState) else o

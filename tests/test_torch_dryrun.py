@@ -373,5 +373,8 @@ def test_sharded_execution_still_raises():
     model = build_model(get_smoke_config("internlm2-1.8b"), device="meta")
     specs, axes = model.input_records(__import__("repro_torch.configs", fromlist=["SHAPES"])
                                       .SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="'data'"):
+    with pytest.raises(NotImplementedError,
+                       match="'data' has size 16 on an abstract mesh, which has no devices"):
         make_train_step(model, make_production_mesh(), TrainConfig(), specs, axes)
+    with pytest.raises(NotImplementedError, match="'pod' has size 2 on an abstract mesh"):
+        make_train_step(model, make_production_mesh(multi_pod=True), TrainConfig(), specs, axes)

@@ -197,8 +197,11 @@ def test_shardings_on_a_one_rank_device_mesh(cpu_mesh):
     assert torch.equal(d.full_tensor(), x)
     assert sharding.constrain(x, ("batch", None), mesh) is x
     assert sharding.constrain(x, ("batch", None)) is x
-    with pytest.raises(NotImplementedError, match="'data' of size 2"):
+    with pytest.raises(NotImplementedError,
+                       match="'data' has size 2 on an abstract mesh, which has no devices"):
         sharding.constrain(x, ("batch", None), MESHES["2x4"])
+    with pytest.raises(NotImplementedError, match="'model' has size 4 on an abstract mesh"):
+        sharding.constrain(x, (None, None), sharding.AbstractMesh((1, 4), ("data", "model")))
     assert sharding.batch_sharding(mesh).spec == PartitionSpec("data")
     dp = sharding.data_parallel_mesh(device="cpu")
     assert sharding.axis_sizes(dp) == {"data": 1}

@@ -9,7 +9,8 @@
 * On a one-device CPU mesh over a single gloo rank, ``make_prefill_step``,
   ``make_decode_step`` and ``make_train_step`` equal the single-device
   calls exactly, and every sharding they return is the resolver's on that
-  mesh; on a mesh axis larger than 1 the step makers raise.  On the reference's
+  mesh; on an abstract mesh with an axis larger than 1 (no devices) the step
+  makers raise.  On the reference's
   256-chip mesh the shardings resolve without allocating the full config.
 """
 
@@ -165,6 +166,9 @@ def test_train_step_equals_the_single_device_step(cpu_mesh):
 
 
 def test_step_makers_raise_on_a_sharded_axis():
+    """An abstract mesh has no devices: the step makers refuse to execute on
+    one with an axis larger than 1 (a ``DeviceMesh`` of that shape over a
+    world of ranks executes: ``tests/test_torch_sharded_exec.py``)."""
     model, _ = _model()
     mesh = small_test_mesh()                 # (2, 4) over (data, model)
     specs, axes = model.input_records(ShapeConfig("t", 8, 2, "prefill"))
@@ -172,7 +176,12 @@ def test_step_makers_raise_on_a_sharded_axis():
     for build in (lambda: make_prefill_step(model, mesh, specs, axes),
                   lambda: make_decode_step(model, mesh, 2, 16),
                   lambda: make_train_step(model, mesh, tcfg, specs, axes)):
-        with pytest.raises(NotImplementedError, match="'data' has size 2"):
+        with pytest.raises(NotImplementedError,
+                           match="'data' has size 2 on an abstract mesh, which has no devices"):
+            build()
+    for build in (lambda: make_prefill_step(model, small_test_mesh(1, 4), specs, axes),
+                  lambda: make_decode_step(model, small_test_mesh(1, 2), 2, 16)):
+        with pytest.raises(NotImplementedError, match="'model' has size"):
             build()
 
 
