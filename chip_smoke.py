@@ -115,15 +115,19 @@ Run from the repository root:  python3 chip_smoke.py
    non-causal; 4 decoder self, causal; 4 cross, non-causal), all of them the
    bf16 template by profiler name; xlstm-350m (24 layers "xs", d_model 1024,
    bf16; B = 2, 1024 prompt tokens) with 24 SSD launches a prefill (12 mLSTM
-   layers: the numerator at N = P = 512, the normalizer at P = 1, both the
-   tiled template); 16 greedy decode steps each, which launch neither
-   kernel; prefill and decode tokens/s;
+   layers: the numerator at N = P = 512, the normalizer at P = 1, both
+   ssd_scan_tiled_bf16_kernel by profiler name, in the xs unit's split and in
+   item 17's timing, and never ssd_scan_tiled_kernel); 16 greedy decode steps
+   each, which launch neither kernel; prefill and decode tokens/s;
 16. one full-width whisper encoder block plus decoder block, and one
    full-width xs unit, in float32 through the kernels and through the plain
-   versions on the card, logits compared;
+   versions on the card, logits compared (the xs unit's SSD launches
+   ssd_scan_tiled_kernel by profiler name: float32 keeps the CUDA-core tiled
+   template);
 17. B3 at whisper-tiny's three shapes and B4 at xlstm-350m's two, each held
    to its plain version and timed (kernel, plain version, PyTorch's
-   scaled_dot_product_attention for B3, bound);
+   scaled_dot_product_attention for B3, bound, and for B4 the bound's share
+   of the device time);
 18. ingest_model of both full configs at seq 64 and 12 and 64 nodes:
    parameter bytes equal to BENCH_ingest.json's, flops printed beside its,
    no warning, the graph hash equal to the CPU's
@@ -140,7 +144,7 @@ Run from the repository root:  python3 chip_smoke.py
    whisper-tiny (bf16, B = 8, 1500 zero frames, 128 tokens, 6 steps; 12 B3
    launches a microbatch forward, flash_fwd_bf16 by profiler name) and
    xlstm-350m (bf16, 24 layers, B = 2, S = 256, 3 steps; 24 B4 launches a
-   microbatch forward, ssd_scan_tiled by name); each run saved halfway and
+   microbatch forward, ssd_scan_tiled_bf16_kernel by name); each run saved halfway and
    resumed there through TrainLoop (whisper's also against an uninterrupted
    run), finite losses, every gradient leaf non-zero in the first
    microbatch, ms a step and tokens/s, and one profiled step's split over
@@ -155,13 +159,16 @@ Run from the repository root:  python3 chip_smoke.py
    Dv != D case: B3's lse against the plain version's, B4's y and h_final
    against the plain version's, each autograd Function's input gradients
    against plain autograd (B4's Function recomputes the plain scan in its
-   backward, so that comparison checks its wiring), B3's device time with
-   and without the lse, the flash backward beside scaled_dot_product_attention's
-   forward + backward, B4's recompute backward beside B4's forward, each with
-   its bound (run first in the phase, before 22 and 21);
+   backward, so that comparison checks its wiring), B4's forward template by
+   profiler name (ssd_scan_tiled_bf16_kernel at xlstm's, ssd_scan_bf16_kernel
+   at zamba2's) and its device time with the bound's share of it, B3's device
+   time with and without the lse, the flash backward beside
+   scaled_dot_product_attention's forward + backward, B4's recompute backward
+   beside B4's forward, each with its bound (run first in the phase, before 22
+   and 21);
 24. (last of all) one profiled train step of whisper-tiny and of one
    full-width xs unit of xlstm-350m: the lm.* split, the device's idle
-   share, B3's bf16 / B4's tiled template by kernel name (a window that
+   share, B3's bf16 / B4's tiled bf16 template by kernel name (a window that
    shows fewer than the counted launches is profiled again, up to three
    times, as device_ms does);
 25. (after 15-17) the rest of the LM zoo served in bf16 with seeded random
@@ -1716,6 +1723,36 @@ def plain_flash(q, k, v, *, causal=True, scale=None, return_lse=False):
     return reference_attention(q, k, v, causal=causal, scale=scale)
 
 
+# B4's tiled templates (N or P above 128), by exact profiler name: neither name holds the other
+SSD_TILED_BF16, SSD_TILED_F32 = "ssd_scan_tiled_bf16_kernel", "ssd_scan_tiled_kernel"
+# seconds spent in ssd_templates' profiled windows, printed with the whole run's time
+SSD_NAME_CHECK_S = [0.0]
+
+
+def ssd_templates(fn, calls: int = 10) -> dict[str, tuple[int, float]]:
+    """{kernel name: (count, mean device ms)} of the SSD scan kernels in one
+    profiled window of ``calls`` calls of ``fn`` (a late window may lose its
+    first kernels: the counts are at most ``calls``)."""
+    import torch
+    t0 = time.perf_counter()
+    with profiled() as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    seen: dict[str, list[float]] = {}
+    for e in device_kernels(prof):
+        if "ssd_scan" in e.name:
+            seen.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    SSD_NAME_CHECK_S[0] += time.perf_counter() - t0
+    return {k: (len(v), sum(v) / len(v)) for k, v in seen.items()}
+
+
+def only_template(seen: dict, want: str, label: str) -> None:
+    """Fail unless every SSD kernel of ``seen`` (ssd_templates) is ``want``."""
+    names = {k.split("(")[0].split("<")[0].split()[-1] for k in seen}
+    check(names == {want}, f"{label}: SSD kernels {sorted(seen)}, expected only {want}")
+
+
 def plain_ssd(x, dt, A, B, C, *, chunk, in_scale=None):
     from repro_torch.kernels.ssd.ref import ssd_chunked
     y, hf = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=in_scale)
@@ -1876,11 +1913,11 @@ def zoo_phase(card: str) -> list[dict]:
     if names:   # bf16 inputs run the tensor-core templates, and only those
         ran = {k: sum(k in n for n in names) for k in ("flash_fwd_bf16", "flash_fwd_f32",
                                                        "ssd_scan_bf16", "ssd_scan_f32",
-                                                       "ssd_scan_tiled")}
+                                                       SSD_TILED_BF16, SSD_TILED_F32)}
         print(f"zoo prefill B={b} S={s}: kernel templates launched {ran}", flush=True)
         check(ran == {"flash_fwd_bf16": PER_PREFILL["flash_fwd"], "flash_fwd_f32": 0,
                       "ssd_scan_bf16": PER_PREFILL["ssd_scan"], "ssd_scan_f32": 0,
-                      "ssd_scan_tiled": 0},
+                      SSD_TILED_BF16: 0, SSD_TILED_F32: 0},
               f"bf16 prefill ran {ran}, expected only the bf16 templates")
     logits, cache = model.prefill(params, {"tokens": prompts[(b, s)]}, max_len=s + DECODE_STEPS)
     device_split(f"zoo decode step B={b} kv_len={s}", card,
@@ -2138,9 +2175,10 @@ def served_models_phase(card: str) -> list[dict]:
             uparams = unit.init_params(seed=0)
             names = device_split(f"{arch} one xs unit, prefill B={b} S={s}", card,
                                  lambda: unit.prefill(uparams, batch))
-            if names:
-                ran = sum("ssd_scan_tiled" in n for n in names)
-                check(ran == 2, f"{arch} xs unit ran {ran} ssd_scan_tiled kernels, expected 2")
+            if names:   # bf16: the tensor-core tiled template, and not the CUDA-core one
+                ran = {k: sum(k in n for n in names) for k in (SSD_TILED_BF16, SSD_TILED_F32)}
+                check(ran == {SSD_TILED_BF16: 2, SSD_TILED_F32: 0},
+                      f"{arch} xs unit ran tiled templates {ran}, expected 2 {SSD_TILED_BF16}")
             del unit, uparams
         del params, model, batch
         torch.cuda.empty_cache()
@@ -2162,6 +2200,10 @@ def served_models_phase(card: str) -> list[dict]:
         ran = {k: mid[k] - before[k] for k in ("flash_fwd", "ssd_scan") if mid[k] > before[k]}
         check(ran == want_k and kbuild.LAUNCHES == mid,
               f"{arch} f32 unit: launches {ran}, expected {want_k}")
+        if arch == "xlstm-350m":   # float32 keeps the CUDA-core tiled template (by name, on
+            short = inputs(cfg, 1, 64, torch.float32)   # one chunk: the sLSTM loop is eager)
+            only_template(ssd_templates(lambda: model.prefill(params, short), calls=1),
+                          SSD_TILED_F32, f"{arch} f32 unit")
         err = float((got.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
         check(err <= TOL_ZOO_F32 * max(1.0, scale) and torch.equal(got.argmax(-1), ref.argmax(-1)),
@@ -2245,13 +2287,14 @@ def served_models_phase(card: str) -> list[dict]:
         check(ok_y and ok_h, f"ssd xlstm {kind}: kernel and plain version differ "
               f"(y {err_y:.3e}, state {err_h:.3e})")
         ev_ms = cuda_ms(call, iters=10)
-        dev_ms = device_ms(call, "ssd_scan_tiled", iters=5)
+        only_template(ssd_templates(call), SSD_TILED_BF16, f"ssd xlstm {kind}")
+        dev_ms = device_ms(call, SSD_TILED_BF16, iters=10)
         b_ms, b_by = bound(*ssd_work(b, s, nh, p, nh, ph, chunk, 2, True), BF16_FLOPS_PER_S)
         print(f"ssd_scan xlstm-350m {kind} Bt={b} S={s} H=G={nh} N={ph} P={p} chunk {chunk} bf16 "
-              f"(tiled template) on {card}: max |err| y {err_y:.3e} (tolerance atol, rtol "
+              f"({SSD_TILED_BF16}) on {card}: max |err| y {err_y:.3e} (tolerance atol, rtol "
               f"{TOL_BF16_OUT}), state {err_h:.3e} (tolerance {TOL_SSD_STATE}); kernel "
-              f"{ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by})", flush=True)
+              f"{ev_ms:.4f} ms (CUDA events; device {dev_ms:.5f} ms), plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}; {b_ms / dev_ms:.4f} of the device time)", flush=True)
         rows.append({"name": f"ssd_scan (xlstm-350m {kind}, tiled)", "route": "cuda",
                      "source": SSD_SRC, "replaces": "src/repro/kernels/ssd/kernel.py:41",
                      "launches": launched["xlstm-350m"]["ssd_scan"][kind],
@@ -2742,9 +2785,9 @@ LM_TRAIN_GOLDEN = ROOT / "tests" / "golden" / "torch_lm_train_steps.json"
 # xlstm's S is cut from its served 1024: the sLSTM's eager loop sets the step's time
 LM_TRAIN = {"whisper-tiny": (8, 128, 6), "xlstm-350m": (2, 256, 3)}
 # a microbatch's forward: whisper 4 encoder + 4 decoder self + 4 cross B3 launches (the bf16
-# template); xlstm 12 mLSTM layers x 2 scans, B4's tiled template; the backwards launch neither
+# template); xlstm 12 mLSTM layers x 2 scans, B4's tiled bf16 template; the backwards launch neither
 LM_TRAIN_PER_MB = {"whisper-tiny": ("flash_fwd", "flash_fwd_bf16", 12),
-                   "xlstm-350m": ("ssd_scan", "ssd_scan_tiled", 24)}
+                   "xlstm-350m": ("ssd_scan", SSD_TILED_BF16, 24)}
 # relative, as tests/test_torch_lm_train.py holds the CPU to the same file
 TOL_LM_GOLDEN = {"loss": 1e-4, "grad_norm": 1e-3, "leaf_norm": 1e-4}
 # x max(1, |x|): the loss and every gradient leaf of a float32 unit, kernel path against plain
@@ -2970,11 +3013,14 @@ def lm_train_phase(card: str) -> list[dict]:
             check(e <= TOL_LM_UNIT, f"ssd {label}: d{nm} of the Function against plain autograd "
                   f"{e:.3e} (tolerance {TOL_LM_UNIT})")
             gerr = max(gerr, e)
-        template = "ssd_scan_tiled" if max(n, p) > 128 else "ssd_scan_bf16"
-        # the Function's forward launches exactly this kernel; over 0.2 ms, so CUDA events
-        # (reported_ms's rule; late in the script the profiler's windows lose kernels)
+        template = SSD_TILED_BF16 if max(n, p) > 128 else "ssd_scan_bf16_kernel"
+        # the Function's forward launches exactly this kernel, by profiler name; its time by CUDA
+        # events and, where the window shows it, device time (late windows may lose kernels)
         with torch.no_grad():
             fwd_ms = cuda_ms(lambda: fwd(ins), iters=20)
+            seen = ssd_templates(lambda: fwd(ins))
+        only_template(seen, template, f"ssd {label}")
+        fwd_dev = next(iter(seen.values()))[1]
         bwd_ms = cuda_ms(lambda: torch.autograd.grad((y, hf), leaves, (dy, dh),
                                                      retain_graph=True), iters=3)
         with torch.no_grad():
@@ -2988,14 +3034,16 @@ def lm_train_phase(card: str) -> list[dict]:
               f"{errs['h_final']:.3e} (tolerance {TOL_SSD_STATE}) against the plain version; "
               f"the Function's wiring: its gradients against plain autograd of the same plain "
               f"scan {gerr:.3e} x max(1, max|g|) (tolerance {TOL_LM_UNIT}); B4 {template} "
-              f"{fwd_ms:.4f} ms (CUDA events; bound "
-              f"{f_ms:.5f} ms, {f_by}), the recompute backward {bwd_ms:.3f} ms (CUDA events; "
+              f"{fwd_ms:.4f} ms (CUDA events; device {fwd_dev:.5f} ms; bound "
+              f"{f_ms:.5f} ms, {f_by}, {f_ms / fwd_dev:.4f} of the device time), the recompute "
+              f"backward {bwd_ms:.3f} ms (CUDA events; "
               f"bound {b_ms:.5f} ms, {b_by}: the gradients' products, twice the scan's), plain "
               f"forward {plain_ms:.3f} ms", flush=True)
         if label == "xlstm-350m numerator":
             ssd_row = {"name": "ssd_scan (xlstm-350m numerator, train)", "route": "cuda",
                        "source": SSD_SRC, "replaces": "src/repro/kernels/ssd/kernel.py:41",
-                       "launches": None, "max_abs_err": max(errs.values()), "ms": fwd_ms,
+                       "launches": None, "max_abs_err": max(errs.values()),
+                       "ms": reported_ms(fwd_ms, fwd_dev),
                        "plain_ms": plain_ms, "bound_ms": f_ms, "bound_by": f_by,
                        "library_ms": None}
         del leaves, plain, got, want, y, hf
@@ -3046,12 +3094,13 @@ def lm_train_phase(card: str) -> list[dict]:
         ran = {k: kbuild.LAUNCHES[k] - before[k] for k in ("flash_fwd", "ssd_scan")}
         f32 = {t: sum(t in nm for nm in names) for t in ("flash_fwd_f32", "flash_fwd_bf16",
                                                           "ssd_scan_f32", "ssd_scan_bf16",
-                                                          "ssd_scan_tiled")}
+                                                          SSD_TILED_BF16, SSD_TILED_F32)}
         check(all(errs[k] <= TOL_LM_GOLDEN[k] for k in errs),
               f"{arch} smoke f32: golden steps differ {errs} (tolerances {TOL_LM_GOLDEN})")
         # by name only what ran not: late in the script a window may lose its first kernels
         check(any(ran.values()) and not f32["flash_fwd_bf16"] and not f32["ssd_scan_bf16"]
-              and not f32["ssd_scan_tiled"], f"{arch} smoke f32: launches {ran}, templates {f32}")
+              and not f32[SSD_TILED_BF16] and not f32[SSD_TILED_F32],
+              f"{arch} smoke f32: launches {ran}, templates {f32}")
         print(f"{arch} SMOKE float32, {len(rec['steps'])} steps on {card} against "
               f"tests/golden/torch_lm_train_steps.json: loss {errs['loss']:.2e}, grad_norm "
               f"{errs['grad_norm']:.2e}, leaf norms {errs['leaf_norm']:.2e} relative "
@@ -5085,7 +5134,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s (B4's template "
+          f"name checks' profiled windows {SSD_NAME_CHECK_S[0]:.1f} s of it)", flush=True)
     print(json.dumps({"kernels": out["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": out["device"],
                                              "count": out["count"]}}))

@@ -3,10 +3,14 @@
 The counterpart of the reference's ``ssd_scan_pallas``.  On CUDA tensors it
 launches the kernel on PyTorch's current stream; it takes nothing else.
 For N and P up to :data:`MAX_DIM`, bfloat16 inputs go to the kernel's
-tensor-core template, float32 inputs to its CUDA-core template; N or P
-above it (up to :data:`MAX_TILED_DIM`: the mLSTM's 512) go to its tiled
-template, in either type.  Each has its own shared-memory layout
-(:func:`smem_bytes`).  The wrapper refuses inputs that require grad in
+tensor-core template, float32 inputs to its CUDA-core template.  N or P
+above it (up to :data:`MAX_TILED_DIM`: the mLSTM's 512) go to a tiled
+template: bfloat16 inputs to ``ssd_scan_tiled_bf16_kernel`` (tensor cores,
+a thread-block cluster of the blocks of a (head, batch) that computes each
+chunk's scores once; P above :data:`TILED_N_SPLIT_MAX_P` is split over the
+cluster's blocks, smaller P splits N), float32 inputs to
+``ssd_scan_tiled_kernel`` (CUDA cores).  Each has its own shared-memory
+layout (:func:`smem_bytes`).  The wrapper refuses inputs that require grad in
 grad mode: its outputs carry no autograd history, so differentiable calls
 go through ``ops.ssd_scan``, whose autograd Function has the backward.
 """
@@ -33,8 +37,12 @@ _ARGTYPES = [_P] * 9 + [_I] * 9 + [_P]
 
 #: columns of P one block of the bfloat16 template owns (SB_PB in csrc/ssd_scan.cu)
 P_SLICE = 32
-#: columns of P (ST_PB) and rows of N in a tile (ST_NT) of the tiled template
+#: columns of P (ST_PB) and rows of N in a tile (ST_NT) of the float32 tiled template
 TILED_P_SLICE, TILED_N_TILE = 32, 64
+#: the bfloat16 tiled template: P up to this splits N (TB_NSPLIT_MAX_P), into blocks of
+#: TILED_N_SLICE state rows (TB_NB); larger P splits P, TILED_P_SLICE columns a block (TB_PB).
+#: Its chunk tile is TILED_CHUNK (TB_QT): a longer chunk runs as its largest divisor up to it
+TILED_N_SPLIT_MAX_P, TILED_N_SLICE, TILED_CHUNK = 8, 64, 64
 
 
 def scan_flops(bt: int, s: int, h: int, p: int, n: int, chunk: int) -> float:
@@ -47,13 +55,39 @@ def scan_flops(bt: int, s: int, h: int, p: int, n: int, chunk: int) -> float:
 
 
 def smem_bytes(chunk: int, n: int, p: int, bf16: bool = False) -> int:
-    """Dynamic shared memory of one block: the tiled template's (mirrors
-    ``st_smem_floats``: the (N, 32) state slice, the x slice, a tile of C
-    and of B, the masked scores and the decay arrays), the float32
-    template's (mirrors ``ssd_smem_floats``) or the bfloat16 template's
-    (mirrors ``SbLayout<QT, NT>::BYTES``: chunk and N rounded up to 64 or
-    128, a double buffer of C, B, the x slice, dt and in_scale, the state
-    slice's bf16 halves and each warp's decay arrays)."""
+    """Dynamic shared memory of one block, mirroring ``csrc/ssd_scan.cu``:
+
+    * N or P above :data:`MAX_DIM`, bfloat16 (any chunk: the layouts are
+      sized for :data:`TILED_CHUNK`): P above :data:`TILED_N_SPLIT_MAX_P`
+      takes ``TpLayout::ALLOC`` (a two-stage ring of B and C tiles of 256
+      rows of N; three chunk buffers of the x slice, dt and in_scale; the
+      transposed update operand's bf16 halves; each warp's la; the
+      lower-triangle 16 x 16 tiles of M = S o L o sc as bf16 hi and lo, two
+      buffers; four partial slabs of e o C h; 1024 bytes to align the base
+      for TMA's 128-byte swizzle), smaller P ``TnLayout::BYTES`` (a double
+      buffer of the block's 64 columns of C and B, x, dt and in_scale; the
+      state's bf16 halves; each warp's decay arrays; two buffers of the
+      partial scores and C h the cluster reads; the block's gathered
+      rows);
+    * N or P above it, float32: ``st_smem_floats`` (the (N, 32) state
+      slice, the x slice, a tile of C and of B, the masked scores and the
+      decay arrays);
+    * float32 otherwise: ``ssd_smem_floats``;
+    * bfloat16 otherwise: ``SbLayout<QT, NT>::BYTES`` (chunk and N rounded
+      up to 64 or 128, a double buffer of C, B, the x slice, dt and
+      in_scale, the state slice's bf16 halves and each warp's decay
+      arrays)."""
+    if max(n, p) > MAX_DIM and bf16:
+        qt = TILED_CHUNK
+        if p <= TILED_N_SPLIT_MAX_P:
+            px, lds, rb = 8, qt + 4, qt // 4
+            return (2 * 2 * qt * TILED_N_SLICE * 2 + 2 * qt * (px + 8) * 2 + 2 * 2 * qt * 4
+                    + 2 * px * (TILED_N_SLICE + 8) * 2 + (qt // 16) * 2 * qt * 4
+                    + 2 * (qt * lds * 4 + qt * px * 4) + rb * lds * 4 + rb * px * 4)
+        ntl, stages, nqt = 256, 2, qt // 16
+        return (stages * 2 * qt * ntl * 2 + (stages + 1) * (qt * (TILED_P_SLICE + 8) * 2 + 2 * qt * 4)
+                + 2 * TILED_P_SLICE * (qt + 8) * 2 + 8 * qt * 4 + 2 * (nqt * (nqt + 1) // 2) * 1024
+                + 4 * qt * (TILED_P_SLICE + 2) * 4 + 1024)
     if max(n, p) > MAX_DIM:
         return 4 * (n * (TILED_P_SLICE + 1) + chunk * (TILED_P_SLICE + 1)
                     + 2 * chunk * (TILED_N_TILE + 1) + chunk * (chunk + 1) + 2 * chunk)

@@ -13,8 +13,9 @@ sequences that do not divide the chunk (right-padded with identity steps):
 The per-timestep and chunkwise plain versions are held to the reference's
 ``reference_ssd``/``reference_ssd_chunked`` at 2e-5.  The kernel itself runs
 only on the card: the ``cuda`` tests skip here.  There float32 inputs run the
-kernel's CUDA-core template and bfloat16 inputs its tensor-core template;
-both hold the float32 state at 1e-4.
+kernel's CUDA-core templates and bfloat16 inputs its tensor-core ones (N or P
+above 128: ``ssd_scan_tiled_bf16_kernel``, its N split at P <= 8 and its P
+split above); all hold the float32 state at 1e-4.
 """
 
 import jax.numpy as jnp
@@ -52,6 +53,9 @@ CASES = [
     (1, 50, 4, 8, 2, 4, 16, False, "float32", 2e-5, 2e-5),     # 50 = 3 chunks + 2
     (2, 40, 6, 8, 3, 8, 16, True, "float32", 2e-5, 2e-5),      # in_scale != dt, G = 3
     (2, 40, 2, 16, 2, 8, 16, False, "bfloat16", 2e-2, 2e-4),
+    # above N = 128, the shapes of the tiled templates: P = 1 (N split), P above 128
+    (1, 64, 2, 1, 2, 160, 32, True, "bfloat16", 2e-2, 2e-4),
+    (1, 64, 2, 136, 1, 160, 32, True, "float32", 2e-5, 2e-5),
 ]
 
 
@@ -103,10 +107,16 @@ def test_kernel_wrapper_takes_only_cuda_tensors_and_gates_shapes():
     # same for any chunk and N up to 64, and 175 KB at the limit of 128
     assert smem_bytes(64, 64, 64, bf16=True) == 55296 == smem_bytes(16, 8, 128, bf16=True)
     assert smem_bytes(128, 128, 128, bf16=True) == 179200 <= 227 * 1024
-    # tiled template (N or P above 128, either dtype): the (N, 32) state slice,
-    # two (chunk, 64) tiles; 124 KB at the mLSTM's N = 512, 213 KB at chunk 128
-    assert smem_bytes(64, 512, 512) == smem_bytes(64, 512, 1, bf16=True) == 126464
-    assert smem_bytes(128, 512, 512, bf16=True) == 218112 <= 227 * 1024
+    # tiled float32 template (N or P above 128): the (N, 32) state slice, two
+    # (chunk, 64) tiles; 124 KB at the mLSTM's N = 512
+    assert smem_bytes(64, 512, 512) == 126464
+    # tiled bfloat16 template, the same at any chunk (a chunk above 64 runs as its
+    # largest divisor up to 64): N split at P <= 8 (84 KB: a block's 64 columns of
+    # B and C, two buffers of the partials the cluster reads), P split above (210.5
+    # KB: a 2-stage ring of (64, 256) TMA tiles, two buffers of M)
+    assert smem_bytes(64, 512, 1, bf16=True) == smem_bytes(128, 512, 8, bf16=True) == 86016
+    assert (smem_bytes(64, 512, 512, bf16=True) == smem_bytes(128, 512, 512, bf16=True)
+            == smem_bytes(64, 512, 9, bf16=True) == 215552 <= 227 * 1024)
 
 
 # ---------------------------------------------------------------------- #
@@ -132,6 +142,20 @@ def _need_cuda():
     (1, 200, 4, 512, 4, 512, 64, True, "float32"),     # numerator, ragged S
     (1, 128, 4, 1, 4, 512, 64, True, "float32"),       # normalizer
     (1, 96, 2, 200, 1, 40, 32, True, "bfloat16"),      # P alone above 128, ragged slices
+    # the bf16 tiled template's edges
+    (2, 1024, 4, 1, 4, 512, 64, True, "bfloat16"),     # the served normalizer (N split)
+    (1, 128, 2, 130, 1, 200, 64, True, "bfloat16"),    # N, P not multiples of a tile
+    (1, 256, 8, 256, 2, 256, 64, False, "bfloat16"),   # G < H
+    (1, 256, 2, 512, 2, 512, 32, True, "bfloat16"),    # chunk 32
+    (1, 256, 2, 512, 2, 512, 128, True, "bfloat16"),   # chunk 128 (run as 2 x 64)
+    (1, 256, 2, 1, 2, 512, 128, True, "bfloat16"),     # chunk 128, N split
+    (1, 200, 4, 512, 4, 512, 64, True, "bfloat16"),    # numerator, ragged S
+    (1, 300, 2, 1, 2, 320, 64, True, "bfloat16"),      # normalizer, ragged S, empty N slices
+    (1, 128, 2, 24, 1, 256, 64, True, "bfloat16"),     # P split, one part-filled slice
+    # the plain loads the dispatch takes for shapes TMA or 16-byte copies cannot
+    (1, 128, 2, 130, 1, 132, 64, True, "bfloat16"),    # P split, N % 8 != 0: no TMA
+    (1, 128, 2, 1, 2, 300, 64, True, "bfloat16"),      # N split, N % 8 != 0: no cp.async
+    (1, 128, 2, 131, 1, 256, 64, True, "bfloat16"),    # odd P: y by single stores, x plain
 ])
 def test_kernel_matches_plain_on_cuda(bt, s, h, p, g, n, chunk, use_scale, dtype):
     _need_cuda()
@@ -150,4 +174,35 @@ def test_kernel_matches_plain_on_cuda(bt, s, h, p, g, n, chunk, use_scale, dtype
     assert build.LAUNCHES["ssd_scan"] == before + 1
     tol_y = 1e-4 if dtype == "float32" else 2e-2       # float32 order / one bf16 rounding
     torch.testing.assert_close(y.float(), wy[:, :s].to(tdt).float(), atol=tol_y, rtol=tol_y)
+    torch.testing.assert_close(hf, wh, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 2])
+@pytest.mark.parametrize("p", [512, 1])
+def test_tiled_bf16_takes_strided_views_on_cuda(p, offset):
+    """B and C as the mLSTM's k and q views of one (Bt, S, 2, H, N) tensor
+    (chip_smoke.py's layout): strided; at offset 0 16-byte aligned, through
+    TMA (P = 512) or 16-byte cp.async (P = 1), at offset 2 elements past an
+    aligned base, through the plain loads; held to the plain version at the
+    file's tolerances."""
+    _need_cuda()
+    bt, s, h, n, chunk = 1, 256, 4, 512, 64
+    rng = np.random.default_rng(p)
+    size = bt * s * 2 * h * n
+    flat = torch.from_numpy(rng.standard_normal(size + offset).astype(np.float32)).cuda()
+    kq = flat.to(torch.bfloat16)[offset:].view(bt, s, 2, h, n)
+    B, C = kq[:, :, 0], kq[:, :, 1]
+    assert not B.is_contiguous() and not C.is_contiguous()
+    assert (B.data_ptr() % 16 == 0) == (offset == 0)
+    x = torch.from_numpy(rng.standard_normal((bt, s, h, p)).astype(np.float32)).cuda()
+    x = x.to(torch.bfloat16)
+    dt = torch.from_numpy((np.abs(rng.standard_normal((bt, s, h))) * 0.1 + 0.01)
+                          .astype(np.float32)).cuda()
+    sc = torch.from_numpy(rng.uniform(0, 1, (bt, s, h)).astype(np.float32)).cuda()
+    A = torch.ones((h,), device="cuda")
+    y, hf = ssd_scan(x, dt, A, B, C, chunk=chunk, in_scale=sc)
+    wy, wh = ssd_chunked(x, dt, A, B, C, chunk=chunk, in_scale=sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), wy.to(torch.bfloat16).float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(hf, wh, atol=1e-4, rtol=1e-4)
