@@ -113,9 +113,10 @@ Run from the repository root:  python3 chip_smoke.py
    whisper-tiny (4 + 4 layers, d_model 384, bf16; B = 2, 1500 frames, 64
    prompt tokens, max_len 80) with 12 flash launches a prefill (4 encoder,
    non-causal; 4 decoder self, causal; 4 cross, non-causal), all of them the
-   bf16 template by profiler name; xlstm-350m (24 layers "xs", d_model 1024,
-   bf16; B = 2, 1024 prompt tokens) with 24 SSD launches a prefill (12 mLSTM
-   layers: the numerator at N = P = 512, the normalizer at P = 1, both
+   bf16 template by profiler name; xlstm-350m (full width, 8 of 24 layers
+   "xs" by the script's clock, d_model 1024, bf16; B = 2, 1024 prompt
+   tokens) with 8 SSD launches a prefill (4 mLSTM layers: the numerator at
+   N = P = 512, the normalizer at P = 1, both
    ssd_scan_tiled_bf16_kernel by profiler name, in the xs unit's split and in
    item 17's timing, and never ssd_scan_tiled_kernel); 16 greedy decode steps
    each, which launch neither kernel; prefill and decode tokens/s;
@@ -143,8 +144,9 @@ Run from the repository root:  python3 chip_smoke.py
    weights, the launch counters reset just before and read just after each:
    whisper-tiny (bf16, B = 8, 1500 zero frames, 128 tokens, 6 steps; 12 B3
    launches a microbatch forward, flash_fwd_bf16 by profiler name) and
-   xlstm-350m (bf16, 24 layers, B = 2, S = 256, 3 steps; 24 B4 launches a
-   microbatch forward, ssd_scan_tiled_bf16_kernel by name); each run saved halfway and
+   xlstm-350m (bf16, full width cut to 6 of 24 layers, B = 2, S = 256, 3
+   steps; 6 B4 launches a microbatch forward, ssd_scan_tiled_bf16_kernel by
+   name); each run saved halfway and
    resumed there through TrainLoop (whisper's also against an uninterrupted
    run), finite losses, every gradient leaf non-zero in the first
    microbatch, ms a step and tokens/s, and one profiled step's split over
@@ -254,8 +256,9 @@ Run from the repository root:  python3 chip_smoke.py
    is held on the CPU only: one block is 19.4 G parameters);
 38. timed bf16 steps through TrainLoop (repro_torch.train_lm.make_loop,
    microbatches 2; its checkpoints counted, not written) of internlm2-1.8b
-   at its full config and minicpm3-4b at full width cut to 24 of 62 layers
-   (the card's 80 GB), B = 2, S = 1024, 3 steps each, the launch counters
+   at its full config and minicpm3-4b at full width cut to 12 of 62 layers
+   (the card's 80 GB, the script's clock), B = 2, S = 1024, 2 steps each, the
+   launch counters
    reset just before and read just after each: finite losses, one B3 launch
    a layer a microbatch forward, every gradient leaf non-zero in the first
    microbatch, ms a step, tokens/s and peak allocated bytes;
@@ -309,15 +312,20 @@ Run from the repository root:  python3 chip_smoke.py
    on card 0), first a probe of the functional collectives DTensor issues on
    CUDA tensors (gloo's all-gather through
    repro_torch.parallel.collectives, counted); internlm2-1.8b at full width
-   in bf16 on a (2, 2) (data, model) mesh: prefill B = 2, S = 1024 and 8
-   decode steps fed the single process's greedy tokens, two train steps
-   (microbatches 2) of a depth-cut model, the trained state saved on (2, 2)
-   and restored onto (4, 1) bit for bit; one full-width float32 zamba2-7b
-   mmmmmA unit on (1, 4): prefill, 4 greedy decode steps, the loss and
-   every gradient; each against the single-process call on the card (run
-   first, then freed); each rank's B3/B4 launches by counter and by
-   profiler name, every replicated value equal across ranks; B3 and B4 at
-   the ranks' local shapes held to their plain versions and timed.
+   (8 of 24 layers) in bf16 on a (2, 2) (data, model) mesh: prefill B = 2,
+   S = 1024 and 8 decode steps fed the single process's greedy tokens, two
+   train steps (microbatches 2) of a 2-layer model, the trained state saved
+   on (2, 2) and restored onto (4, 1) bit for bit; one full-width float32
+   zamba2-7b mmmmmA unit on (1, 4): prefill, 4 greedy decode steps, the loss
+   and every gradient; then SX_CELLS, each with the model's own inputs:
+   whisper-tiny (2, 2) bf16 with two train steps, an xlstm-350m xs unit on
+   (1, 4) in float32 (the loss's gradients: the sLSTM's sharded backward)
+   and as a bf16 prefill, qwen3-14b (2, 2) bf16 and llava-next (2, 2)
+   float32 at 2 layers with the loss's gradients; each against the
+   single-process call on the card (run first, then freed); each rank's
+   B3/B4 launches by counter and by profiler name, every replicated value
+   equal across ranks; B3 and B4 at the ranks' local shapes held to their
+   plain versions and timed.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -392,21 +400,23 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 LEAD_IN = 4096   # spin kernels that open every profiled window (profiled())
+LEAD_IN_CYCLES = 20_000_000   # and the last one's cycles: about 10 ms
 
 
 @contextlib.contextmanager
 def profiled():
     """A torch.profiler window over the host and the card that opens with
-    LEAD_IN one-cycle spin kernels.  Late in a long process a window loses
-    its first kernels (on an H100, a few more with each earlier window of
-    the process; neither torch's events nor the raw kineto results hold
-    them), so the spin kernels are lost in their place; device_kernels()
-    leaves them out of what the window reports."""
+    LEAD_IN one-cycle spin kernels and one of LEAD_IN_CYCLES.  Late in a
+    long process a window loses its first kernels (on an H100, a few more
+    with each earlier window of the process; neither torch's events nor the
+    raw kineto results hold them), so the spin kernels are lost in their
+    place; device_kernels() leaves them out of what the window reports."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(LEAD_IN):
             torch.cuda._sleep(1)
+        torch.cuda._sleep(LEAD_IN_CYCLES)
         torch.cuda.synchronize()
         yield prof
 
@@ -1232,21 +1242,34 @@ def golden_errors(want: dict, got: dict, after: dict) -> dict:
     return err
 
 
-def profile_ranges(fn, prefix: str):
+def profile_ranges(fn, prefix: str, marks: bool = False):
     """One profiled call of ``fn``: its device kernels as (name, start, end)
     and its host ranges whose name starts with ``prefix`` (the trainer's
     ``record_function`` ranges) as (name, start, end), microseconds, by
-    start.  The ranges' device-side annotations are not kernels."""
+    start.  The ranges' device-side annotations are not kernels.  With
+    ``marks``, also the (start, end) of the spin kernels ``fn`` launched
+    itself (``torch.cuda._sleep``, after its first other kernel): where
+    device kernels must be divided, a mark divides them on the device's own
+    clock, since the profiler's device times drift from its host clock late
+    in a long process (a train step's first milliseconds of kernels have
+    started before its first host range)."""
     import torch
     from torch.autograd import DeviceType
     with profiled() as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [(e.name, e.time_range.start, e.time_range.end) for e in device_kernels(prof)
-               if not e.name.startswith(prefix)]
+    kernels = sorted(((e.name, e.time_range.start, e.time_range.end) for e in device_kernels(prof)
+                      if not e.name.startswith(prefix)), key=lambda k: k[1])
     ranges = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
               if e.name.startswith(prefix) and e.device_type == DeviceType.CPU]
-    return sorted(kernels, key=lambda k: k[1]), sorted(ranges, key=lambda k: k[1])
+    ranges.sort(key=lambda k: k[1])
+    if not marks:
+        return kernels, ranges
+    first = kernels[0][1] if kernels else float("inf")
+    spins = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name
+                   and e.time_range.start > first)
+    return kernels, ranges, spins
 
 
 def same_step(got: dict, want: dict, got_net, want_net) -> dict:
@@ -1727,6 +1750,18 @@ def plain_flash(q, k, v, *, causal=True, scale=None, return_lse=False):
 SSD_TILED_BF16, SSD_TILED_F32 = "ssd_scan_tiled_bf16_kernel", "ssd_scan_tiled_kernel"
 # seconds spent in ssd_templates' profiled windows, printed with the whole run's time
 SSD_NAME_CHECK_S = [0.0]
+# host-clock seconds of each phase of run_phases, printed with the whole run's time
+PHASE_S: dict = {}
+
+
+def clocked(name: str, fn, *args):
+    """``fn(*args)``, its host-clock seconds kept under ``name`` in
+    :data:`PHASE_S`."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t0, 1)
 
 
 def ssd_templates(fn, calls: int = 10) -> dict[str, tuple[int, float]]:
@@ -2060,11 +2095,13 @@ INGEST_ZOO_HASHES = ROOT / "tests" / "golden" / "torch_ingest_zoo_hashes.json"
 INGEST_NODES = (12, 64)
 # (batch, prompt tokens, max_len) of the served runs; whisper also takes 1500 frames
 SERVED = {"whisper-tiny": (2, 64, 80), "xlstm-350m": (2, 1024, 1024 + DECODE_STEPS)}
+# layers served where the depth is cut: xlstm-350m's 1024-step sLSTM loops by the script's clock
+SERVED_LAYERS = {"xlstm-350m": 8}
 # launches a prefill: whisper 4 encoder + 4 decoder self + 4 cross (B3), by shape;
-# xlstm 12 mLSTM layers x (numerator P = 512, normalizer P = 1) (B4)
+# xlstm 4 mLSTM layers x (numerator P = 512, normalizer P = 1) (B4)
 SERVED_PER_PREFILL = {
     "whisper-tiny": {"flash_fwd": {"encoder": 4, "decoder self": 4, "cross": 4}},
-    "xlstm-350m": {"ssd_scan": {"numerator": 12, "normalizer": 12}},
+    "xlstm-350m": {"ssd_scan": {"numerator": 4, "normalizer": 4}},
 }
 FLASH_SRC, SSD_SRC = ("src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
                       "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu")
@@ -2120,7 +2157,8 @@ def served_models_phase(card: str) -> list[dict]:
 
     launched: dict[str, dict] = {}
     for arch, (b, s, max_len) in SERVED.items():
-        cfg = get_config(arch)
+        full = get_config(arch)
+        cfg = full.scaled(n_layers=SERVED_LAYERS[arch]) if arch in SERVED_LAYERS else full
         model = build_model(cfg)
         t0 = time.perf_counter()
         params = model.init_params(seed=0)
@@ -2149,7 +2187,7 @@ def served_models_phase(card: str) -> list[dict]:
             by_shape.setdefault(kern, {}).setdefault(kind, 0)
             by_shape[kern][kind] += 1
         out = torch.cat(seq, dim=1).float()
-        print(f"{arch} served on {card}: full config ({cfg.n_layers} layers"
+        print(f"{arch} served on {card}: full width ({cfg.n_layers} of {full.n_layers} layers"
               + (f" + {cfg.encoder_layers} encoder, {cfg.encoder_seq} frames" if cfg.encoder_layers
                  else "") + f", d_model {cfg.d_model}, {cfg.dtype}, seeded weights drawn in "
               f"{t_init:.2f} s), B={b} S={s}: prefill launches {pre} by shape {by_shape}, "
@@ -2784,10 +2822,12 @@ LM_TRAIN_GOLDEN = ROOT / "tests" / "golden" / "torch_lm_train_steps.json"
 # microbatches 2, lr 1e-3, warmup 10, weight decay 0.01); whisper also takes 1500 frames.
 # xlstm's S is cut from its served 1024: the sLSTM's eager loop sets the step's time
 LM_TRAIN = {"whisper-tiny": (8, 128, 6), "xlstm-350m": (2, 256, 3)}
+# layers trained where the depth is cut: xlstm-350m's 24 to 6 (3 xs units) by the script's clock
+LM_TRAIN_LAYERS = {"xlstm-350m": 6}
 # a microbatch's forward: whisper 4 encoder + 4 decoder self + 4 cross B3 launches (the bf16
-# template); xlstm 12 mLSTM layers x 2 scans, B4's tiled bf16 template; the backwards launch neither
+# template); xlstm 3 mLSTM layers x 2 scans, B4's tiled bf16 template; the backwards launch neither
 LM_TRAIN_PER_MB = {"whisper-tiny": ("flash_fwd", "flash_fwd_bf16", 12),
-                   "xlstm-350m": ("ssd_scan", SSD_TILED_BF16, 24)}
+                   "xlstm-350m": ("ssd_scan", SSD_TILED_BF16, 6)}
 # relative, as tests/test_torch_lm_train.py holds the CPU to the same file
 TOL_LM_GOLDEN = {"loss": 1e-4, "grad_norm": 1e-3, "leaf_norm": 1e-4}
 # x max(1, |x|): the loss and every gradient leaf of a float32 unit, kernel path against plain
@@ -3143,7 +3183,8 @@ def lm_train_phase(card: str) -> list[dict]:
 
     # ---- (a) full-width training through TrainLoop + make_train_fn ----- #
     for arch, (b, s, steps) in LM_TRAIN.items():
-        cfg = get_config(arch)
+        full = get_config(arch)
+        cfg = full.scaled(n_layers=LM_TRAIN_LAYERS[arch]) if arch in LM_TRAIN_LAYERS else full
         kern, template, per_mb = LM_TRAIN_PER_MB[arch]
         model = build_model(cfg)
         params0 = model.init_params(seed=0)
@@ -3182,7 +3223,9 @@ def lm_train_phase(card: str) -> list[dict]:
               f"({per_mb} a microbatch forward)")
         times = list(loop.timer.history) + list(loop2.timer.history)
         med = statistics.median(times)
-        print(f"{arch} trained on {card}: full config ({count_params(model)} parameters, "
+        cut = "full config" if cfg is full else \
+            f"full width, {cfg.n_layers} of {full.n_layers} layers (the script's clock)"
+        print(f"{arch} trained on {card}: {cut} ({count_params(model)} parameters, "
               f"{cfg.dtype}), B={b} S={s}" + (f" + {cfg.encoder_seq} frames" if cfg.encoder_layers
                                               else "")
               + f", {steps} steps through TrainLoop (saved at step {steps // 2}, resumed there), "
@@ -3264,13 +3307,16 @@ def train_step_split(card: str, label: str, cfg, b: int, s: int, steps: int, ker
     def two_steps():    # the second is read: a late window may lose its first kernels
         step_fn(pparams, pstate, pbatch)
         torch.cuda.synchronize()
+        torch.cuda._sleep(1)        # the steps' boundary on the device's clock
         step_fn(pparams, pstate, pbatch)
     seen = []
     for attempt in range(3):    # as device_ms: a window short of kernels is profiled again
-        kernels, ranges = profile_ranges(two_steps, "lm.")
+        kernels, ranges, marks = profile_ranges(two_steps, "lm.", marks=True)
+        check(len(marks) == 1, f"{label}: {len(marks)} marks between the profiled steps, "
+                               "expected 1")
         first_end = min(en for nm, _, en in ranges if nm == "lm.optimizer")
         ranges = [r for r in ranges if r[1] > first_end]
-        kernels = [k for k in kernels if k[1] >= ranges[0][1]]
+        kernels = [k for k in kernels if k[1] >= marks[0][1]]
         ran = sum(template in nm for nm, _, _ in kernels)
         seen.append(ran)
         if ran == want_ran:
@@ -3278,6 +3324,10 @@ def train_step_split(card: str, label: str, cfg, b: int, s: int, steps: int, ker
     check(ran == want_ran and kbuild.LAUNCHES[kern] - before == (1 + 2 * len(seen)) * want_ran,
           f"{label}: {seen} {template} kernels by profiler name in the second profiled "
           f"step of {len(seen)} windows, expected {want_ran}")
+    # the device clock against the host's: where the step's first kernel
+    # falls from its first host range's start (it cannot start before it)
+    early = sum(st < ranges[0][1] for _, st, _ in kernels)
+    skew = (kernels[0][1] - ranges[0][1]) / 1e3
     split: dict[str, float] = {}
     for name, st, en in ranges:
         split[name] = split.get(name, 0.0) + (en - st) / 1e3
@@ -3291,8 +3341,9 @@ def train_step_split(card: str, label: str, cfg, b: int, s: int, steps: int, ker
           + ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in split.items())
           + f"; device: {len(kernels)} kernels, busy {busy / 1e3:.2f} ms of a "
           f"{window / 1e3:.2f} ms window (idle {100 * (1 - busy / window):.1f}%), "
-          f"{template} {ran} launches {kms:.3f} ms (profiler windows' counts {seen})",
-          flush=True)
+          f"{template} {ran} launches {kms:.3f} ms (profiler windows' counts {seen}); the "
+          f"step's first kernel {skew:+.3f} ms from its first host range's start, {early} "
+          f"kernels before it (the profiler's two clocks)", flush=True)
     del pm, pparams, pstate, pbatch
     torch.cuda.empty_cache()
 
@@ -3309,8 +3360,9 @@ ZOO_TRAIN_SHAPES["internlm2-1.8b"] = (2, 1024, 0)
 # (layers kept, B, S, steps) of the timed bf16 TrainLoop runs; an AdamW step as
 # repro_torch.optim.adamw writes it holds ~24 bytes a parameter (bf16 params and grads 4, float32
 # mu and nu 8, the new mu and nu and update's float32 base 12): internlm2-1.8b in full
-# (1.89 G: ~45 GB), minicpm3-4b cut to 24 of 62 layers (1.88 G: ~45 GB; all 62, 4.26 G: ~102 GB)
-ZOO_TRAIN_LOOP = {"internlm2-1.8b": (None, 2, 1024, 3), "minicpm3-4b": (24, 2, 1024, 3)}
+# (1.89 G: ~45 GB), minicpm3-4b cut to 24 of 62 layers (1.88 G: ~45 GB; all 62, 4.26 G: ~102 GB);
+# minicpm3 runs at 12 layers and both at two steps, by the script's clock
+ZOO_TRAIN_LOOP = {"internlm2-1.8b": (None, 2, 1024, 2), "minicpm3-4b": (12, 2, 1024, 2)}
 
 
 def zoo_train_unit(arch: str, card: str, gen) -> str:
@@ -3476,7 +3528,7 @@ def zoo_train_phase(card: str) -> list[dict]:
         times = list(loop.timer.history)
         med = statistics.median(times)
         cut = "full config" if layers is None else \
-            f"full width, {layers} of {full.n_layers} layers (the card's 80 GB)"
+            f"full width, {layers} of {full.n_layers} layers (the card's 80 GB; the script's clock)"
         print(f"{arch} trained on {card}: {cut} ({n_params} parameters, bf16), B={b} S={s}, "
               f"{steps} steps through TrainLoop, microbatches 2 (checkpoints counted, not "
               f"written: saves at steps {saves}): losses {[round(x, 4) for x in losses]}; "
@@ -4380,26 +4432,61 @@ def dryrun_phase(card: str, procs: list) -> None:
 SX_RANKS = 4                         # ranks of the sharded-execution world
 SX_ARCH, SX_MESH, SX_B, SX_S = "internlm2-1.8b", (2, 2), 2, 1024
 SX_DECODE, SX_TRAIN_STEPS = 8, 2
-SX_TRAIN_LAYERS = 4                  # the train step's depth cut (layers only; see CHANGES.md)
+SX_LAYERS = 8                        # the prefill's and decode's depth cut (the script's clock)
+SX_TRAIN_LAYERS = 2                  # the train step's depth cut (layers only; see CHANGES.md)
 SX_RESUME_MESH = (4, 1)              # where the (2, 2) state is restored
 SX_UNIT = dict(arch="zamba2-7b", mesh=(1, 4), b=2, s=256, decode=4, layers=6)  # float32
+# slices a and b of the zoo on real ranks: full widths, depth cut to the
+# script's clock and to one card shared by four ranks (PERF.md §4).  Each
+# cell's B3/B4 launches a rank by phase, and its kernels by profiler name
+# in the profiled prefill.
+SX_CELLS = (
+    dict(name="whisper-tiny", arch="whisper-tiny", mesh=(2, 2), dtype="bfloat16", layers=None,
+         b=4, s=64, max_len=80, decode=8, train=2, grads=False, feed=True,
+         launches={"prefill": (12, 0), "decode": (0, 0), "train": (48, 0)},
+         names={"flash_fwd_bf16": 12}),
+    dict(name="xlstm-350m f32 unit", arch="xlstm-350m", mesh=(1, 4), dtype="float32", layers=2,
+         b=2, s=256, max_len=None, decode=4, train=0, grads=True, feed=False,
+         launches={"prefill": (0, 2), "decode": (0, 0), "grads": (0, 2)},
+         names={SSD_TILED_F32: 2}),
+    dict(name="xlstm-350m bf16 prefill", arch="xlstm-350m", mesh=(1, 4), dtype="bfloat16",
+         layers=2, b=2, s=256, max_len=None, decode=0, train=0, grads=False, feed=False,
+         launches={"prefill": (0, 2)}, names={SSD_TILED_BF16: 2}),
+    # the loss's gradients, not train steps: with AdamW's moments the 151936-word
+    # embedding and head need ~19 GB on each of the four ranks, past the shared
+    # card.  The vocabulary's two gradients (3.1 GB in the reference's file) fit the
+    # host as the ranks map that file (one copy in the page cache) and compare by blocks
+    dict(name="qwen3-14b", arch="qwen3-14b", mesh=(2, 2), dtype="bfloat16", layers=2, b=2,
+         s=1024, max_len=None, decode=8, train=0, grads=True, feed=True,
+         launches={"prefill": (2, 0), "decode": (0, 0), "grads": (2, 0)},
+         names={"flash_fwd_bf16": 2}),
+    dict(name="llava-next-mistral-7b f32", arch="llava-next-mistral-7b", mesh=(2, 2),
+         dtype="float32", layers=2, b=2, s=64, max_len=None, decode=4, train=0, grads=True,
+         feed=False, launches={"prefill": (2, 0), "decode": (0, 0), "grads": (2, 0)},
+         names={"flash_fwd_f32": 2}),
+)
 TOL_SX_BF16 = (0.12, 2e-2)           # the zoo's bf16 bound (PERF.md §2, "Their agreement")
 TOL_SX_F32 = 1e-4                    # x max(1, |x|): the zoo's float32 bound
 SX_DIR = ROOT / "build" / "sharded_exec"
 
 
 def _sx_references(seed_tokens: int, arch: str, n_layers, dtype: str, b: int, s: int,
-                   decode: int, train: int, train_layers, grads: bool) -> tuple[dict, dict]:
+                   decode: int, train: int, train_layers, grads: bool,
+                   max_len=None) -> tuple[dict, dict]:
     """The single-process calls on the card that the ranks are held to:
-    prefill (cache of s + decode), ``decode`` greedy steps, ``train`` train
-    steps (microbatches 2; a model of ``train_layers`` layers) and, with
-    ``grads``, the loss and every gradient.  Returns (reference tensors on
-    the host, host-clock ms of each call)."""
+    prefill (cache of ``max_len``, default the VLM's patches + s + decode),
+    ``decode`` greedy steps, ``train`` train steps (microbatches 2; a model
+    of ``train_layers`` layers) and, with ``grads``, the loss and every
+    gradient, on ``b`` x
+    ``s`` tokens and the model's other inputs (``launch.ranks.model_inputs``,
+    kept under ``inputs/``).  Returns (reference tensors on the host,
+    host-clock ms of each call)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.launch import make_optimizer, make_train_fn, named_leaves, value_and_grad
+    from repro_torch.launch import (make_optimizer, make_train_fn, named_leaves, ranks,
+                                    value_and_grad)
     from repro_torch.models.model import build_model
 
     cfg = get_config(arch).scaled(dtype=dtype)
@@ -4409,8 +4496,13 @@ def _sx_references(seed_tokens: int, arch: str, n_layers, dtype: str, b: int, s:
     params = model.init_params(seed=0)
     tokens = np.random.default_rng(seed_tokens).integers(0, cfg.vocab_size, (b, s)).astype(
         np.int32)
-    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    arrays = ranks.model_inputs(model, tokens, seed_tokens)
+    specs, _ = ranks.input_records(model, b, s)
+    batch = ranks.batch_of(arrays, specs, "cuda")
     ref, ms = {"tokens": torch.from_numpy(tokens)}, {}
+    ref.update({f"inputs/{k}": torch.from_numpy(v) for k, v in arrays.items() if k != "tokens"})
+    s += ranks.n_prefix(cfg)
+    max_len = max_len or s + decode
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -4420,7 +4512,7 @@ def _sx_references(seed_tokens: int, arch: str, n_layers, dtype: str, b: int, s:
         ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
         return out
 
-    logits, cache = timed("prefill", lambda: model.prefill(params, batch, max_len=s + decode))
+    logits, cache = timed("prefill", lambda: model.prefill(params, batch, max_len=max_len))
     ref["prefill/logits"] = logits.float().cpu()
     ref.update({f"prefill/cache/{n}": t.float().cpu() for n, t in named_leaves(cache)})
     for i in range(decode):
@@ -4432,7 +4524,9 @@ def _sx_references(seed_tokens: int, arch: str, n_layers, dtype: str, b: int, s:
     if grads:
         loss, g = timed("grads", lambda: value_and_grad(model.loss, params, batch))
         ref["grads/loss"] = loss.float().cpu()
-        ref.update({f"grads/{n}": t.float().cpu() for n, t in named_leaves(g)})
+        # in their own dtype: a bf16 gradient is held in float64, exactly, and its
+        # file is half a float32 one's (qwen3-14b's vocabulary: 3.1 GB)
+        ref.update({f"grads/{n}": t.detach().cpu() for n, t in named_leaves(g)})
         del g
     if train:
         if train_layers is not None:
@@ -4469,24 +4563,24 @@ def _sx_errors(res: list, names, tol, label: str, f32: bool) -> float:
     return worst
 
 
-def _sx_local_rows(card: str, gen, label: str, flash_shape: tuple, flash_dtype, ssd_shape,
-                   launches: dict) -> list[dict]:
-    """B3 (and B4) at one rank's local shapes, held to their plain versions
-    and timed: kernels-line rows with ``launches`` (summed over the ranks)."""
+def _sx_flash_row(card: str, gen, label: str, shape: tuple, dtype, launches: int,
+                  causal: bool = True) -> dict:
+    """B3 at one rank's local shape (b, hq, hkv, sq, sk, d), held to its plain
+    version and timed beside SDPA: a kernels-line row with ``launches``
+    (summed over the ranks)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash import ops as flash_ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
 
-    rows = []
-    b, hq, hkv, sq, d = flash_shape
-    f32 = flash_dtype == torch.float32
-    q, k, v = (torch.randn((b, sq, h, d), generator=gen, device="cuda").to(flash_dtype)
-               .transpose(1, 2) for h in (hq, hkv, hkv))
+    b, hq, hkv, sq, sk, d = shape
+    f32 = dtype == torch.float32
+    q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    k, v = (torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            for _ in range(2))
 
     def call():
-        return flash_ops.flash_attention(q, k, v, causal=True, scale=d ** -0.5)
+        return flash_ops.flash_attention(q, k, v, causal=causal, scale=d ** -0.5)
     got = call()
     with plain_kernels():
         want = call()
@@ -4502,49 +4596,69 @@ def _sx_local_rows(card: str, gen, label: str, flash_shape: tuple, flash_dtype, 
     ev_ms = cuda_ms(call, iters=10)
     dev_ms = device_ms(call, "flash_fwd_f32" if f32 else "flash_fwd_bf16", iters=10)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=hq != hkv), iters=10)
-    b_ms, b_by = bound(*flash_work(b, hq, hkv, sq, sq, d, d, 4 if f32 else 2),
+        q, k, v, is_causal=causal, scale=d ** -0.5, enable_gqa=hq != hkv), iters=10)
+    b_ms, b_by = bound(*flash_work(b, hq, hkv, sq, sk, d, d, 4 if f32 else 2, causal),
                        F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
-    print(f"flash_fwd {label} rank-local B={b} Hq={hq} Hkv={hkv} S={sq} D={d} "
-          f"{'float32' if f32 else 'bf16'} causal on {card}: max |err| {err:.3e}; kernel "
-          f"{ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), plain {plain_ms:.3f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
-          f"{launches['flash_fwd']} launches over the ranks", flush=True)
-    rows.append({"name": f"flash_fwd ({label} rank-local)", "route": "cuda", "source": FLASH_SRC,
-                 "replaces": "src/repro/kernels/flash/kernel.py:43",
-                 "launches": launches["flash_fwd"], "max_abs_err": err,
-                 "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": lib_ms})
-    if ssd_shape is None:
-        return rows
-    bt, s, h, p, g, n, chunk = ssd_shape
-    x = torch.randn((bt, s, h, p), generator=gen, device="cuda")
-    Bm, Cm = (torch.randn((bt, s, g, n), generator=gen, device="cuda") for _ in range(2))
+    print(f"flash_fwd {label} rank-local B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
+          f"{'float32' if f32 else 'bf16'} {'causal' if causal else 'non-causal'} on {card}: "
+          f"max |err| {err:.3e}; kernel {ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), "
+          f"plain {plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}); {launches} launches over the ranks", flush=True)
+    return {"name": f"flash_fwd ({label} rank-local)", "route": "cuda", "source": FLASH_SRC,
+            "replaces": "src/repro/kernels/flash/kernel.py:43", "launches": launches,
+            "max_abs_err": err, "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def _sx_ssd_row(card: str, gen, label: str, shape: tuple, dtype, launches: int,
+                in_scale: bool = False) -> dict:
+    """B4 at one rank's local shape (bt, s, h, p, g, n, chunk), with the
+    mLSTM's ``in_scale`` where asked, held to its plain version and timed:
+    a kernels-line row with ``launches`` (summed over the ranks)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    bt, s, h, p, g, n, chunk = shape
+    f32 = dtype == torch.float32
+    x = torch.randn((bt, s, h, p), generator=gen, device="cuda").to(dtype)
+    Bm, Cm = (torch.randn((bt, s, g, n), generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
     dt = F.softplus(torch.randn((bt, s, h), generator=gen, device="cuda") * 0.5 - 2.0)
     A = torch.exp(0.2 * torch.randn((h,), generator=gen, device="cuda"))
+    sc = torch.rand((bt, s, h), generator=gen, device="cuda") if in_scale else None
 
     def scan():
-        return ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        return ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, in_scale=sc)
     y, hf = scan()
     with plain_kernels():
         wy, wh = scan()
         plain_ms = cuda_ms(scan, iters=2)
-    err = max(float((y - wy).abs().max()), float((hf - wh).abs().max()))
-    check(err <= TOL_SX_F32 * max(1.0, float(wy.abs().max()), float(wh.abs().max())),
-          f"ssd {label}: kernel and plain version differ (max |err| {err:.3e})")
+    err = max(float((y.float() - wy.float()).abs().max()), float((hf - wh).abs().max()))
+    if f32:
+        check(err <= TOL_SX_F32 * max(1.0, float(wy.abs().max()), float(wh.abs().max())),
+              f"ssd {label}: kernel and plain version differ (max |err| {err:.3e})")
+    else:
+        check(bool(((y.float() - wy.float()).abs() <= TOL_BF16_OUT[0] + TOL_BF16_OUT[1]
+                    * wy.float().abs()).all()) and float((hf - wh).abs().max()) <= 1e-4 * max(
+                        1.0, float(wh.abs().max())),
+              f"ssd {label}: kernel and plain version differ (max |err| {err:.3e})")
     ev_ms = cuda_ms(scan, iters=10)
-    dev_ms = device_ms(scan, "ssd_scan_f32", iters=10)
-    b_ms, b_by = bound(*ssd_work(bt, s, h, p, g, n, chunk, 4, False), F32_FLOPS_PER_S)
+    name = (SSD_TILED_F32 if f32 else SSD_TILED_BF16) if max(n, p) > 128 else (
+        "ssd_scan_f32" if f32 else "ssd_scan_bf16")
+    dev_ms = device_ms(scan, name, iters=10)
+    b_ms, b_by = bound(*ssd_work(bt, s, h, p, g, n, chunk, 4 if f32 else 2, in_scale),
+                       F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
     print(f"ssd_scan {label} rank-local Bt={bt} S={s} H={h} P={p} G={g} N={n} chunk {chunk} "
-          f"float32 on {card}: max |err| {err:.3e}; kernel {ev_ms:.4f} ms (CUDA events; device "
-          f"{dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); "
-          f"{launches['ssd_scan']} launches over the ranks", flush=True)
-    rows.append({"name": f"ssd_scan ({label} rank-local)", "route": "cuda", "source": SSD_SRC,
-                 "replaces": "src/repro/kernels/ssd/kernel.py:41",
-                 "launches": launches["ssd_scan"], "max_abs_err": err,
-                 "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": None})
-    return rows
+          f"{'float32' if f32 else 'bf16'}{' in_scale' if in_scale else ''} on {card}: max "
+          f"|err| {err:.3e}; kernel {ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms, {name}), "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); {launches} launches over "
+          "the ranks", flush=True)
+    return {"name": f"ssd_scan ({label} rank-local)", "route": "cuda", "source": SSD_SRC,
+            "replaces": "src/repro/kernels/ssd/kernel.py:41", "launches": launches,
+            "max_abs_err": err, "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def sharded_exec_phase(card: str) -> list[dict]:
@@ -4566,33 +4680,44 @@ def sharded_exec_phase(card: str) -> list[dict]:
     u = SX_UNIT
 
     # ---- the single-process calls first, each freed before the world ---- #
-    ref, ms_single = _sx_references(0, SX_ARCH, None, "bfloat16", SX_B, SX_S, SX_DECODE,
+    ref, ms_single = _sx_references(0, SX_ARCH, SX_LAYERS, "bfloat16", SX_B, SX_S, SX_DECODE,
                                     SX_TRAIN_STEPS, SX_TRAIN_LAYERS, grads=False)
     torch.save(ref, SX_DIR / "internlm2.pt")
     uref, ums_single = _sx_references(1, u["arch"], u["layers"], "float32", u["b"], u["s"],
                                       u["decode"], 0, None, grads=True)
     torch.save(uref, SX_DIR / "zamba2.pt")
+    cell_jobs, ms_cells, grad_names = _sx_cell_jobs()
     feed = [ref[f"decode/{i}/token"].numpy() for i in range(SX_DECODE)]
     jobs = [dict(kind="collectives", mesh=(1, SX_RANKS)),
             dict(kind="steps", arch=SX_ARCH, mesh=SX_MESH, tokens=ref["tokens"].numpy(),
-                 smoke=False, dtype="bfloat16", decode=SX_DECODE, feed=feed,
+                 smoke=False, dtype="bfloat16", n_layers=SX_LAYERS, decode=SX_DECODE, feed=feed,
                  train=SX_TRAIN_STEPS, train_layers=SX_TRAIN_LAYERS, full_params=False,
                  save_dir=str(SX_DIR / "ckpt"), resume_mesh=SX_RESUME_MESH, keep=False,
                  reference=str(SX_DIR / "internlm2.pt"), profile=True),
             dict(kind="steps", arch=u["arch"], mesh=u["mesh"], tokens=uref["tokens"].numpy(),
                  seed=0, smoke=False, dtype="float32", n_layers=u["layers"], decode=u["decode"],
                  grads=True, keep=False, reference=str(SX_DIR / "zamba2.pt"), profile=True)]
+    jobs += cell_jobs
     del ref, uref
 
     # ---- the world -------------------------------------------------------- #
+    # four ranks' pools on one 80 GB card: blocks a job freed go back to the
+    # card (ranks.run_jobs), and segments grow in place instead of fragmenting
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2 ** 30
     t0 = time.perf_counter()
     out = run_ranks(ranks.run_jobs, SX_RANKS, backend=backend, device="cuda",
                     share_device=backend == "gloo", timeout_s=900, args=(jobs,))
     t_world = time.perf_counter() - t0
-    coll, lm, unit = ([o[j] for o in out] for j in range(3))
+    coll, lm, unit, *cells = ([o[j] for o in out] for j in range(len(jobs)))
     print(f"sharded exec world on {card}: backend {backend}, {n_cards} card(s), "
           f"{SX_RANKS} ranks on {[c['device'] for c in coll]} "
-          f"({t_world:.1f} s with the ranks' start)", flush=True)
+          f"({t_world:.1f} s with the ranks' start; this process held {held:.2f} GiB of the "
+          f"card while they ran; the single-process references before it "
+          f"{t0 - t_phase:.1f} s); rank 0's jobs' seconds "
+          f"{[(j.get('arch', j['kind']), o['job_s']) for j, o in zip(jobs, out[0])]}",
+          flush=True)
 
     # ---- the collectives DTensor issues here ------------------------------ #
     for c in coll:
@@ -4615,12 +4740,12 @@ def sharded_exec_phase(card: str) -> list[dict]:
     same_tok = sum(lm[0]["errors"][f"decode/{i}/token"][0] == 0 for i in range(SX_DECODE))
     n_train_layers = SX_TRAIN_LAYERS or cfg.n_layers
     for r in lm:
-        want = {"prefill": cfg.n_layers, "decode": 0, "train": 2 * n_train_layers * SX_TRAIN_STEPS}
+        want = {"prefill": SX_LAYERS, "decode": 0, "train": 2 * n_train_layers * SX_TRAIN_STEPS}
         got = {ph: r["launches"][ph]["flash_fwd"] for ph in want}
         check(got == want and all(r["launches"][ph]["ssd_scan"] == 0 for ph in want),
               f"{SX_ARCH} {SX_MESH} rank {r['rank']}: B3 launches {got}, expected {want}")
         named = sum(v for k, v in r["kernel_names"].items() if "flash_fwd_bf16" in k)
-        check(named == cfg.n_layers and len(r["kernel_names"]) == 1,
+        check(named == SX_LAYERS and len(r["kernel_names"]) == 1,
               f"{SX_ARCH} {SX_MESH} rank {r['rank']}: kernels by name {r['kernel_names']}")
         check(r["cache_at_shardings"] and r["train_at_shardings"],
               f"{SX_ARCH} rank {r['rank']}: outputs off their shardings")
@@ -4635,8 +4760,9 @@ def sharded_exec_phase(card: str) -> list[dict]:
     def med(xs):
         return statistics.median(xs) if xs else float("nan")
     rk = lm[0]["ms"]
-    print(f"{SX_ARCH} sharded on {card}: {SX_MESH} (data, model), {backend}, full config "
-          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} "
+    print(f"{SX_ARCH} sharded on {card}: {SX_MESH} (data, model), {backend}, full width "
+          f"({SX_LAYERS} of {cfg.n_layers} layers: depth cut, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} "
           f"heads, bf16, seeded), B={SX_B} S={SX_S}: prefill logits and cache, {SX_DECODE} "
           f"decode steps' logits (fed the single process's greedy tokens; the ranks' own argmax "
           f"agreed at {same_tok} of {SX_DECODE}) within the zoo's bf16 bound {TOL_SX_BF16} of "
@@ -4690,6 +4816,9 @@ def sharded_exec_phase(card: str) -> list[dict]:
           f"{med(ums_single['decode']):.1f}, loss and gradients {med(uk['grads']):.1f} against "
           f"{med(ums_single['grads']):.1f}", flush=True)
 
+    # ---- slices a and b: whisper-tiny, xlstm-350m, qwen3-14b, llava-next -- #
+    _sx_check_cells(card, cells, ms_cells, grad_names)
+
     # ---- B3/B4 at the ranks' local shapes against their plain versions ----- #
     gen = torch.Generator(device="cuda").manual_seed(29)
     data, model_ax = SX_MESH
@@ -4697,19 +4826,147 @@ def sharded_exec_phase(card: str) -> list[dict]:
                    for k in ranks.KERNELS}
     u_launches = {k: sum(r["launches"][ph][k] for r in unit for ph in r["launches"])
                   for k in ranks.KERNELS}
-    rows = _sx_local_rows(card, gen, f"{SX_ARCH} {SX_MESH}",
+    rows = [_sx_flash_row(card, gen, f"{SX_ARCH} {SX_MESH}",
                           (SX_B // data, cfg.n_heads // model_ax, cfg.n_kv_heads // model_ax,
-                           SX_S, cfg.resolved_head_dim), torch.bfloat16, None, lm_launches)
+                           SX_S, SX_S, cfg.resolved_head_dim), torch.bfloat16,
+                          lm_launches["flash_fwd"])]
     ucfg = get_config(u["arch"])
     m = u["mesh"][1]
     nh = ucfg.ssm.expand * ucfg.d_model // ucfg.ssm.head_dim
-    rows += _sx_local_rows(card, gen, f"{u['arch']} unit {u['mesh']}",
-                           (u["b"], ucfg.n_heads // m, ucfg.n_kv_heads // m, u["s"],
-                            ucfg.resolved_head_dim), torch.float32,
-                           (u["b"], u["s"], nh // m, ucfg.ssm.head_dim, 1, ucfg.ssm.state_dim,
-                            ucfg.ssm.chunk), u_launches)
+    label = f"{u['arch']} unit {u['mesh']}"
+    rows.append(_sx_flash_row(card, gen, label, (u["b"], ucfg.n_heads // m, ucfg.n_kv_heads // m,
+                                                 u["s"], u["s"], ucfg.resolved_head_dim),
+                              torch.float32, u_launches["flash_fwd"]))
+    rows.append(_sx_ssd_row(card, gen, label, (u["b"], u["s"], nh // m, ucfg.ssm.head_dim, 1,
+                                               ucfg.ssm.state_dim, ucfg.ssm.chunk),
+                            torch.float32, u_launches["ssd_scan"]))
+    rows += _sx_cell_rows(card, gen, cells)
     shutil.rmtree(SX_DIR, ignore_errors=True)
     print(f"sharded exec phase on {card}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+def _sx_cell_jobs() -> tuple[list, dict, dict]:
+    """The single-process references of :data:`SX_CELLS`, each made and freed
+    in turn and saved under :data:`SX_DIR`, and their rank jobs.  Returns
+    (jobs, host-clock ms of the single process by cell, the names of each
+    cell's reference gradients)."""
+    import torch
+    jobs, ms, grad_names = [], {}, {}
+    for i, c in enumerate(SX_CELLS):
+        ref, ms[c["name"]] = _sx_references(100 + i, c["arch"], c["layers"], c["dtype"], c["b"],
+                                            c["s"], c["decode"], c["train"], None, c["grads"],
+                                            c["max_len"])
+        path = SX_DIR / f"cell{i}.pt"
+        torch.save(ref, path)
+        grad_names[c["name"]] = {k for k in ref if k.startswith("grads/")}
+        feed = [ref[f"decode/{j}/token"].numpy() for j in range(c["decode"])] if c["feed"] \
+            else None
+        torch.cuda.empty_cache()        # the reference's blocks, freed with its frame
+        jobs.append(dict(kind="steps", arch=c["arch"], mesh=c["mesh"],
+                         tokens=ref["tokens"].numpy(),
+                         inputs={k[len("inputs/"):]: v.numpy() for k, v in ref.items()
+                                 if k.startswith("inputs/")},
+                         seed=0, smoke=False, dtype=c["dtype"], n_layers=c["layers"],
+                         max_len=c["max_len"], decode=c["decode"], feed=feed, train=c["train"],
+                         full_params=False, grads=c["grads"], keep=False, reference=str(path),
+                         profile=True))
+        del ref
+    return jobs, ms, grad_names
+
+
+def _sx_check_cells(card: str, cells: list, ms_single: dict, grad_names: dict) -> None:
+    """Each cell of :data:`SX_CELLS` on its ranks against the single process:
+    bf16 cells within the zoo's bound, float32 ones within 1e-4 x max(1,
+    |x|) with the greedy tokens equal, every gradient in ``grad_names``
+    reported by every rank; B3/B4 launches a rank by counter and by profiler name; every
+    replicated value equal on the ranks."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    for c, res in zip(SX_CELLS, cells):
+        f32 = c["dtype"] == "float32"
+        label = f"{c['name']} {c['mesh']}"
+        errs = res[0]["errors"]
+        names = (["prefill/logits"] + [f"decode/{i}/logits" for i in range(c["decode"])]
+                 + [k for k in errs if k.startswith("prefill/cache/")] + sorted(grad_names[c["name"]])
+                 + [f"train/{i}/{k}" for i in range(c["train"]) for k in ("loss", "grad_norm")])
+        err = _sx_errors(res, names, TOL_SX_F32 if f32 else TOL_SX_BF16, label, f32=f32)
+        same_tok = sum(errs[f"decode/{i}/token"][0] == 0 for i in range(c["decode"]))
+        if not c["feed"]:
+            check(same_tok == c["decode"], f"{label}: greedy tokens differ from the single "
+                                           "process's")
+        for r in res:
+            got = {ph: (r["launches"][ph]["flash_fwd"], r["launches"][ph]["ssd_scan"])
+                   for ph in c["launches"]}
+            check(got == c["launches"], f"{label} rank {r['rank']}: (B3, B4) launches {got}, "
+                                        f"expected {c['launches']}")
+            named = {want: sum(v for k, v in r["kernel_names"].items() if want in k)
+                     for want in c["names"]}
+            check(named == c["names"] and sum(r["kernel_names"].values()) == sum(
+                c["names"].values()), f"{label} rank {r['rank']}: kernels by name "
+                                      f"{r['kernel_names']}, expected {c['names']}")
+            check(r["cache_at_shardings"] and (not c["train"] or r["train_at_shardings"]),
+                  f"{label} rank {r['rank']}: outputs off their shardings")
+        for r in res[1:]:
+            diff = [k for k, v in res[0]["digests"].items() if r["digests"].get(k) != v]
+            check(not diff, f"{label}: rank {r['rank']} differs from rank 0 in {diff[:4]}")
+        cfg = get_config(c["arch"])
+        depth = f"{c['layers']} of {cfg.n_layers} layers: depth cut" if c["layers"] else \
+            "full depth"
+        rk, single = res[0]["ms"], ms_single[c["name"]]
+        times = ", ".join(f"{ph} {statistics.median(rk[ph]):.1f} against "
+                          f"{statistics.median(single[ph]):.1f}" for ph in rk if ph in single)
+        extra = (f", the VLM's {cfg.n_patches} patches before the text" if cfg.family == "vlm"
+                 else f", {cfg.encoder_seq} frames" if cfg.family == "audio" else "")
+        print(f"sharded exec {label} on {card}: full width ({depth}), {c['dtype']}, "
+              f"B={c['b']} S={c['s']}{extra}: prefill logits and cache"
+              + (f", {c['decode']} decode steps' logits" if c["decode"] else "")
+              + (f" (fed the single process's greedy tokens; the ranks' own argmax agreed at "
+                 f"{same_tok} of {c['decode']})" if c["feed"] else
+                 " (greedy tokens equal)" if c["decode"] else "")
+              + (", the loss and every gradient" if c["grads"] else "")
+              + (f", {c['train']} train steps' loss and grad_norm" if c["train"] else "")
+              + f" within {TOL_SX_F32 if f32 else TOL_SX_BF16} of the single process (max "
+              f"|err| {err:.3e}); (B3, B4) launches a rank by phase {res[0]['launches']}; by "
+              f"profiler name on every rank {res[0]['kernel_names']}; every replicated value "
+              f"equal on the {SX_RANKS} ranks; host-clock ms rank 0 beside the single process: "
+              f"{times}", flush=True)
+
+
+def _sx_cell_rows(card: str, gen, cells: list) -> list[dict]:
+    """B3/B4 at each cell's rank-local shapes: kernels-line rows."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import ranks
+    rows = []
+    for c, res in zip(SX_CELLS, cells):
+        total = {k: sum(r["launches"][ph][k] for r in res for ph in r["launches"])
+                 for k in ranks.KERNELS}
+        cfg = get_config(c["arch"])
+        data, model_ax = c["mesh"]
+        b = c["b"] // data
+        dtype = torch.float32 if c["dtype"] == "float32" else torch.bfloat16
+        label = f"{c['name']} {c['mesh']}"
+        hq, hkv, d = cfg.n_heads // model_ax, cfg.n_kv_heads // model_ax, cfg.resolved_head_dim
+        if cfg.family == "audio":
+            per = total["flash_fwd"] // 3            # the three shapes launch alike
+            for part, sq, sk, causal in (("encoder", cfg.encoder_seq, cfg.encoder_seq, False),
+                                         ("self", c["s"], c["s"], True),
+                                         ("cross", c["s"], cfg.encoder_seq, False)):
+                rows.append(_sx_flash_row(card, gen, f"{label} {part}", (b, hq, hkv, sq, sk, d),
+                                          dtype, per, causal))
+        elif cfg.ssm is None:
+            sq = c["s"] + (cfg.n_patches if cfg.family == "vlm" else 0)
+            rows.append(_sx_flash_row(card, gen, label, (b, hq, hkv, sq, sq, d), dtype,
+                                      total["flash_fwd"]))
+        else:                                       # the mLSTM's two scans on local heads
+            ph = cfg.ssm.expand * cfg.d_model // cfg.n_heads
+            for part, p in (("numerator", ph), ("normalizer", 1)):
+                rows.append(_sx_ssd_row(card, gen, f"{label} {part}",
+                                        (b, c["s"], hq, p, hq, ph, cfg.ssm.chunk), dtype,
+                                        total["ssd_scan"] // 2, in_scale=True))
     return rows
 
 
@@ -5014,14 +5271,14 @@ def run_phases(card: str, dry: list) -> dict:
           + ", ".join(f"{k} {v * 1e3:.2f} ms ({100 * v / total:.1f}%)" for k, v in split.items()),
           flush=True)
     del net, wide
-    kernels += zoo_phase(card)
+    kernels += clocked("zoo", zoo_phase, card)
 
     # ---- whisper-tiny and xlstm-350m served; ingest, schedule_model ---- #
-    kernels += served_models_phase(card)
+    kernels += clocked("served_models", served_models_phase, card)
     # ---- the rest of the zoo served (B3); the partitioner (B1) ---------- #
-    kernels += zoo_archs_phase(card)
-    ingest_phase(card)
-    kernels += partitioner_phase(card)
+    kernels += clocked("zoo_archs", zoo_archs_phase, card)
+    clocked("ingest", ingest_phase, card)
+    kernels += clocked("partitioner", partitioner_phase, card)
 
     # ---- the heterogeneous batch: B2 at the path's own masks, time split  #
     # after the zoo, with the other profiles of whole batches (see below)
@@ -5082,31 +5339,31 @@ def run_phases(card: str, dry: list) -> dict:
     # ---- last: the LM zoo's training path, whisper-tiny and xlstm-350m;
     # after its runs and profiles the profiler's windows lose kernels,
     # which the B2 replays above count exactly ----------------------------- #
-    kernels += lm_train_phase(card)
-    lm_train_split_phase(card)
+    kernels += clocked("lm_train", lm_train_phase, card)
+    clocked("lm_train_split", lm_train_split_phase, card)
 
     # ---- data and pipeline parallelism: the data-parallel step on two
     # gloo ranks, the compressed all-reduce, the train_respect twin, the
     # qwen3-14b pipeline (B1's cut, B3 a block) ---------------------------- #
-    data_parallel_phase(card)
-    kernels += pipeline_phase(card)
+    clocked("data_parallel", data_parallel_phase, card)
+    kernels += clocked("pipeline", pipeline_phase, card)
 
     # ---- the zoo's other archs train (B3 under autograd); last, as the
     # largest models of the run's training paths -------------------------- #
-    kernels += zoo_train_phase(card)
+    kernels += clocked("zoo_train", zoo_train_phase, card)
 
     # ---- the example scripts' twins (B1), then the sharded step makers
     # on a one-device mesh (B3); the dry run's process works on the host
     # beside them ----------------------------------------------------------- #
     dry += start_dryrun()
-    kernels += examples_phase(card)
-    kernels += sharding_phase(card)
+    kernels += clocked("examples", examples_phase, card)
+    kernels += clocked("sharding", sharding_phase, card)
 
     # ---- the multi-pod dry run's golden cells and its one-card check ----- #
-    dryrun_phase(card, dry)
+    clocked("dryrun", dryrun_phase, card, dry)
 
     # ---- sharded execution on real ranks: four ranks, (2, 2) and (1, 4) -- #
-    kernels += sharded_exec_phase(card)
+    kernels += clocked("sharded_exec", sharded_exec_phase, card)
     return {"kernels": kernels, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "card": card}
 
@@ -5135,7 +5392,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s (B4's template "
-          f"name checks' profiled windows {SSD_NAME_CHECK_S[0]:.1f} s of it)", flush=True)
+          f"name checks' profiled windows {SSD_NAME_CHECK_S[0]:.1f} s of it; the zoo's and later "
+          f"phases' seconds {PHASE_S})", flush=True)
     print(json.dumps({"kernels": out["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": out["device"],
                                              "count": out["count"]}}))

@@ -41,9 +41,8 @@ import numpy as np
 import torch
 
 from .. import optim
-from ..configs import TrainConfig, get_config, get_smoke_config
+from ..configs import ShapeConfig, TrainConfig, get_config, get_smoke_config
 from ..kernels import build
-from ..models.common import TensorSpec
 from ..models.lm import params_from_numpy
 from ..models.model import build_model
 from ..parallel.sharding import gather_tree, shard_tree
@@ -52,7 +51,8 @@ from .steps import (make_decode_step, make_prefill_step, make_train_step, named_
                     value_and_grad)
 
 __all__ = ["NAMES", "KERNELS", "BF16_RTOL", "JOBS", "run_jobs", "steps_job",
-           "train_loop_job", "collectives_job", "faults_job", "numpy_of"]
+           "train_loop_job", "collectives_job", "faults_job", "numpy_of", "n_prefix",
+           "input_records", "model_inputs", "batch_of"]
 
 #: the mesh axes of every job
 NAMES = ("data", "model")
@@ -61,6 +61,8 @@ KERNELS = ("flash_fwd", "ssd_scan")
 #: the relative part of the zoo's bf16 bound: an error against a reference
 #: reports max(|d| - BF16_RTOL |want|), which that bound holds to its atol
 BF16_RTOL = 2e-2
+#: elements a block when a value is held to its reference
+HOLD_BLOCK = 1 << 22
 
 
 def numpy_of(t) -> np.ndarray:
@@ -80,7 +82,10 @@ class _Report:
     def __init__(self, rank: int, device: torch.device, keep: bool = True,
                  reference: str | None = None):
         self.rank, self.device, self.keep = rank, device, keep
-        self.ref = {} if reference is None else torch.load(reference, map_location="cpu")
+        # mapped, not read: the ranks of one host share its page cache, and
+        # each touches only the slices it holds
+        self.ref = {} if reference is None else torch.load(reference, map_location="cpu",
+                                                            mmap=True)
         self.out = {"rank": rank, "device": str(device), "arrays": {}, "digests": {},
                     "errors": {}, "launches": {}, "ms": {}}
 
@@ -94,11 +99,17 @@ class _Report:
         return a
 
     def _hold(self, name: str, got: torch.Tensor, want: torch.Tensor) -> None:
-        """Record ``got``'s errors against the reference's ``want``."""
-        got, want = got.double(), want.double()
-        d = (got - want).abs()
-        self.out["errors"][name] = (float(d.max()), float(want.abs().max()),
-                                    float((d - BF16_RTOL * want.abs()).max()))
+        """Record ``got``'s errors against the reference's ``want``, a block
+        of :data:`HOLD_BLOCK` elements at a time (a vocabulary's gradient
+        in float64 at once would be ~3 GB a temporary on each rank)."""
+        got, want = got.reshape(-1), want.reshape(-1)
+        err = mag = rel = float("-inf") if got.numel() else float("nan")
+        for i in range(0, got.numel(), HOLD_BLOCK):
+            g, w = got[i: i + HOLD_BLOCK].double(), want[i: i + HOLD_BLOCK].double()
+            d, a = (g - w).abs(), w.abs()
+            err, mag = max(err, float(d.max())), max(mag, float(a.max()))
+            rel = max(rel, float((d - BF16_RTOL * a).max()))
+        self.out["errors"][name] = (err, mag, rel)
 
     def put_tree(self, prefix: str, tree) -> None:
         for name, leaf in named_leaves(tree):
@@ -158,6 +169,36 @@ def _local_slice(t, full: torch.Tensor) -> torch.Tensor:
     return full[tuple(slice(o, o + n) for o, n in zip(off, shape))]
 
 
+def n_prefix(cfg) -> int:
+    """Positions before the text in a sequence of ``cfg``: the VLM's patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def input_records(model, b: int, s: int) -> tuple[dict, dict]:
+    """(specs, logical axes) of a train or prefill batch of ``b`` rows of
+    ``s`` text tokens: :meth:`~repro_torch.models.model.Model.input_records`
+    of a cell whose sequence holds the VLM's patches before the text."""
+    return model.input_records(ShapeConfig("ranks", s + n_prefix(model.cfg), b, "prefill"))
+
+
+def model_inputs(model, tokens: np.ndarray, seed: int = 0) -> dict:
+    """The numpy batch of ``model`` around ``tokens`` (B, S): every other
+    input of :func:`input_records` (whisper's ``audio_embed``, the VLM's
+    ``patches``) drawn N(0, 1) in float32 from
+    ``numpy.random.default_rng(seed)``, in the records' order."""
+    specs, _ = input_records(model, *tokens.shape)
+    rng = np.random.default_rng(seed)
+    return {name: tokens if name == "tokens" else
+            rng.standard_normal(spec.shape).astype(np.float32) for name, spec in specs.items()}
+
+
+def batch_of(arrays: dict, specs: dict, device) -> dict:
+    """A numpy batch as tensors on ``device``, each in its record's dtype
+    (the frame and patch embeddings in bfloat16, as the reference's
+    ``input_specs`` give them)."""
+    return {k: torch.from_numpy(np.asarray(arrays[k])).to(device, specs[k].dtype) for k in specs}
+
+
 def _model(arch: str, smoke: bool, dtype: str, n_layers: int | None, device):
     cfg = (get_smoke_config if smoke else get_config)(arch).scaled(dtype=dtype)
     if n_layers is not None:
@@ -182,10 +223,15 @@ def _at(tree, shardings) -> bool:
 
 def _kernel_names(fn) -> tuple:
     """(``fn()``, the count of its device kernels by name, of those whose
-    name holds ``flash_fwd`` or ``ssd_scan``), run under the profiler."""
+    name holds ``flash_fwd`` or ``ssd_scan``), run under the profiler.  The
+    window opens with a ~10 ms spin on the card: late in a long process the
+    profiler's device clock drifts from its host clock, and a window drops
+    the kernels that seem to start before it opened."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)           # cycles
+        torch.cuda.synchronize()
         res = fn()
         torch.cuda.synchronize()
     out: dict = {}
@@ -195,8 +241,8 @@ def _kernel_names(fn) -> tuple:
     return res, out
 
 
-def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, params=None,
-              seed: int = 0, smoke: bool = True, dtype: str = "float32",
+def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, inputs=None,
+              params=None, seed: int = 0, smoke: bool = True, dtype: str = "float32",
               n_layers: int | None = None, max_len=None,
               decode: int = 3, feed=None, train: int = 0, microbatches: int = 2,
               grads: bool = False, full_params: bool = True, train_layers: int | None = None,
@@ -204,9 +250,12 @@ def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, para
               keep: bool = True, reference: str | None = None, profile: bool = False) -> dict:
     """``arch`` on ``mesh`` through the step makers:
 
-    * the prefill of ``tokens`` into a cache of ``max_len`` (default S +
-      decode), and ``decode`` greedy steps: each reports the argmax of the
-      gathered logits as its token and feeds it, or ``feed[i]`` where given;
+    * the prefill of ``tokens`` (B, S) and the model's other ``inputs``
+      (numpy arrays, :func:`model_inputs`; whisper's frames, the VLM's
+      patches) into a cache of ``max_len`` (default the VLM's patches + S
+      + decode), and ``decode`` greedy steps: each reports the argmax of
+      the gathered logits as its token and feeds it, or ``feed[i]`` where
+      given;
     * the sharded ``value_and_grad`` of the loss (``grads``);
     * ``train`` train steps (``TrainConfig(microbatches=...)``), parameters
       gathered after the first (``full_params``), leaf norms after each; a
@@ -224,11 +273,12 @@ def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, para
     model = _model(arch, smoke, dtype, n_layers, device)
     dmesh = device_mesh(mesh, NAMES, device)
     b, s = tokens.shape
+    s += n_prefix(model.cfg)                   # the sequence the cache holds
     max_len = max_len or s + decode
-    specs, axes = {"tokens": TensorSpec((b, s), torch.int32)}, {"tokens": ("batch", None)}
+    specs, axes = input_records(model, b, tokens.shape[1])
     prefill, (p_sh, b_sh) = make_prefill_step(model, dmesh, specs, axes)
     dparams = shard_tree(_params(model, params, seed, device), p_sh)
-    batch = shard_tree({"tokens": torch.from_numpy(tokens).to(device)}, b_sh)
+    batch = shard_tree(batch_of({"tokens": tokens, **(inputs or {})}, specs, device), b_sh)
     with rep.phase("prefill"):
         if profile:
             run = lambda: prefill(dparams, batch, max_len=max_len)      # noqa: E731
@@ -361,20 +411,22 @@ def train_loop_job(world, device, *, arch: str, mesh: tuple, directory: str, ste
     ``directory``/full), and ``stop`` steps then a second loop to ``steps``
     that resumes through ``shardings=`` (in ``directory``/resumed) from
     parameters it was not given.  Batch ``i`` is the tokens of
-    ``numpy.random.default_rng(i)``.  Reports both runs' final parameters
-    and metrics."""
+    ``numpy.random.default_rng(i)`` (``batch`` x ``seq``) and the model's
+    other inputs from the same seed (:func:`model_inputs`).  Reports both
+    runs' final parameters and metrics."""
     from ..runtime import TrainLoop, TrainLoopConfig
     rep = _Report(world.rank, device)
     model = _model(arch, smoke, dtype, None, device)
     dmesh = device_mesh(mesh, NAMES, device)
-    specs, axes = {"tokens": TensorSpec((batch, seq), torch.int32)}, {"tokens": ("batch", None)}
+    specs, axes = input_records(model, batch, seq)
     step, (p_sh, o_sh, b_sh), optimizer = make_train_step(
         model, dmesh, TrainConfig(microbatches=microbatches), specs, axes)
     host = _params(model, params, seed, device)
 
     def batch_fn(i):
         toks = np.random.default_rng(i).integers(0, model.cfg.vocab_size, (batch, seq))
-        return shard_tree({"tokens": torch.from_numpy(toks.astype(np.int32)).to(device)}, b_sh)
+        return shard_tree(batch_of(model_inputs(model, toks.astype(np.int32), i), specs, device),
+                          b_sh)
 
     def loop(total, start_params, sub):
         dparams = shard_tree(start_params, p_sh)
@@ -396,10 +448,13 @@ def train_loop_job(world, device, *, arch: str, mesh: tuple, directory: str, ste
     return rep.out
 
 
-def faults_job(world, device, *, mesh: tuple, nll: dict, seq: dict, product: dict,
-               flash: dict, ssd: dict) -> dict:
+def faults_job(world, device, *, mesh: tuple, nll: dict | None = None,
+               seq: dict | None = None, product: dict | None = None, flash: dict | None = None,
+               ssd: dict | None = None, embed: dict | None = None,
+               decode: dict | None = None, slstm: dict | None = None) -> dict:
     """The local-shard helpers on ``mesh`` (a 4-way ``model`` axis, so that
-    ranks 1-3 hold shards at offsets other than 0), each on numpy inputs:
+    ranks 1-3 hold shards at offsets other than 0), each given one on numpy
+    inputs:
 
     * ``nll`` {"logits", "labels"}: ``softmax_cross_entropy`` with the
       vocabulary split;
@@ -410,15 +465,22 @@ def faults_job(world, device, *, mesh: tuple, nll: dict, seq: dict, product: dic
     * ``flash`` {"q", "k", "v", "dout"}: ``flash_attention`` under autograd
       with the query heads split and the key/value heads whole;
     * ``ssd`` {"x", "dt", "A", "B", "C", "dy"}: ``ssd_scan`` under autograd
-      with the heads split and the B/C groups whole.
+      with the heads split and the B/C groups whole;
+    * ``embed`` {"table", "tokens", "dout"}: ``embed_lookup`` under autograd
+      with the vocabulary split (the table's rows);
+    * ``decode`` {"q", "k", "v", "kv_len"}: ``decode_attention`` over a
+      cache split along the sequence;
+    * ``slstm`` {"pre", "r_h", "dout", "nh"}: the sLSTM's training scan over
+      ``DTensor``s (``_slstm_local``; the batch split along ``data``) under
+      autograd.
 
     Reports each output and gradient, gathered."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
 
-    from ..kernels.flash.ops import flash_attention
+    from ..kernels.flash.ops import decode_attention, flash_attention
     from ..kernels.ssd.ops import ssd_scan
-    from ..models.common import softmax_cross_entropy, whole_product, write_seq
+    from ..models.common import embed_lookup, softmax_cross_entropy, whole_product, write_seq
     rep = _Report(world.rank, device)
     dmesh = device_mesh(mesh, NAMES, device)
     rep.out["model_rank"] = dmesh.get_local_rank(1)
@@ -430,37 +492,67 @@ def faults_job(world, device, *, mesh: tuple, nll: dict, seq: dict, product: dic
 
     rep_, model_shard = Replicate(), lambda d: Shard(d)
     with implicit_replication():
-        logits = put(nll["logits"], rep_, model_shard(2))
-        rep.put("nll/loss", softmax_cross_entropy(logits, put(nll["labels"])))
+        if nll is not None:
+            logits = put(nll["logits"], rep_, model_shard(2))
+            rep.put("nll/loss", softmax_cross_entropy(logits, put(nll["labels"])))
 
-        cache = put(seq["cache"], rep_, model_shard(1))
-        write_seq(cache, int(seq["start"]), put(seq["val"]))
-        rep.put("seq/cache", cache)
+        if seq is not None:
+            cache = put(seq["cache"], rep_, model_shard(1))
+            write_seq(cache, int(seq["start"]), put(seq["val"]))
+            rep.put("seq/cache", cache)
 
-        x, w = put(product["x"], grad=True), put(product["w"], grad=True)
-        y = whole_product(x, w)
-        torch.autograd.backward(y.square().sum())
-        rep.put("product/y", y)
-        rep.put("product/dx", x.grad)
-        rep.put("product/dw", w.grad)
+        if product is not None:
+            x, w = put(product["x"], grad=True), put(product["w"], grad=True)
+            y = whole_product(x, w)
+            torch.autograd.backward(y.square().sum())
+            rep.put("product/y", y)
+            rep.put("product/dx", x.grad)
+            rep.put("product/dw", w.grad)
 
-        q = put(flash["q"], rep_, model_shard(1), grad=True)
-        k, v = put(flash["k"], grad=True), put(flash["v"], grad=True)
-        out = flash_attention(q, k, v, causal=True)
-        torch.autograd.backward(out, put(flash["dout"], rep_, model_shard(1)))
-        rep.put("flash/out", out)
-        for name, t in (("dq", q), ("dk", k), ("dv", v)):
-            rep.put(f"flash/{name}", t.grad)
+        if flash is not None:
+            q = put(flash["q"], rep_, model_shard(1), grad=True)
+            k, v = put(flash["k"], grad=True), put(flash["v"], grad=True)
+            out = flash_attention(q, k, v, causal=True)
+            torch.autograd.backward(out, put(flash["dout"], rep_, model_shard(1)))
+            rep.put("flash/out", out)
+            for name, t in (("dq", q), ("dk", k), ("dv", v)):
+                rep.put(f"flash/{name}", t.grad)
 
-        xs = put(ssd["x"], rep_, model_shard(2), grad=True)
-        dts = put(ssd["dt"], rep_, model_shard(2), grad=True)
-        A, Bm, Cm = (put(ssd[n], grad=True) for n in ("A", "B", "C"))
-        y, h = ssd_scan(xs, dts, A, Bm, Cm, chunk=int(ssd["chunk"]))
-        torch.autograd.backward(y, put(ssd["dy"], rep_, model_shard(2)))
-        rep.put("ssd/y", y)
-        rep.put("ssd/h", h)
-        for name, t in (("dx", xs), ("ddt", dts), ("dA", A), ("dB", Bm), ("dC", Cm)):
-            rep.put(f"ssd/{name}", t.grad)
+        if ssd is not None:
+            xs = put(ssd["x"], rep_, model_shard(2), grad=True)
+            dts = put(ssd["dt"], rep_, model_shard(2), grad=True)
+            A, Bm, Cm = (put(ssd[n], grad=True) for n in ("A", "B", "C"))
+            y, h = ssd_scan(xs, dts, A, Bm, Cm, chunk=int(ssd["chunk"]))
+            torch.autograd.backward(y, put(ssd["dy"], rep_, model_shard(2)))
+            rep.put("ssd/y", y)
+            rep.put("ssd/h", h)
+            for name, t in (("dx", xs), ("ddt", dts), ("dA", A), ("dB", Bm), ("dC", Cm)):
+                rep.put(f"ssd/{name}", t.grad)
+
+        if embed is not None:
+            table = put(embed["table"], rep_, model_shard(0), grad=True)
+            out = embed_lookup(table, put(embed["tokens"]))
+            torch.autograd.backward(out, put(embed["dout"]))
+            rep.put("embed/out", out)
+            rep.put("embed/dtable", table.grad)
+
+        if decode is not None:
+            q = put(decode["q"])
+            k, v = (put(decode[n], rep_, model_shard(2)) for n in ("k", "v"))
+            rep.put("decode/out", decode_attention(q, k, v, int(decode["kv_len"])))
+
+        if slstm is not None:
+            from types import SimpleNamespace
+
+            from ..models.ssm import _slstm_local
+            cfg = SimpleNamespace(n_heads=int(slstm["nh"]), d_model=slstm["pre"].shape[-1] // 4)
+            pre = put(slstm["pre"], Shard(0), grad=True)
+            r_h = put(slstm["r_h"], grad=True)
+            hs, _ = _slstm_local({"r_h": r_h}, cfg, pre, "train")
+            torch.autograd.backward(hs, put(slstm["dout"], Shard(0)))
+            rep.put("slstm/hs", hs)
+            rep.put("slstm/dpre", pre.grad)
+            rep.put("slstm/dr_h", r_h.grad)
 
     return rep.out
 
@@ -472,6 +564,15 @@ JOBS = {"steps": steps_job, "train_loop": train_loop_job, "collectives": collect
 def run_jobs(world, device, jobs: list) -> list:
     """The spawnable body: every job of ``jobs`` (dicts with a ``"kind"``
     of :data:`JOBS` and that function's keyword arguments) on this rank,
-    in order."""
-    return [JOBS[job["kind"]](world, device, **{k: v for k, v in job.items() if k != "kind"})
-            for job in jobs]
+    in order, each result with its host-clock seconds as ``"job_s"``.  On
+    the card each job's cached blocks go back to the card after it, for
+    the ranks that share it."""
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        out.append(JOBS[job["kind"]](world, device,
+                                     **{k: v for k, v in job.items() if k != "kind"}))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out[-1]["job_s"] = round(time.perf_counter() - t0, 1)
+    return out

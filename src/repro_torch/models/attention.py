@@ -30,8 +30,9 @@ import torch
 
 from ..kernels.flash import ops as flash_ops
 from . import flags
-from .common import (Init, apply_rotary, column_sharded_product, constrain, dtype_of, rms_norm,
-                     rotary_embedding, whole_heads, whole_product, write_seq)
+from .common import (Init, apply_rotary, column_sharded_product, constrain, dtype_of,
+                     flat_heads, rms_norm, rotary_embedding, whole_heads, whole_product,
+                     write_seq)
 
 __all__ = ["init_gqa", "gqa_axes", "gqa_forward", "init_gqa_cache", "gqa_cache_axes",
            "init_mla", "mla_axes", "init_mla_cache", "mla_cache_axes", "mla_forward"]
@@ -110,8 +111,7 @@ def _project(x, w, heads: int, dh: int, whole: bool = False):
 
 def _out(p, out):
     """(B, S, H, Dv) heads through ``wo`` -> (B, S, d)."""
-    b, s = out.shape[:2]
-    out = out.reshape(b, s, -1)
+    out = flat_heads(out)
     return out @ p["wo"].reshape(out.shape[-1], -1)
 
 

@@ -21,7 +21,7 @@ from ..kernels.sharded import shard_offset
 __all__ = ["DTYPES", "dtype_of", "Init", "KeyStream", "Annotated", "param", "split_annotated",
            "lift_layers", "TensorSpec", "constrain", "distribute_tree", "write_seq",
            "embed_lookup", "column_sharded_product", "whole_product", "whole_heads",
-           "on_local_shards",
+           "flat_heads", "on_local_shards",
            "rms_norm", "layer_norm", "rotary_embedding", "apply_rotary", "softmax_cross_entropy"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -256,6 +256,29 @@ def whole_heads(y, heads: int):
     pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == last and heads % size else p
                for size, p in zip(y.device_mesh.shape, y.placements))
     return y if pl == tuple(y.placements) else y.redistribute(y.device_mesh, pl)
+
+
+def flat_heads(x):
+    """``x`` (..., heads, head_dim) with its last two dims packed into one.
+    On a ``DTensor`` the gradient is gathered along every mesh axis that
+    splits the packed dim other than at head boundaries (a product with a
+    weight whose rows split it, where the ``model`` axis does not divide
+    the heads), so that it unflattens: the transpose of
+    :func:`whole_heads`."""
+    if not hasattr(x, "device_mesh"):
+        return x.reshape(*x.shape[:-2], -1)
+    return _FlatHeads.apply(x)
+
+
+class _FlatHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_heads(g, ctx.shape[-2]).reshape(ctx.shape)
 
 
 def whole_product(x, w):

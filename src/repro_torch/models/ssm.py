@@ -30,7 +30,8 @@ from torch.autograd.function import once_differentiable
 
 from .. import trace_hooks
 from ..kernels.ssd import ops as ssd_ops
-from .common import Init, _from_local, constrain, dtype_of, on_local_shards, rms_norm
+from .common import (Init, _from_local, constrain, dtype_of, flat_heads, on_local_shards,
+                     rms_norm)
 
 __all__ = ["init_mamba2", "mamba2_axes", "mamba2_forward", "init_mamba2_cache",
            "mamba2_cache_axes", "init_mlstm", "mlstm_axes", "mlstm_forward", "init_mlstm_cache",
@@ -190,8 +191,13 @@ def mlstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     (S == 1) steps the memory in ``cache``.  Returns (out, new_cache)."""
     d_inner, nh, ph = _mlstm_dims(cfg)
     b, s, _ = x.shape
-    up = x @ p["up"]
+    # under DTensor, up, x_in and their gradients keep their columns split
+    # over ``model``: the slice between x_in and z gathers them, and without
+    # these pins every rank would compute the weight gradients of up, wq,
+    # wk, wv and w_gates whole
+    up = constrain(x @ p["up"], ("batch", "act_seq", "act_mlp"))
     x_in, z = up[..., :d_inner], up[..., d_inner:]
+    x_in = constrain(x_in, ("batch", "act_seq", "act_mlp"))
     q = (x_in @ p["wq"]).reshape(b, s, nh, ph)
     k = (x_in @ p["wk"]).reshape(b, s, nh, ph) * ph ** -0.5
     v = (x_in @ p["wv"]).reshape(b, s, nh, ph)
@@ -205,22 +211,23 @@ def mlstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
         C_new = fg[..., None, None] * cache["C"] + ig[..., None, None] * (
             kf[..., :, None] * vf[..., None, :])
         n_new = fg[..., None] * cache["n"] + ig[..., None] * kf
-        num = torch.einsum("bhk,bhkp->bhp", qf, C_new)
-        den = torch.einsum("bhk,bhk->bh", qf, n_new).abs().clamp_min(1.0)
+        num = on_local_shards(lambda q_, c_: torch.einsum("bhk,bhkp->bhp", q_, c_), qf, C_new)
+        den = on_local_shards(lambda q_, n_: torch.einsum("bhk,bhk->bh", q_, n_), qf,
+                              n_new).abs().clamp_min(1.0)
         y = (num / den[..., None])[:, None]
         new_cache = {"C": C_new, "n": n_new}
     elif mode in ("prefill", "train"):
         dtv = -torch.log(f_g.clamp(1e-6, 1 - 1e-6))
         A = torch.ones((nh,), dtype=torch.float32, device=x.device)
         y_num, C_fin = ssd_ops.ssd_scan(v, dtv, A, k, q, chunk=cfg.ssm.chunk, in_scale=i_g)
-        ones = torch.ones((b, s, nh, 1), dtype=v.dtype, device=x.device)
+        ones = torch.ones_like(dtv[..., None], dtype=v.dtype)   # dtv's shards under DTensor
         y_den, n_fin = ssd_ops.ssd_scan(ones, dtv, A, k, q, chunk=cfg.ssm.chunk, in_scale=i_g)
         den = y_den[..., 0].float().abs().clamp_min(1.0)
         y = y_num.float() / den[..., None]
         new_cache = {"C": C_fin, "n": n_fin[..., 0]} if mode == "prefill" else None
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    y = y.reshape(b, s, d_inner).to(x.dtype)
+    y = flat_heads(y).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm_w"], cfg.norm_eps)
     return y @ p["down"], new_cache
 
@@ -301,17 +308,17 @@ class SlstmScan(torch.autograd.Function):
     gradient is one ``einsum`` over the whole history."""
 
     @staticmethod
-    def forward(ctx, pre, r_h, nh: int, traced: bool = False):
+    def forward(ctx, pre, r_h, nh: int):
         b, s = pre.shape[:2]
         dh = pre.shape[-1] // (4 * nh)
         c = torch.zeros((s + 1, b, nh, dh), dtype=torch.float32, device=pre.device)
         n, h = torch.zeros_like(c), torch.zeros_like(c)
         m = torch.zeros((s + 1, b, nh), dtype=torch.float32, device=pre.device)
-        for t in _time_steps(s, False, traced):
+        for t in _time_steps(s, reverse=False):
             c[t + 1], n[t + 1], h[t + 1], m[t + 1] = _cell_math(
                 pre[:, t], c[t], n[t], h[t], m[t], r_h, nh, dh)
         ctx.save_for_backward(pre, r_h, c, n, h, m)
-        ctx.nh, ctx.traced = nh, traced
+        ctx.nh = nh
         return h[1:].transpose(0, 1).contiguous()
 
     @staticmethod
@@ -325,7 +332,7 @@ class SlstmScan(torch.autograd.Function):
         dn, dh_carry = torch.zeros_like(dc), torch.zeros_like(dc)
         dpres = torch.empty((s, b, nh, 4 * dh), dtype=torch.float32, device=pre.device)
         dhs = dhs.float()
-        for t in _time_steps(s, True, ctx.traced):
+        for t in _time_steps(s, reverse=True):
             cp, np_, hp, mp = c[t], n[t], h[t], m[t]
             cn, nn, mn = c[t + 1], n[t + 1], m[t + 1]
             pre_t = pre[:, t].reshape(b, nh, 4 * dh).float() + torch.einsum("bhd,hdf->bhf", hp, r_h)
@@ -348,38 +355,41 @@ class SlstmScan(torch.autograd.Function):
             dh_carry = torch.einsum("bhf,hdf->bhd", dpre, r_h)
             dc, dn = dc_t * f_s[..., None], dn_t * f_s[..., None]
         dr_h = torch.einsum("sbhd,sbhf->hdf", h[:-1], dpres)
-        return dpres.transpose(0, 1).reshape(pre.shape).to(pre.dtype), dr_h, None, None
+        return dpres.transpose(0, 1).reshape(pre.shape).to(pre.dtype), dr_h, None
 
 
-def _time_steps(s: int, reverse: bool, traced: bool):
-    """The scan's time steps; ``traced``: the trace's loop (the dry run
-    traces one step and counts it ``s`` times, as the reference's analyzer
-    multiplies a scan body)."""
-    if traced:
-        return trace_hooks.loop("slstm.time", s)
-    return reversed(range(s)) if reverse else range(s)
+def _time_steps(s: int, reverse: bool):
+    """The scan's ``s`` time steps, last to first with ``reverse``, as the
+    trace's loop (:func:`repro_torch.trace_hooks.loop`: ``range`` outside a
+    trace; the dry run traces one step and counts it ``s`` times, as the
+    reference's analyzer multiplies a scan body)."""
+    steps = trace_hooks.loop("slstm.time", s)
+    return (s - 1 - t for t in steps) if reverse else steps
 
 
-def slstm_scan(pre, r_h, nh: int, traced: bool = False):
+def slstm_scan(pre, r_h, nh: int):
     """The sLSTM's training scan through :class:`SlstmScan`."""
-    return SlstmScan.apply(pre, r_h, nh, traced)
+    return SlstmScan.apply(pre, r_h, nh)
 
 
 def _slstm_local(p, cfg, pre, mode: str):
-    """The sLSTM's time loop over ``DTensor``s (the dry run's sharded
-    trace): each device runs it on its local rows (the batch split as
-    ``pre``'s, every head whole), its loop traced as one step counted S
-    times.  Returns (y (B, S, nh, dh) float32, prefill's final state or
+    """The sLSTM's time loop over ``DTensor``s (real ranks, or the dry
+    run's sharded trace): each device runs it on its local rows (the batch
+    split as ``pre``'s, every head whole); a trace counts one step S times.
+    Returns (y (B, S, nh, dh) float32, prefill's final state or
     None)."""
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh, nh = pre.device_mesh, cfg.n_heads
     dh = cfg.d_model // nh
     pl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate() for q in pre.placements)
     pre_l = pre.redistribute(mesh, pl).to_local()
-    r_h = p["r_h"].redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()
+    # each rank's recurrent-weight gradient sums its own rows only: a partial
+    # sum along the axes that split the batch
+    r_h = p["r_h"].redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
+        grad_placements=tuple(Partial() if isinstance(q, Shard) else q for q in pl))
     b_l, s = pre_l.shape[:2]
     if mode == "train":
-        hs = slstm_scan(pre_l, r_h, nh, traced=True)
+        hs = slstm_scan(pre_l, r_h, nh)
         return _from_local(hs, mesh, pl, (pre.shape[0], s, nh, dh)), None
     state = init_slstm_cache(Init(pre_l.device), cfg, b_l)
     hs = pre_l.new_empty((b_l, s, nh, dh), dtype=torch.float32)
@@ -399,7 +409,7 @@ def slstm_forward(p, cfg, x, *, mode: str = "prefill", cache=None):
     pre = x @ p["w_x"] + p["b"].to(x.dtype)
     if mode != "decode" and hasattr(pre, "device_mesh"):
         y, new_cache = _slstm_local(p, cfg, pre, mode)
-        y = y.reshape(b, s, d)
+        y = flat_heads(y)
     elif mode == "decode":
         new_cache = _slstm_cell(p, cfg, pre[:, 0], cache)
         y = new_cache["h"].reshape(b, 1, d)

@@ -18,7 +18,8 @@ import torch
 
 from .. import trace_hooks
 from . import blocks
-from .common import Init, distribute_tree, dtype_of, lift_layers, rms_norm, softmax_cross_entropy
+from .common import (Init, distribute_tree, dtype_of, embed_lookup, lift_layers, rms_norm,
+                     softmax_cross_entropy)
 from .lm import _layer, _store
 
 __all__ = ["init_whisper", "whisper_axes", "init_whisper_cache", "whisper_cache_axes",
@@ -84,7 +85,7 @@ def whisper_loss(params, cfg, batch):
     device = params["embed"].device
     tokens = batch["tokens"].to(device)
     enc_out = _encode(params, cfg, batch["audio_embed"].to(device))
-    x = _decode_stack(params, cfg, params["embed"][tokens],
+    x = _decode_stack(params, cfg, embed_lookup(params["embed"], tokens),
                       torch.arange(tokens.shape[1], device=device), enc_out, mode="train",
                       cache=None, kv_len=None)
     return softmax_cross_entropy(x[:, :-1, :] @ params["embed"].T, tokens[:, 1:])
@@ -101,8 +102,9 @@ def whisper_prefill(params, cfg, batch, *, max_len: int | None = None):
     b, s = tokens.shape
     cache = distribute_tree(lambda init: init_whisper_cache(init, cfg, b, max(max_len or s, s)),
                             whisper_cache_axes(cfg), params["embed"])
-    x = _decode_stack(params, cfg, params["embed"][tokens], torch.arange(s, device=device),
-                      enc_out, mode="prefill", cache=cache, kv_len=None)
+    x = _decode_stack(params, cfg, embed_lookup(params["embed"], tokens),
+                      torch.arange(s, device=device), enc_out, mode="prefill", cache=cache,
+                      kv_len=None)
     return x[:, -1:, :] @ params["embed"].T, cache
 
 
@@ -111,6 +113,6 @@ def whisper_decode_step(params, cfg, token, cache, kv_len: int):
     step into ``cache``.  Returns (logits (B, 1, V), cache)."""
     token = token.to(params["embed"].device)
     positions = torch.arange(1, device=token.device) + int(kv_len)
-    x = _decode_stack(params, cfg, params["embed"][token], positions, None, mode="decode",
-                      cache=cache, kv_len=int(kv_len))
+    x = _decode_stack(params, cfg, embed_lookup(params["embed"], token), positions, None,
+                      mode="decode", cache=cache, kv_len=int(kv_len))
     return x @ params["embed"].T, cache

@@ -38,8 +38,6 @@ heads on 2 B/C groups, and its shared attention), float32, with the port's
 from __future__ import annotations
 
 import concurrent.futures
-import hashlib
-import json
 from pathlib import Path
 
 import jax
@@ -47,19 +45,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_ranks import (B, DECODE, GOLDEN, S, TOL_LEAF, TOL_LOSS, cell_id,
+                          check_gradients, check_prefill_and_decode, check_replicated,
+                          check_train_step, flat, params, params_sha256, reference, single,
+                          within)
 
 from repro.checkpoint import load_pytree as jax_load_pytree
-from repro.configs import TrainConfig as JaxTrainConfig
-from repro.configs import get_smoke_config as jax_get_smoke_config
-from repro.launch import steps as jax_steps
-from repro.models.model import build_model as jax_build_model
-from repro_torch import optim
-from repro_torch.configs import TrainConfig, get_smoke_config
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.kernels.ssd.ops import ssd_scan
-from repro_torch.launch import make_optimizer, make_train_fn, named_leaves, ranks, value_and_grad
+from repro_torch.launch import ranks
 from repro_torch.models.common import softmax_cross_entropy
-from repro_torch.models.model import build_model
 from repro_torch.parallel.data import run_ranks
 
 torch.set_num_threads(1)
@@ -67,37 +62,11 @@ torch.set_num_threads(1)
 ARCHS = ("internlm2-1.8b", "zamba2-7b")
 WORLDS = {8: ((2, 4), (4, 2)), 4: ((2, 2), (1, 4), (4, 1))}
 CELLS = [(m, a) for n in WORLDS for m in WORLDS[n] for a in ARCHS]
-B, S, MAX_LEN, DECODE = 8, 16, 24, 3
-TOL_STEP = 1e-5          # logits, cache: x max(1, |x|)
-TOL_LOSS = 1e-5          # relative
-TOL_LEAF = 1e-4          # x max(1, max|x|)
-GOLDEN = json.loads((Path(__file__).parent / "golden" / "torch_sharded_steps.json").read_text())
-
-
-def _id(cell) -> str:
-    (d, m), arch = cell
-    return f"{d}x{m}-{arch}"
+MAX_LEN = 24             # a cache the 4-way model axis splits along the sequence
 
 
 def _tokens() -> np.ndarray:
     return np.random.default_rng(0).integers(0, 256, (B, S)).astype(np.int32)
-
-
-def _params(arch: str) -> dict:
-    model = build_model(get_smoke_config(arch).scaled(dtype="float32"), device="cpu")
-    return optim.tree_map(lambda t: t.numpy(), model.init_params(seed=0, host=True))
-
-
-def _flat(tree) -> dict:
-    return {name: np.asarray(v) for name, v in named_leaves(tree)}
-
-
-def _within(got, want, tol, what, rel_to_max=True):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    assert got.shape == want.shape, (what, got.shape, want.shape)
-    scale = max(1.0, float(np.abs(want).max())) if rel_to_max else 1.0
-    err = float(np.abs(got - want).max()) if got.size else 0.0
-    assert err <= tol * scale, f"{what}: max error {err:.3g} > {tol * scale:.3g}"
 
 
 # ----------------------------------------------------------------- inputs
@@ -144,65 +113,17 @@ def _jobs(n: int, params: dict, tokens: np.ndarray, tmp: Path) -> list:
     return jobs
 
 
-# ------------------------------------------------------------ single process
-def _single(arch: str, params: dict, tokens: np.ndarray) -> dict:
-    """The port in this process: prefill, greedy decode, value_and_grad and
-    one train step."""
-    from repro_torch.models.lm import params_from_numpy
-    cfg = get_smoke_config(arch).scaled(dtype="float32")
-    model = build_model(cfg, device="cpu")
-    p = params_from_numpy(cfg, params, "cpu")
-    batch = {"tokens": torch.from_numpy(tokens)}
-    out = {}
-    logits, cache = model.prefill(p, batch, max_len=MAX_LEN)
-    out["prefill/logits"] = logits.numpy()
-    out.update({f"prefill/cache/{k}": v.numpy().copy() for k, v in named_leaves(cache)})
-    for i in range(DECODE):
-        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        out[f"decode/{i}/token"] = tok.numpy()
-        logits, cache = model.decode_step(p, tok, cache, S + i)
-        out[f"decode/{i}/logits"] = logits.numpy()
-    out.update({f"decode/cache/{k}": v.numpy() for k, v in named_leaves(cache)})
-    loss, grads = value_and_grad(model.loss, p, batch)
-    out["grads/loss"] = loss.numpy()
-    out.update({f"grads/{k}": v.numpy() for k, v in named_leaves(grads)})
-    tcfg = TrainConfig(microbatches=2)
-    opt = make_optimizer(tcfg)
-    new, _, m = make_train_fn(model, tcfg, opt)(p, opt.init(p), batch)
-    out["train/0/loss"], out["train/0/grad_norm"] = m["loss"].numpy(), m["grad_norm"].numpy()
-    out.update({f"train/params/{k}": v.numpy() for k, v in named_leaves(new)})
-    return out
-
-
-def _reference(arch: str, params: dict, tokens: np.ndarray) -> dict:
-    """The JAX package on one device: ``jax.value_and_grad`` of its loss and
-    one step of its ``make_train_fn``."""
-    jcfg = jax_get_smoke_config(arch).scaled(dtype="float32")
-    jm = jax_build_model(jcfg, remat=False, attn_impl="chunked", ssd_impl="chunked")
-    jp = jax.tree.map(jnp.asarray, params)
-    batch = {"tokens": jnp.asarray(tokens)}
-    loss, grads = jax.value_and_grad(jm.loss)(jp, batch)
-    tcfg = JaxTrainConfig(microbatches=2)
-    opt = jax_steps.make_optimizer(tcfg)
-    new, _, m = jax.jit(jax_steps.make_train_fn(jm, tcfg, opt))(jp, opt.init(jp), batch)
-    out = {"grads/loss": np.asarray(loss), "train/0/loss": np.asarray(m["loss"]),
-           "train/0/grad_norm": np.asarray(m["grad_norm"])}
-    out.update({f"grads/{k}": np.asarray(v) for k, v in _flat(grads).items()})
-    out.update({f"train/params/{k}": np.asarray(v) for k, v in _flat(new).items()})
-    return out
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
-    params = {arch: _params(arch) for arch in ARCHS}
+    prm = {arch: params(arch) for arch in ARCHS}
     tokens = _tokens()
     with concurrent.futures.ThreadPoolExecutor(len(WORLDS)) as pool:
         worlds = {n: pool.submit(run_ranks, ranks.run_jobs, n, backend="gloo", device="cpu",
-                                 timeout_s=600, args=(_jobs(n, params, tokens, tmp),))
+                                 timeout_s=600, args=(_jobs(n, prm, tokens, tmp),))
                   for n in WORLDS}
-        single = {arch: _single(arch, params[arch], tokens) for arch in ARCHS}
-        ref = {arch: _reference(arch, params[arch], tokens) for arch in ARCHS}
+        single_ = {arch: single(arch, prm[arch], {"tokens": tokens}, MAX_LEN) for arch in ARCHS}
+        ref = {arch: reference(arch, prm[arch], {"tokens": tokens}) for arch in ARCHS}
         results = {n: f.result() for n, f in worlds.items()}
     by_cell = {}
     for n, per_rank in results.items():
@@ -210,71 +131,36 @@ def runs(tmp_path_factory):
             by_cell[cell] = [r[j] for r in per_rank]
     extra = {name: [r[len(WORLDS[4]) * len(ARCHS) + i] for r in results[4]]
              for i, name in enumerate(("train_loop", "faults", "collectives"))}
-    return {"cells": by_cell, "single": single, "ref": ref, "params": params, "tmp": tmp,
+    return {"cells": by_cell, "single": single_, "ref": ref, "params": prm, "tmp": tmp,
             **extra}
 
 
 # ------------------------------------------------------------ the steps
-@pytest.mark.parametrize("cell", CELLS, ids=_id)
+@pytest.mark.parametrize("cell", CELLS, ids=cell_id)
 def test_prefill_and_decode_match_single_process(runs, cell):
-    got, want = runs["cells"][cell][0], runs["single"][cell[1]]
-    assert got["cache_at_shardings"]
-    keys = [k for k in want if k.startswith(("prefill/", "decode/"))]
-    assert len(keys) > 2 * DECODE + 2
-    for k in keys:
-        if k.endswith("/token"):
-            assert np.array_equal(got["arrays"][k], want[k]), k
-        else:
-            _within(got["arrays"][k], want[k], TOL_STEP, k)
+    check_prefill_and_decode(runs, cell)
 
 
-@pytest.mark.parametrize("cell", CELLS, ids=_id)
+@pytest.mark.parametrize("cell", CELLS, ids=cell_id)
 def test_gradients_match_single_process_and_reference(runs, cell):
-    got = runs["cells"][cell][0]["arrays"]
-    for want in (runs["single"][cell[1]], runs["ref"][cell[1]]):
-        assert float(got["grads/loss"]) == pytest.approx(float(want["grads/loss"]), rel=TOL_LOSS)
-        names = [k for k in want if k.startswith("grads/") and k != "grads/loss"]
-        assert names and set(names) == {k for k in got if k.startswith("grads/")} - {"grads/loss"}
-        for k in names:
-            _within(got[k], want[k], TOL_LEAF, k)
-            assert np.abs(got[k]).max() > 0, f"{k}: zero gradient"
+    check_gradients(runs, cell)
 
 
-@pytest.mark.parametrize("cell", CELLS, ids=_id)
+@pytest.mark.parametrize("cell", CELLS, ids=cell_id)
 def test_train_step_matches_single_process_and_reference(runs, cell):
-    res = runs["cells"][cell][0]
-    got = res["arrays"]
-    assert res["train_at_shardings"]
-    for want in (runs["single"][cell[1]], runs["ref"][cell[1]]):
-        for k in ("train/0/loss", "train/0/grad_norm"):
-            assert float(got[k]) == pytest.approx(float(want[k]), rel=TOL_LOSS), k
-        names = [k for k in want if k.startswith("train/params/")]
-        assert len(names) == len(res["train_leaf_names"])
-        for k in names:
-            _within(got[k], want[k], TOL_LEAF, k)
+    check_train_step(runs, cell)
 
 
-@pytest.mark.parametrize("cell", CELLS, ids=_id)
+@pytest.mark.parametrize("cell", CELLS, ids=cell_id)
 def test_replicated_values_bit_equal_across_ranks(runs, cell):
-    per_rank = runs["cells"][cell]
-    assert [r["rank"] for r in per_rank] == list(range(len(per_rank)))
-    want = per_rank[0]["digests"]
-    assert any(k.startswith("train/") for k in want) and any(k.startswith("decode/") for k in want)
-    for r in per_rank[1:]:
-        diff = [k for k in want if r["digests"].get(k) != want[k]]
-        assert not diff, f"rank {r['rank']} differs from rank 0 in {diff[:5]}"
+    check_replicated(runs, cell)
 
 
 def test_reference_sharded_steps_golden(runs):
     """The (2, 4) world against the reference's own jitted sharded step."""
     res = runs["cells"][((2, 4), GOLDEN["arch"])][0]
     got = res["arrays"]
-    flat = _flat(runs["params"][GOLDEN["arch"]])
-    h = hashlib.sha256()
-    for name in sorted(flat):
-        h.update(name.encode())
-        h.update(np.ascontiguousarray(flat[name]).tobytes())
-    assert h.hexdigest() == GOLDEN["params_sha256"]
+    assert params_sha256(runs["params"][GOLDEN["arch"]]) == GOLDEN["params_sha256"]
     assert GOLDEN["wq_shards"] == 8 and GOLDEN["devices"] == 8
     for i, step in enumerate(GOLDEN["steps"]):
         assert float(got[f"train/{i}/step"]) == step["step"]
@@ -284,7 +170,7 @@ def test_reference_sharded_steps_golden(runs):
         norms = dict(zip(res["train_leaf_names"], got[f"train/{i}/leaf_norms"]))
         assert set(norms) == set(step["leaf_norms"])
         for name, want in step["leaf_norms"].items():
-            _within(norms[name], want, TOL_LEAF, f"step {i} {name}")
+            within(norms[name], want, TOL_LEAF, f"step {i} {name}")
 
 
 # ------------------------------------------------------------ faults 1-5
@@ -296,7 +182,7 @@ def test_fault1_vocab_split_loss_on_ranks_1_to_3(runs):
     nll = _fault_inputs()["nll"]
     assert nll["labels"].min() >= 4            # no label in rank 0's rows
     want = softmax_cross_entropy(torch.from_numpy(nll["logits"]), torch.from_numpy(nll["labels"]))
-    _within(faults[0]["arrays"]["nll/loss"], want.numpy(), 1e-6, "nll/loss")
+    within(faults[0]["arrays"]["nll/loss"], want.numpy(), 1e-6, "nll/loss")
     for arch in ARCHS:
         got = runs["cells"][((1, 4), arch)][0]["arrays"]
         assert float(got["grads/loss"]) == pytest.approx(
@@ -319,7 +205,7 @@ def test_fault3_whole_product_backward_takes_each_ranks_columns(runs):
     y.square().sum().backward()
     got = runs["faults"][0]["arrays"]
     for name, want in (("y", y.detach()), ("dx", x.grad), ("dw", w.grad)):
-        _within(got[f"product/{name}"], want.numpy(), 1e-5, name)
+        within(got[f"product/{name}"], want.numpy(), 1e-5, name)
 
 
 def test_fault4_flash_backward_reads_each_ranks_kv_heads(runs):
@@ -328,9 +214,9 @@ def test_fault4_flash_backward_reads_each_ranks_kv_heads(runs):
     out = flash_attention(q, k, v, causal=True)
     out.backward(inp["dout"])
     got = runs["faults"][0]["arrays"]
-    _within(got["flash/out"], out.detach().numpy(), 1e-5, "out")
+    within(got["flash/out"], out.detach().numpy(), 1e-5, "out")
     for name, t in (("dq", q), ("dk", k), ("dv", v)):
-        _within(got[f"flash/{name}"], t.grad.numpy(), 1e-5, name)
+        within(got[f"flash/{name}"], t.grad.numpy(), 1e-5, name)
 
 
 def test_fault5_ssd_backward_reads_each_ranks_groups(runs):
@@ -340,10 +226,10 @@ def test_fault5_ssd_backward_reads_each_ranks_groups(runs):
     y, h = ssd_scan(t["x"], t["dt"], t["A"], t["B"], t["C"], chunk=inp["chunk"])
     y.backward(t["dy"])
     got = runs["faults"][0]["arrays"]
-    _within(got["ssd/y"], y.detach().numpy(), 1e-5, "y")
-    _within(got["ssd/h"], h.detach().numpy(), 1e-5, "h")
+    within(got["ssd/y"], y.detach().numpy(), 1e-5, "y")
+    within(got["ssd/h"], h.detach().numpy(), 1e-5, "h")
     for name, key in (("dx", "x"), ("ddt", "dt"), ("dA", "A"), ("dB", "B"), ("dC", "C")):
-        _within(got[f"ssd/{name}"], t[key].grad.numpy(), 1e-5, name)
+        within(got[f"ssd/{name}"], t[key].grad.numpy(), 1e-5, name)
 
 
 def test_functional_collectives_and_the_shared_card_all_gather(runs):
@@ -374,7 +260,7 @@ def test_checkpoint_saved_on_2x4_restores_onto_4x2(runs):
     params = jax.tree.map(jnp.asarray, runs["params"][arch])
     target = {"params": params,
               "opt_state": {"0": jnp.zeros((), jnp.int32), "1": params, "2": params}}
-    jtree = _flat(jax_load_pytree(step_dir, target))
+    jtree = flat(jax_load_pytree(step_dir, target))
     assert set(jtree) == set(restored)
     for name, arr in jtree.items():
         np.testing.assert_array_equal(np.asarray(arr), restored[name], err_msg=name)
