@@ -113,9 +113,9 @@ Run from the repository root:  python3 chip_smoke.py
    whisper-tiny (4 + 4 layers, d_model 384, bf16; B = 2, 1500 frames, 64
    prompt tokens, max_len 80) with 12 flash launches a prefill (4 encoder,
    non-causal; 4 decoder self, causal; 4 cross, non-causal), all of them the
-   bf16 template by profiler name; xlstm-350m (full width, 8 of 24 layers
+   bf16 template by profiler name; xlstm-350m (full width, 2 of 24 layers
    "xs" by the script's clock, d_model 1024, bf16; B = 2, 1024 prompt
-   tokens) with 8 SSD launches a prefill (4 mLSTM layers: the numerator at
+   tokens) with 2 SSD launches a prefill (1 mLSTM layer: the numerator at
    N = P = 512, the normalizer at P = 1, both
    ssd_scan_tiled_bf16_kernel by profiler name, in the xs unit's split and in
    item 17's timing, and never ssd_scan_tiled_kernel); 16 greedy decode steps
@@ -144,8 +144,8 @@ Run from the repository root:  python3 chip_smoke.py
    weights, the launch counters reset just before and read just after each:
    whisper-tiny (bf16, B = 8, 1500 zero frames, 128 tokens, 6 steps; 12 B3
    launches a microbatch forward, flash_fwd_bf16 by profiler name) and
-   xlstm-350m (bf16, full width cut to 6 of 24 layers, B = 2, S = 256, 3
-   steps; 6 B4 launches a microbatch forward, ssd_scan_tiled_bf16_kernel by
+   xlstm-350m (bf16, full width cut to 2 of 24 layers, B = 2, S = 256, 3
+   steps; 2 B4 launches a microbatch forward, ssd_scan_tiled_bf16_kernel by
    name); each run saved halfway and
    resumed there through TrainLoop (whisper's also against an uninterrupted
    run), finite losses, every gradient leaf non-zero in the first
@@ -176,9 +176,10 @@ Run from the repository root:  python3 chip_smoke.py
 25. (after 15-17) the rest of the LM zoo served in bf16 with seeded random
    weights, one model at a time, each freed before the next, the launch
    counters reset just before and read just after each: minicpm3-4b (MLA,
-   62 layers, d_model 2560; B = 2, S = 1024), llava-next-mistral-7b (32
-   layers; B = 1, 1152 patch embeddings + 128 tokens), qwen3-14b (qk_norm,
-   40 layers; B = 2, S = 1024), each with 8 greedy decode steps, and the
+   24 of 62 layers by the script's clock, d_model 2560; B = 2, S = 1024),
+   llava-next-mistral-7b (16 of 32 layers; B = 1, 1152 patch embeddings +
+   128 tokens), qwen3-14b (qk_norm, 20 of 40 layers; B = 2, S = 1024), each
+   with 8 greedy decode steps, and the
    two MoE archs at full width cut in depth to fit the card's 80 GB,
    qwen3-moe-235b-a22b (4 of 94 layers; B = 2, S = 512) and kimi-k2-1t-a32b
    (1 of 61; B = 1, S = 512), 4 decode steps each (ZOO_ARCHS); one B3 launch
@@ -256,14 +257,22 @@ Run from the repository root:  python3 chip_smoke.py
    is held on the CPU only: one block is 19.4 G parameters);
 38. timed bf16 steps through TrainLoop (repro_torch.train_lm.make_loop,
    microbatches 2; its checkpoints counted, not written) of internlm2-1.8b
-   at its full config and minicpm3-4b at full width cut to 12 of 62 layers
-   (the card's 80 GB, the script's clock), B = 2, S = 1024, 2 steps each, the
+   at full width cut to 12 of 24 layers (the script's clock) and minicpm3-4b
+   at full width cut to 6 of 62 layers (the card's 80 GB, the script's
+   clock), B = 2, S = 1024, 2 steps each, the
    launch counters
    reset just before and read just after each: finite losses, one B3 launch
    a layer a microbatch forward, every gradient leaf non-zero in the first
    microbatch, ms a step, tokens/s and peak allocated bytes;
 39. one profiled step of each run of 38: its lm.* split, the device's idle
    share and flash_fwd_bf16 by kernel name;
+39a. activation remat (build_model(cfg, remat=...)): minicpm3-4b at 38's
+   setting before its cut (12 of 62 layers, B = 2, S = 1024, microbatches 2, the seeded
+   weights), one train step with remat off and one with it on: loss and
+   grad_norm within the zoo's bf16 bound of each other, the peak allocated
+   bytes of each, and B3's launches, the remat backward adding exactly one
+   recomputed forward a layer a microbatch (every other training phase
+   builds its model with remat=False, as the reference's LM example does);
 40. (after 39) the twin of examples/edge_pipeline_deploy.py
    (repro_torch.edge_pipeline_deploy.deploy_table) with its default agent,
    RespectScheduler.init(seed=0) at hidden 256, the launch counters reset
@@ -312,7 +321,7 @@ Run from the repository root:  python3 chip_smoke.py
    on card 0), first a probe of the functional collectives DTensor issues on
    CUDA tensors (gloo's all-gather through
    repro_torch.parallel.collectives, counted); internlm2-1.8b at full width
-   (8 of 24 layers) in bf16 on a (2, 2) (data, model) mesh: prefill B = 2,
+   (4 of 24 layers) in bf16 on a (2, 2) (data, model) mesh: prefill B = 2,
    S = 1024 and 8 decode steps fed the single process's greedy tokens, two
    train steps (microbatches 2) of a 2-layer model, the trained state saved
    on (2, 2) and restored onto (4, 1) bit for bit; one full-width float32
@@ -321,7 +330,11 @@ Run from the repository root:  python3 chip_smoke.py
    whisper-tiny (2, 2) bf16 with two train steps, an xlstm-350m xs unit on
    (1, 4) in float32 (the loss's gradients: the sLSTM's sharded backward)
    and as a bf16 prefill, qwen3-14b (2, 2) bf16 and llava-next (2, 2)
-   float32 at 2 layers with the loss's gradients; each against the
+   float32 at 2 layers with the loss's gradients, minicpm3-4b (MLA) and
+   qwen3-moe-235b-a22b (the MoE dispatch) (2, 2) bf16 at 2 layers with the
+   loss's gradients under remat (the MoE's served values against the
+   single process fed the ranks' routes, a route its own router would pick
+   otherwise a fault above the gate margin NEAR_TIE); each against the
    single-process call on the card (run first, then freed); each rank's
    B3/B4 launches by counter and by profiler name, every replicated value
    equal across ranks; B3 and B4 at the ranks' local shapes held to their
@@ -337,6 +350,7 @@ import contextlib
 import copy
 import hashlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2096,12 +2110,12 @@ INGEST_NODES = (12, 64)
 # (batch, prompt tokens, max_len) of the served runs; whisper also takes 1500 frames
 SERVED = {"whisper-tiny": (2, 64, 80), "xlstm-350m": (2, 1024, 1024 + DECODE_STEPS)}
 # layers served where the depth is cut: xlstm-350m's 1024-step sLSTM loops by the script's clock
-SERVED_LAYERS = {"xlstm-350m": 8}
+SERVED_LAYERS = {"xlstm-350m": 4}
 # launches a prefill: whisper 4 encoder + 4 decoder self + 4 cross (B3), by shape;
-# xlstm 4 mLSTM layers x (numerator P = 512, normalizer P = 1) (B4)
+# xlstm 2 mLSTM layers x (numerator P = 512, normalizer P = 1) (B4)
 SERVED_PER_PREFILL = {
     "whisper-tiny": {"flash_fwd": {"encoder": 4, "decoder self": 4, "cross": 4}},
-    "xlstm-350m": {"ssd_scan": {"numerator": 4, "normalizer": 4}},
+    "xlstm-350m": {"ssd_scan": {"numerator": 2, "normalizer": 2}},
 }
 FLASH_SRC, SSD_SRC = ("src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
                       "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu")
@@ -2349,10 +2363,12 @@ def served_models_phase(card: str) -> list[dict]:
 # The two MoE archs keep what fits the card's 80 GB in bf16 beside the
 # embedding and head: qwen3-moe 4 of 94 layers (4.8 GB of experts a layer),
 # kimi-k2 1 of 61 (33.8 GB of experts a layer).
+# (layers kept, B, text tokens, patches, decode steps); the dense archs' depth is cut
+# to half by the script's clock, the MoE archs' by the card
 ZOO_ARCHS = {
-    "minicpm3-4b": (None, 2, 1024, 0, 8),
-    "llava-next-mistral-7b": (None, 1, 128, 1152, 8),
-    "qwen3-14b": (None, 2, 1024, 0, 8),
+    "minicpm3-4b": (24, 2, 1024, 0, 8),
+    "llava-next-mistral-7b": (16, 1, 128, 1152, 8),
+    "qwen3-14b": (20, 2, 1024, 0, 8),
     "qwen3-moe-235b-a22b": (4, 2, 512, 0, 4),
     "kimi-k2-1t-a32b": (1, 1, 512, 0, 4),
 }
@@ -2385,7 +2401,6 @@ def moe_block_f32(arch: str, cfg, b: int, s: int, gen) -> str:
     TOL_MOE_FLIP), the block's output within TOL_ZOO_F32 x max(1, |out|) on
     the tokens whose routes agree.  Returns the printed line."""
     import contextlib
-    from unittest import mock
 
     import torch
 
@@ -2397,17 +2412,10 @@ def moe_block_f32(arch: str, cfg, b: int, s: int, gen) -> str:
     p = blocks.init_block(Init(torch.device("cuda"), gen), c32, "a")
     x = torch.randn((b, s, c32.d_model), generator=gen, device="cuda")
     pos = torch.arange(s, device="cuda")
-    real = mlp.moe_route
 
     def run(plain: bool):
-        routes = []
-
-        def spy(pp, cc, xf):
-            out = real(pp, cc, xf)
-            routes.append(out)
-            return out
         with contextlib.ExitStack() as stack:
-            stack.enter_context(mock.patch.object(mlp, "moe_route", spy))
+            routes = stack.enter_context(mlp.recorded_routes())
             if plain:
                 stack.enter_context(plain_kernels())
             y, _ = blocks.block_forward(p, c32, "a", x, pos, mode="prefill")
@@ -2415,9 +2423,11 @@ def moe_block_f32(arch: str, cfg, b: int, s: int, gen) -> str:
         return y, routes[0]
 
     before = kbuild.LAUNCHES["flash_fwd"]
-    got, (gates, _, top_e) = run(False)
+    got, route = run(False)
+    gates, top_e = route.gates, route.top_e
     check(kbuild.LAUNCHES["flash_fwd"] == before + 1, f"{arch} f32 MoE block: B3 did not launch")
-    want, (_, _, want_e) = run(True)
+    want, want_route = run(True)
+    want_e = want_route.top_e
     k = c32.moe.top_k
     flipped = (top_e.sort(-1).values != want_e.sort(-1).values).any(-1)
     srt = torch.topk(gates, k + 1, dim=-1).values
@@ -2439,7 +2449,7 @@ def moe_block_f32(arch: str, cfg, b: int, s: int, gen) -> str:
             f" (smallest k-th/(k+1)-th margin {float(margin.min()):.3e}; a flip above "
             f"{TOL_MOE_FLIP} is a fault), block output max |err| {err:.3e} (|out| up to "
             f"{scale:.3f}, tolerance {TOL_ZOO_F32} x max(1, |out|))")
-    del p, x, got, want, gates
+    del p, x, got, want, gates, route, want_route
     torch.cuda.empty_cache()
     return line
 
@@ -2466,7 +2476,8 @@ def zoo_archs_phase(card: str) -> list[dict]:
         model = build_model(cfg)
         n_params = count_params(model)
         cut = ("full depth" if layers is None else
-               f"cut to {layers} of {full.n_layers} layers (the card's 80 GB)")
+               f"cut to {layers} of {full.n_layers} layers (the "
+               + ("card's 80 GB)" if cfg.moe is not None else "script's clock)"))
         t0 = time.perf_counter()
         params = model.init_params(seed=0)
         torch.cuda.synchronize()
@@ -2822,12 +2833,12 @@ LM_TRAIN_GOLDEN = ROOT / "tests" / "golden" / "torch_lm_train_steps.json"
 # microbatches 2, lr 1e-3, warmup 10, weight decay 0.01); whisper also takes 1500 frames.
 # xlstm's S is cut from its served 1024: the sLSTM's eager loop sets the step's time
 LM_TRAIN = {"whisper-tiny": (8, 128, 6), "xlstm-350m": (2, 256, 3)}
-# layers trained where the depth is cut: xlstm-350m's 24 to 6 (3 xs units) by the script's clock
-LM_TRAIN_LAYERS = {"xlstm-350m": 6}
+# layers trained where the depth is cut: xlstm-350m's 24 to 4 (two xs units) by the script's clock
+LM_TRAIN_LAYERS = {"xlstm-350m": 4}
 # a microbatch's forward: whisper 4 encoder + 4 decoder self + 4 cross B3 launches (the bf16
-# template); xlstm 3 mLSTM layers x 2 scans, B4's tiled bf16 template; the backwards launch neither
+# template); xlstm 2 mLSTM layers x 2 scans, B4's tiled bf16 template; the backwards launch neither
 LM_TRAIN_PER_MB = {"whisper-tiny": ("flash_fwd", "flash_fwd_bf16", 12),
-                   "xlstm-350m": ("ssd_scan", SSD_TILED_BF16, 6)}
+                   "xlstm-350m": ("ssd_scan", SSD_TILED_BF16, 4)}
 # relative, as tests/test_torch_lm_train.py holds the CPU to the same file
 TOL_LM_GOLDEN = {"loss": 1e-4, "grad_norm": 1e-3, "leaf_norm": 1e-4}
 # x max(1, |x|): the loss and every gradient leaf of a float32 unit, kernel path against plain
@@ -3094,7 +3105,7 @@ def lm_train_phase(card: str) -> list[dict]:
     conf = golden["config"]
     for arch, rec in golden["archs"].items():
         cfg = get_smoke_config(arch).scaled(dtype=conf["dtype"])
-        model = build_model(cfg)
+        model = build_model(cfg, remat=False)
         params = model.init_params(seed=conf["seed"], host=True)   # the file's weights
         tcfg = train_config(conf["total_steps"])
         opt = make_optimizer(tcfg)
@@ -3154,7 +3165,7 @@ def lm_train_phase(card: str) -> list[dict]:
             ("whisper-tiny", {"encoder_layers": 1, "n_layers": 1}, 2, 64, {"flash_fwd": 3}),
             ("xlstm-350m", {"n_layers": 2}, 1, 256, {"ssd_scan": 2})):
         cfg = get_config(arch).scaled(dtype="float32", **kw)
-        model = build_model(cfg)
+        model = build_model(cfg, remat=False)
         params = model.init_params(seed=1)
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")}
         if cfg.family == "audio":
@@ -3186,7 +3197,7 @@ def lm_train_phase(card: str) -> list[dict]:
         full = get_config(arch)
         cfg = full.scaled(n_layers=LM_TRAIN_LAYERS[arch]) if arch in LM_TRAIN_LAYERS else full
         kern, template, per_mb = LM_TRAIN_PER_MB[arch]
-        model = build_model(cfg)
+        model = build_model(cfg, remat=False)
         params0 = model.init_params(seed=0)
         batch_fn = batch_fn_for(cfg, TokenStream(cfg.vocab_size, s, b, seed=0), model.device)
         mb = {k: v[: b // 2] for k, v in batch_fn(0).items()}
@@ -3289,11 +3300,11 @@ def train_step_split(card: str, label: str, cfg, b: int, s: int, steps: int, ker
 
     from repro_torch.data import TokenStream
     from repro_torch.kernels import build as kbuild
-    from repro_torch.launch import make_optimizer, make_train_fn
+    from repro_torch.launch import make_optimizer, make_train_fn, value_and_grad
     from repro_torch.models.model import build_model
     from repro_torch.train_lm import batch_fn_for, train_config
 
-    pm = build_model(cfg)
+    pm = build_model(cfg, remat=False)
     pparams = pm.init_params(seed=0)
     pbatch = batch_fn_for(cfg, TokenStream(cfg.vocab_size, s, b, seed=0), pm.device)(0)
     tcfg = train_config(steps)
@@ -3361,8 +3372,8 @@ ZOO_TRAIN_SHAPES["internlm2-1.8b"] = (2, 1024, 0)
 # repro_torch.optim.adamw writes it holds ~24 bytes a parameter (bf16 params and grads 4, float32
 # mu and nu 8, the new mu and nu and update's float32 base 12): internlm2-1.8b in full
 # (1.89 G: ~45 GB), minicpm3-4b cut to 24 of 62 layers (1.88 G: ~45 GB; all 62, 4.26 G: ~102 GB);
-# minicpm3 runs at 12 layers and both at two steps, by the script's clock
-ZOO_TRAIN_LOOP = {"internlm2-1.8b": (None, 2, 1024, 2), "minicpm3-4b": (12, 2, 1024, 2)}
+# minicpm3 runs at 6 layers, internlm2 at 12 of 24 and both at two steps, by the script's clock
+ZOO_TRAIN_LOOP = {"internlm2-1.8b": (12, 2, 1024, 2), "minicpm3-4b": (6, 2, 1024, 2)}
 
 
 def zoo_train_unit(arch: str, card: str, gen) -> str:
@@ -3372,7 +3383,6 @@ def zoo_train_unit(arch: str, card: str, gen) -> str:
     in the forward; for a MoE arch its routes compared as moe_block_f32
     does (a flip is a fault above TOL_MOE_FLIP).  Returns the printed line."""
     import contextlib
-    from unittest import mock
 
     import torch
 
@@ -3384,20 +3394,13 @@ def zoo_train_unit(arch: str, card: str, gen) -> str:
 
     b, s, n_patches = ZOO_TRAIN_SHAPES[arch]
     c32 = get_config(arch).scaled(n_layers=1, dtype="float32")
-    model = build_model(c32)
+    model = build_model(c32, remat=False)
     params = model.init_params(seed=1)
     batch = zoo_batch(c32, b, s, n_patches, torch.float32, gen)
-    real = mlp.moe_route
 
     def run(plain: bool):
-        routes = []
-
-        def spy(pp, cc, xf):
-            out = real(pp, cc, xf)
-            routes.append(out)
-            return out
         with contextlib.ExitStack() as stack:
-            stack.enter_context(mock.patch.object(mlp, "moe_route", spy))
+            routes = stack.enter_context(mlp.recorded_routes())
             if plain:
                 stack.enter_context(plain_kernels())
             loss, grads = value_and_grad(model.loss, params, batch)
@@ -3414,7 +3417,7 @@ def zoo_train_unit(arch: str, card: str, gen) -> str:
     check(kbuild.LAUNCHES == mid, f"{arch} f32 train unit: the plain path launched a kernel")
     flips = ""
     if c32.moe is not None:
-        (gates, _, top_e), (_, _, want_e) = routes[0], proutes[0]
+        gates, top_e, want_e = routes[0].gates, routes[0].top_e, proutes[0].top_e
         k = c32.moe.top_k
         flipped = (top_e.sort(-1).values != want_e.sort(-1).values).any(-1)
         srt = torch.topk(gates.detach(), k + 1, dim=-1).values
@@ -3448,7 +3451,7 @@ def zoo_train_phase(card: str) -> list[dict]:
     """The zoo's other archs on the training path (see the module docstring,
     items 36-39): B3 under autograd at their training shapes, a float32
     unit of one layer of each family, timed bf16 TrainLoop steps of
-    internlm2-1.8b and minicpm3-4b (24 of 62 layers), one profiled step of
+    internlm2-1.8b (12 of 24 layers) and minicpm3-4b (6 of 62), one profiled step of
     each."""
     import signal
 
@@ -3490,7 +3493,7 @@ def zoo_train_phase(card: str) -> list[dict]:
         full = get_config(arch)
         cfg = full if layers is None else full.scaled(n_layers=layers)
         per_mb = cfg.pattern().count("a")
-        model = build_model(cfg)
+        model = build_model(cfg, remat=False)
         n_params = count_params(model)
         params0 = model.init_params(seed=0)
         batch_fn = batch_fn_for(cfg, TokenStream(cfg.vocab_size, s, b, seed=0), model.device)
@@ -3559,6 +3562,121 @@ def zoo_train_phase(card: str) -> list[dict]:
     print(f"zoo train phase on {card}: {time.perf_counter() - t_phase:.1f} s; B3 launches in the "
           f"TrainLoop runs {counted}, one in each float32 unit's forward", flush=True)
     return rows
+
+
+# zoo training's setting before its last depth cut: 12 of 62 layers, B = 2, S = 1024
+REMAT_ARCH, REMAT_LAYERS, REMAT_B, REMAT_S = "minicpm3-4b", 12, 2, 1024
+# remat against no remat: the same kernels on the same inputs, so every value
+# should be bit-equal; this bound (x max(1, |x|), each gradient leaf by its largest
+# entry) leaves room only for an unordered scatter's rounding
+TOL_REMAT = 1e-3
+
+
+def remat_phase(card: str) -> None:
+    """Item 39a: one train step of minicpm3-4b (REMAT_LAYERS of its layers,
+    microbatches 2, the seeded weights and the token stream's first batch)
+    with remat off and one with it on, each from the same fresh state, after
+    the loss's gradients of its first microbatch alone (their peak above the
+    parameters is the activations' and the gradients': what remat moves;
+    the step's peak is AdamW's update).  The remat-on loss and every
+    gradient leaf of that microbatch, and the step's loss and grad_norm, are
+    held to the remat-off ones within TOL_REMAT."""
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import make_optimizer, make_train_fn, named_leaves, value_and_grad
+    from repro_torch.models.model import build_model
+    from repro_torch.train_lm import batch_fn_for
+
+    t_phase = time.perf_counter()
+    layers, b, s = REMAT_LAYERS, REMAT_B, REMAT_S
+    full = get_config(REMAT_ARCH)
+    cfg = full.scaled(n_layers=layers)
+    tcfg = TrainConfig(microbatches=2)
+    per_mb = cfg.pattern().count("a")
+    res, off_grads, grad_err, n_leaves, n_equal = {}, {}, 0.0, 0, 0
+    for remat in (False, True):
+        model = build_model(cfg, remat=remat)
+        params = model.init_params(seed=0)
+        batch = batch_fn_for(cfg, TokenStream(cfg.vocab_size, s, b, seed=0), model.device)(0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launched = kbuild.LAUNCHES["flash_fwd"]
+        loss, grads = value_and_grad(model.loss, params, {k: v[: b // 2] for k, v in batch.items()})
+        torch.cuda.synchronize()
+        loss_peak = torch.cuda.max_memory_allocated() - base
+        loss_launches = kbuild.LAUNCHES["flash_fwd"] - launched
+        for name, g in named_leaves(grads):
+            if not remat:                   # on the host: the remat run's peak is its own
+                off_grads[name] = g.detach().cpu()
+                continue
+            want = off_grads.pop(name).to(g.device)
+            scale = max(1.0, float(want.abs().max()))
+            err = float((g.detach().double() - want.double()).abs().max())
+            check(err <= TOL_REMAT * scale and bool(torch.isfinite(g).all()),
+                  f"remat {REMAT_ARCH}: gradient {name} off by {err:.3e} from the remat-off "
+                  f"one's (max |g| {scale:.3e}; tolerance {TOL_REMAT} x max(1, max|g|))")
+            grad_err = max(grad_err, err / scale)
+            n_leaves, n_equal = n_leaves + 1, n_equal + bool(torch.equal(g, want))
+            del want
+        check(not off_grads or not remat, f"remat {REMAT_ARCH}: leaves {sorted(off_grads)} "
+              "missing from the remat run's gradients")
+        first_loss = float(loss)
+        del loss, grads
+        opt = make_optimizer(tcfg)
+        step, state = make_train_fn(model, tcfg, opt), opt.init(params)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kbuild.LAUNCHES:
+            kbuild.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        res[remat] = {"ms": (time.perf_counter() - t0) * 1e3, "loss_peak": loss_peak,
+                      "first_loss": first_loss,
+                      "loss_launches": loss_launches, "params": base,
+                      "peak": torch.cuda.max_memory_allocated(), "resident": resident,
+                      "launches": {k: v for k, v in kbuild.LAUNCHES.items() if v},
+                      "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        del model, params, state, step, m, batch
+        torch.cuda.empty_cache()
+    off, on = res[False], res[True]
+    for k in ("first_loss", "loss", "grad_norm"):
+        check(abs(on[k] - off[k]) <= TOL_REMAT * max(1.0, abs(off[k])) and math.isfinite(on[k]),
+              f"remat {REMAT_ARCH}: {k} {on[k]} with remat, {off[k]} without (tolerance "
+              f"{TOL_REMAT} x max(1, |x|))")
+    fwd = 2 * per_mb                                    # a layer a microbatch
+    check(off["launches"] == {"flash_fwd": fwd} and on["launches"] == {"flash_fwd": 2 * fwd},
+          f"remat {REMAT_ARCH}: B3 launches {off['launches']} without remat, {on['launches']} "
+          f"with; expected {fwd} and {2 * fwd} (one recomputed forward a layer a microbatch)")
+    check(on["loss_peak"] < off["loss_peak"] and on["loss_launches"] == 2 * per_mb
+          and off["loss_launches"] == per_mb,
+          f"remat {REMAT_ARCH}: the loss's gradients peaked {on['loss_peak']} bytes above the "
+          f"parameters with remat ({on['loss_launches']} B3 launches), {off['loss_peak']} "
+          f"without ({off['loss_launches']})")
+    gib = 2 ** 30
+    print(f"remat {REMAT_ARCH} on {card}: full width, {layers} of {full.n_layers} layers, bf16, "
+          f"B={b} S={s}, one train step (microbatches 2) from the same seeded state: loss "
+          f"{off['loss']:.6f} without remat, {on['loss']:.6f} with; grad_norm "
+          f"{off['grad_norm']:.6f}, {on['grad_norm']:.6f}; the first microbatch's loss "
+          f"{off['first_loss']:.6f}, {on['first_loss']:.6f} and its {n_leaves} gradient "
+          f"leaves with remat within {grad_err:.3e} x max(1, max|g|) of those without "
+          f"({n_equal} bit-equal; every bound {TOL_REMAT} x max(1, |x|)); that microbatch's loss "
+          f"and gradients peaked "
+          f"{off['loss_peak'] / gib:.3f} GiB above the {off['params'] / gib:.3f} GiB of "
+          f"parameters without remat, {on['loss_peak'] / gib:.3f} GiB with; the step's peak "
+          f"allocated {off['peak'] / gib:.3f} GiB without, "
+          f"{on['peak'] / gib:.3f} GiB with ({(off['peak'] - off['resident']) / gib:.3f} and "
+          f"{(on['peak'] - on['resident']) / gib:.3f} GiB above the {off['resident'] / gib:.3f} "
+          f"GiB of parameters and AdamW state); B3 launches {off['launches']} without, "
+          f"{on['launches']} with ({fwd} forward + {fwd} recomputed in the backward, one a layer "
+          f"a microbatch); host-clock ms a step {off['ms']:.1f} without, {on['ms']:.1f} with "
+          f"(one step each, after one microbatch's gradients: not a speed)", flush=True)
+    print(f"remat phase on {card}: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 # --------------------------------------------------------------------- #
@@ -4119,7 +4237,7 @@ def sharding_phase(card: str) -> list[dict]:
     check(mesh.device_type == "cuda" and axis_sizes(mesh) == {"data": 1, "model": 1},
           f"sharding: mesh {mesh}")
     cfg = get_config(SHARD_ARCH)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     meta = build_model(cfg, device="meta")
     params = model.init_params(seed=0)
     b, s = SHARD_B, SHARD_S
@@ -4364,7 +4482,7 @@ def dryrun_phase(card: str, procs: list) -> None:
 
     # ---- (b) the one-card check: internlm2-1.8b, B = 2, S = 1024 -------- #
     cfg = get_config(SHARD_ARCH)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     params = model.init_params(seed=0)
     gen = torch.Generator(device="cuda").manual_seed(11)
     tokens = torch.randint(0, cfg.vocab_size, (SHARD_B, SHARD_S), generator=gen,
@@ -4432,7 +4550,7 @@ def dryrun_phase(card: str, procs: list) -> None:
 SX_RANKS = 4                         # ranks of the sharded-execution world
 SX_ARCH, SX_MESH, SX_B, SX_S = "internlm2-1.8b", (2, 2), 2, 1024
 SX_DECODE, SX_TRAIN_STEPS = 8, 2
-SX_LAYERS = 8                        # the prefill's and decode's depth cut (the script's clock)
+SX_LAYERS = 4                        # the prefill's and decode's depth cut (the script's clock)
 SX_TRAIN_LAYERS = 2                  # the train step's depth cut (layers only; see CHANGES.md)
 SX_RESUME_MESH = (4, 1)              # where the (2, 2) state is restored
 SX_UNIT = dict(arch="zamba2-7b", mesh=(1, 4), b=2, s=256, decode=4, layers=6)  # float32
@@ -4464,7 +4582,25 @@ SX_CELLS = (
          dtype="float32", layers=2, b=2, s=64, max_len=None, decode=4, train=0, grads=True,
          feed=False, launches={"prefill": (2, 0), "decode": (0, 0), "grads": (2, 0)},
          names={"flash_fwd_f32": 2}),
+    # slices c and d: the loss's gradients under remat (B3 once more a layer in the
+    # backward's recompute), not train steps, as qwen3-14b's (the vocabulary's AdamW
+    # moments); qwen3-moe's 2 layers hold 9.6 GB of experts, at the rank tests'
+    # capacity factor 1.0 (the mean load: every layer's prefill drops slots, so the
+    # cross-rank slot positions decide which)
+    dict(name="minicpm3-4b", arch="minicpm3-4b", mesh=(2, 2), dtype="bfloat16", layers=2,
+         b=2, s=1024, max_len=None, decode=8, train=0, grads=True, feed=True, remat=True,
+         launches={"prefill": (2, 0), "decode": (0, 0), "grads": (4, 0)},
+         names={"flash_fwd_bf16": 2}),
+    dict(name="qwen3-moe-235b-a22b", arch="qwen3-moe-235b-a22b", mesh=(2, 2), dtype="bfloat16",
+         layers=2, b=2, s=512, max_len=None, decode=4, train=0, grads=True, feed=True,
+         remat=True, capacity_factor=1.0, launches={"prefill": (2, 0), "decode": (0, 0), "grads": (4, 0)},
+         names={"flash_fwd_bf16": 2}),
 )
+# a bf16 MoE router fed hidden states that differ by a rounding (another order of
+# the tensor-parallel sums) may pick another expert where its k-th and (k+1)-th
+# gates are that close: tests/test_torch_zoo_archs.py's NEAR_TIE.  A flip at a
+# larger margin of the single process is a fault
+NEAR_TIE = 2.0 ** -9
 TOL_SX_BF16 = (0.12, 2e-2)           # the zoo's bf16 bound (PERF.md §2, "Their agreement")
 TOL_SX_F32 = 1e-4                    # x max(1, |x|): the zoo's float32 bound
 SX_DIR = ROOT / "build" / "sharded_exec"
@@ -4472,27 +4608,26 @@ SX_DIR = ROOT / "build" / "sharded_exec"
 
 def _sx_references(seed_tokens: int, arch: str, n_layers, dtype: str, b: int, s: int,
                    decode: int, train: int, train_layers, grads: bool,
-                   max_len=None) -> tuple[dict, dict]:
+                   max_len=None, remat: bool = False,
+                   capacity_factor=None) -> tuple[dict, dict]:
     """The single-process calls on the card that the ranks are held to:
     prefill (cache of ``max_len``, default the VLM's patches + s + decode),
     ``decode`` greedy steps, ``train`` train steps (microbatches 2; a model
     of ``train_layers`` layers) and, with ``grads``, the loss and every
-    gradient, on ``b`` x
+    gradient (``remat``: the loss rematerializes its layers), on ``b`` x
     ``s`` tokens and the model's other inputs (``launch.ranks.model_inputs``,
-    kept under ``inputs/``).  Returns (reference tensors on the host,
-    host-clock ms of each call)."""
+    kept under ``inputs/``); an MoE at ``capacity_factor`` where given.
+    Returns (reference tensors on the host, host-clock ms of each call)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs import TrainConfig
     from repro_torch.launch import (make_optimizer, make_train_fn, named_leaves, ranks,
                                     value_and_grad)
     from repro_torch.models.model import build_model
 
-    cfg = get_config(arch).scaled(dtype=dtype)
-    if n_layers is not None:
-        cfg = cfg.scaled(n_layers=n_layers)
-    model = build_model(cfg)
+    cfg = ranks.config_of(arch, False, dtype, n_layers, capacity_factor)
+    model = build_model(cfg, remat=remat)
     params = model.init_params(seed=0)
     tokens = np.random.default_rng(seed_tokens).integers(0, cfg.vocab_size, (b, s)).astype(
         np.int32)
@@ -4531,7 +4666,7 @@ def _sx_references(seed_tokens: int, arch: str, n_layers, dtype: str, b: int, s:
     if train:
         if train_layers is not None:
             del params
-            model = build_model(cfg.scaled(n_layers=train_layers))
+            model = build_model(cfg.scaled(n_layers=train_layers), remat=remat)
             params = model.init_params(seed=0)
         tcfg = TrainConfig(microbatches=2)
         opt = make_optimizer(tcfg)
@@ -4564,20 +4699,21 @@ def _sx_errors(res: list, names, tol, label: str, f32: bool) -> float:
 
 
 def _sx_flash_row(card: str, gen, label: str, shape: tuple, dtype, launches: int,
-                  causal: bool = True) -> dict:
-    """B3 at one rank's local shape (b, hq, hkv, sq, sk, d), held to its plain
-    version and timed beside SDPA: a kernels-line row with ``launches``
-    (summed over the ranks)."""
+                  causal: bool = True, dv: int | None = None) -> dict:
+    """B3 at one rank's local shape (b, hq, hkv, sq, sk, d; values of ``dv``,
+    default d), held to its plain version and timed beside SDPA: a
+    kernels-line row with ``launches`` (summed over the ranks)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash import ops as flash_ops
 
     b, hq, hkv, sq, sk, d = shape
+    dv = dv or d
     f32 = dtype == torch.float32
     q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    k, v = (torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
-            for _ in range(2))
+    k, v = (torch.randn((b, sk, hkv, w), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            for w in (d, dv))
 
     def call():
         return flash_ops.flash_attention(q, k, v, causal=causal, scale=d ** -0.5)
@@ -4597,9 +4733,9 @@ def _sx_flash_row(card: str, gen, label: str, shape: tuple, dtype, launches: int
     dev_ms = device_ms(call, "flash_fwd_f32" if f32 else "flash_fwd_bf16", iters=10)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, scale=d ** -0.5, enable_gqa=hq != hkv), iters=10)
-    b_ms, b_by = bound(*flash_work(b, hq, hkv, sq, sk, d, d, 4 if f32 else 2, causal),
+    b_ms, b_by = bound(*flash_work(b, hq, hkv, sq, sk, d, dv, 4 if f32 else 2, causal),
                        F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
-    print(f"flash_fwd {label} rank-local B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
+    print(f"flash_fwd {label} rank-local B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} "
           f"{'float32' if f32 else 'bf16'} {'causal' if causal else 'non-causal'} on {card}: "
           f"max |err| {err:.3e}; kernel {ev_ms:.4f} ms (CUDA events; device {dev_ms:.4f} ms), "
           f"plain {plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound "
@@ -4856,7 +4992,8 @@ def _sx_cell_jobs() -> tuple[list, dict, dict]:
     for i, c in enumerate(SX_CELLS):
         ref, ms[c["name"]] = _sx_references(100 + i, c["arch"], c["layers"], c["dtype"], c["b"],
                                             c["s"], c["decode"], c["train"], None, c["grads"],
-                                            c["max_len"])
+                                            c["max_len"], c.get("remat", False),
+                                            c.get("capacity_factor"))
         path = SX_DIR / f"cell{i}.pt"
         torch.save(ref, path)
         grad_names[c["name"]] = {k for k in ref if k.startswith("grads/")}
@@ -4869,8 +5006,9 @@ def _sx_cell_jobs() -> tuple[list, dict, dict]:
                                  if k.startswith("inputs/")},
                          seed=0, smoke=False, dtype=c["dtype"], n_layers=c["layers"],
                          max_len=c["max_len"], decode=c["decode"], feed=feed, train=c["train"],
-                         full_params=False, grads=c["grads"], keep=False, reference=str(path),
-                         profile=True))
+                         full_params=False, grads=c["grads"], reference=str(path), profile=True,
+                         remat=c.get("remat", False), capacity_factor=c.get("capacity_factor"),
+                         keep=("prefill/", "decode/") if _sx_routed(c) else False))
         del ref
     return jobs, ms, grad_names
 
@@ -4884,14 +5022,21 @@ def _sx_check_cells(card: str, cells: list, ms_single: dict, grad_names: dict) -
     import statistics
 
     from repro_torch.configs import get_config
-    for c, res in zip(SX_CELLS, cells):
+    for i, (c, res) in enumerate(zip(SX_CELLS, cells)):
         f32 = c["dtype"] == "float32"
         label = f"{c['name']} {c['mesh']}"
         errs = res[0]["errors"]
-        names = (["prefill/logits"] + [f"decode/{i}/logits" for i in range(c["decode"])]
-                 + [k for k in errs if k.startswith("prefill/cache/")] + sorted(grad_names[c["name"]])
-                 + [f"train/{i}/{k}" for i in range(c["train"]) for k in ("loss", "grad_norm")])
+        served = (["prefill/logits"] + [f"decode/{i}/logits" for i in range(c["decode"])]
+                  + [k for k in errs if k.startswith("prefill/cache/")])
+        routed = _sx_routed(c)
+        names = ([] if routed else served) + sorted(grad_names[c["name"]]) + [
+            f"train/{i}/{k}" for i in range(c["train"]) for k in ("loss", "grad_norm")]
         err = _sx_errors(res, names, TOL_SX_F32 if f32 else TOL_SX_BF16, label, f32=f32)
+        flips = ""
+        if routed:
+            serve_err, flips = _sx_moe_served(label, res[0]["arrays"], SX_DIR / f"cell{i}.pt",
+                                              c, served)
+            err = max(err, serve_err)
         same_tok = sum(errs[f"decode/{i}/token"][0] == 0 for i in range(c["decode"]))
         if not c["feed"]:
             check(same_tok == c["decode"], f"{label}: greedy tokens differ from the single "
@@ -4928,10 +5073,122 @@ def _sx_check_cells(card: str, cells: list, ms_single: dict, grad_names: dict) -
               + (", the loss and every gradient" if c["grads"] else "")
               + (f", {c['train']} train steps' loss and grad_norm" if c["train"] else "")
               + f" within {TOL_SX_F32 if f32 else TOL_SX_BF16} of the single process (max "
-              f"|err| {err:.3e}); (B3, B4) launches a rank by phase {res[0]['launches']}; by "
+              f"|err| {err:.3e}{flips}); (B3, B4) launches a rank by phase "
+              f"{res[0]['launches']}{' (remat: B3 once more a layer in the backward)' if c.get('remat') else ''}; by "
               f"profiler name on every rank {res[0]['kernel_names']}; every replicated value "
               f"equal on the {SX_RANKS} ranks; host-clock ms rank 0 beside the single process: "
               f"{times}", flush=True)
+
+
+def _sx_routed(c) -> bool:
+    """A bf16 MoE cell: its served values are held route by route."""
+    from repro_torch.configs import get_config
+    return c["dtype"] == "bfloat16" and get_config(c["arch"]).moe is not None
+
+
+def _sx_moe_served(label: str, got: dict, path, c, names) -> tuple[float, str]:
+    """A bf16 MoE cell's served values (rank 0's, gathered: ``names``)
+    against the single process fed the ranks' routes.  A bf16 router fed
+    hidden states that differ by a rounding (the tensor-parallel sums in
+    another order) may pick another expert near a tie, and a flipped token's
+    output then differs by far more than a rounding, in every later layer
+    and step that reads it.  So the single process runs the prefill and the
+    decode steps (fed the tokens the ranks were fed) again, each MoE layer
+    taking the ranks' recorded experts (their gates from its own router),
+    and every value must then be within TOL_SX_BF16; where its own top-k
+    differs from the ranks', its k-th/(k+1)-th gate margin must be below
+    :data:`NEAR_TIE`, else the flip is a fault.  Given the same experts, its
+    slot positions and kept slots (an integer cumsum over the whole token
+    axis, which the ranks split) must equal the ranks' exactly, and every
+    layer's prefill must drop slots.  Returns (the largest error, a
+    summary)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import named_leaves, ranks
+    from repro_torch.models import mlp
+    from repro_torch.models.model import build_model
+
+    ref = torch.load(path, map_location="cpu", mmap=True)
+    cfg = ranks.config_of(c["arch"], False, c["dtype"], c["layers"], c.get("capacity_factor"))
+    model = build_model(cfg)
+    params = model.init_params(seed=0)
+    b, s = c["b"], c["s"]
+    arrays = {"tokens": ref["tokens"].numpy(), **{k[len("inputs/"):]: v.numpy()
+                                                  for k, v in ref.items() if k.startswith("inputs/")}}
+    specs, _ = ranks.input_records(model, b, s)
+    batch = ranks.batch_of(arrays, specs, "cuda")
+    k = cfg.moe.top_k
+    real = mlp.moe_route
+
+    def forced(prefix: str, routes: list):
+        """The router's gates with the ranks' experts of the call at ``prefix``."""
+        def fn(p, cfg_, xf):
+            gates, _, _ = real(p, cfg_, xf)
+            top_e = torch.from_numpy(got[f"{prefix}/routes/{len(routes)}/top_e"]).to("cuda")
+            top_p = gates.gather(-1, top_e)
+            return gates, top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_e
+        return fn
+
+    mine, replayed = {}, {}
+    with mlp.recorded_routes() as routes, \
+            mock.patch.object(mlp, "moe_route", forced("prefill", routes)):
+        logits, cache = model.prefill(params, batch, max_len=s + c["decode"])
+    replayed["prefill"] = routes
+    mine["prefill/logits"] = logits.float().cpu()
+    mine.update({f"prefill/cache/{n}": t.float().cpu() for n, t in named_leaves(cache)})
+    for i in range(c["decode"]):
+        tok = ref[f"decode/{i}/token"].to("cuda")
+        with mlp.recorded_routes() as routes, \
+                mock.patch.object(mlp, "moe_route", forced(f"decode/{i}", routes)):
+            logits, cache = model.decode_step(params, tok, cache, s + i)
+        replayed[f"decode/{i}"] = routes
+        mine[f"decode/{i}/logits"] = logits.float().cpu()
+    del model, params, cache, logits
+    torch.cuda.empty_cache()
+    n_calls = sum(len(r) for r in replayed.values())
+    check(n_calls == c["layers"] * (1 + c["decode"]) and all(
+        len(r) == c["layers"] for r in replayed.values()),
+        f"{label}: {n_calls} MoE calls replayed, expected {c['layers'] * (1 + c['decode'])}")
+    margins, n_tok = [], 0
+    for prefix, routes in replayed.items():
+        for j, r in enumerate(routes):
+            own = torch.topk(r.gates, k, dim=-1).indices
+            flip = (own.sort(-1).values != r.top_e.sort(-1).values).any(-1)
+            srt = torch.sort(r.gates, dim=-1, descending=True).values
+            margins.extend((srt[:, k - 1] - srt[:, k])[flip].tolist())
+            n_tok += int(r.top_e.shape[0])
+            for name in ("pos", "keep"):
+                want = got[f"{prefix}/routes/{j}/{name}"]
+                check(np.array_equal(getattr(r, name).cpu().numpy(), want),
+                      f"{label}: {prefix} MoE call {j}: the ranks' slot {name} differ from the "
+                      f"single process's on the same experts")
+    check(all(m < NEAR_TIE for m in margins), f"{label}: the ranks' routes differ from the single "
+          f"process's at gate margins {sorted(margins)[-4:]} (above {NEAR_TIE} is a fault)")
+    dropped = [int((~r.keep).sum()) for r in replayed["prefill"]]
+    check(all(n > 0 for n in dropped), f"{label}: the prefill's MoE layers dropped {dropped} "
+          "slots: the drop path did not run in every layer")
+    dropped_dec = sum(int((~r.keep).sum()) for p_, rs in replayed.items() if p_ != "prefill"
+                      for r in rs)
+    atol, rtol = TOL_SX_BF16
+    worst = 0.0
+    for name in names:
+        want, mine_ = mine[name].double().numpy(), got[name].astype(np.float64)
+        d = np.abs(mine_ - want)
+        check(float((d - rtol * np.abs(want)).max()) <= atol,
+              f"{label}: {name} off by {float(d.max()):.3e} from the single process fed the "
+              f"ranks' routes (tolerance {TOL_SX_BF16})")
+        worst = max(worst, float(d.max()))
+    return worst, (f"; the single process fed the ranks' routes: {len(margins)} of "
+                   f"{n_tok} token routes its own router would have picked "
+                   f"otherwise, at gate margins up to "
+                   f"{max(margins, default=0.0):.3e} (below {NEAR_TIE}); on the same experts its "
+                   f"slot positions and kept slots equal the ranks' in all {n_calls} MoE calls "
+                   f"(capacity factor {cfg.moe.capacity_factor}: the prefill dropped {dropped} "
+                   f"of {b * s * k} slots by layer, the {c['decode']} decode steps "
+                   f"{dropped_dec})")
 
 
 def _sx_cell_rows(card: str, gen, cells: list) -> list[dict]:
@@ -4950,7 +5207,11 @@ def _sx_cell_rows(card: str, gen, cells: list) -> list[dict]:
         dtype = torch.float32 if c["dtype"] == "float32" else torch.bfloat16
         label = f"{c['name']} {c['mesh']}"
         hq, hkv, d = cfg.n_heads // model_ax, cfg.n_kv_heads // model_ax, cfg.resolved_head_dim
-        if cfg.family == "audio":
+        if cfg.attention == "mla":                  # the materialized K: D = nope + rope
+            rows.append(_sx_flash_row(card, gen, label, (b, hq, hq, c["s"], c["s"],
+                                                         cfg.qk_nope_head_dim + cfg.qk_rope_head_dim),
+                                      dtype, total["flash_fwd"], dv=cfg.v_head_dim))
+        elif cfg.family == "audio":
             per = total["flash_fwd"] // 3            # the three shapes launch alike
             for part, sq, sk, causal in (("encoder", cfg.encoder_seq, cfg.encoder_seq, False),
                                          ("self", c["s"], c["s"], True),
@@ -5351,6 +5612,7 @@ def run_phases(card: str, dry: list) -> dict:
     # ---- the zoo's other archs train (B3 under autograd); last, as the
     # largest models of the run's training paths -------------------------- #
     kernels += clocked("zoo_train", zoo_train_phase, card)
+    clocked("remat", remat_phase, card)
 
     # ---- the example scripts' twins (B1), then the sharded step makers
     # on a one-device mesh (B3); the dry run's process works on the host

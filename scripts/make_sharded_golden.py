@@ -15,16 +15,20 @@ microbatches=2)``, two steps on one batch of 8 x 16 tokens from
 the same bits on every machine), carried into JAX as arrays; their sha256
 is recorded beside each step's loss, grad_norm and parameter leaf norms.
 
-The top level holds internlm2-1.8b; ``"archs"`` holds xlstm-350m and
-llava-next-mistral-7b, whose batch adds the model's other inputs
-(``repro_torch.launch.ranks.model_inputs``: the VLM's patches, N(0, 1) from
-the same seed, in bfloat16 as the reference's ``input_specs`` give them;
-their sha256 beside the parameters').
+The top level holds internlm2-1.8b; ``"archs"`` holds xlstm-350m,
+llava-next-mistral-7b, minicpm3-4b and qwen3-moe-235b-a22b, whose batch
+adds the model's other inputs (``repro_torch.launch.ranks.model_inputs``:
+the VLM's patches, N(0, 1) from the same seed, in bfloat16 as the
+reference's ``input_specs`` give them; their sha256 beside the
+parameters').  minicpm3-4b and qwen3-moe are built with the reference's
+default ``remat=True``, as their rank tests train, and qwen3-moe at the
+capacity factor of those tests (``CAPACITY``, recorded), which drops
+slots.
 
 ``tests/test_torch_sharded_exec.py`` holds the port's (2, 4) world of gloo
-ranks to the top level, ``tests/test_torch_sharded_exec_ssm.py`` and
-``_vlm.py`` their (2, 2) worlds (the same global batch) to ``"archs"``.
-The file is rewritten only by this script (~40 s).
+ranks to the top level, ``tests/test_torch_sharded_exec_ssm.py``,
+``_vlm.py`` and ``_mla_moe.py`` their (2, 2) worlds (the same global batch)
+to ``"archs"``.  The file is rewritten only by this script (~60 s).
 """
 
 from __future__ import annotations
@@ -47,15 +51,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 OUT = ROOT / "tests" / "golden" / "torch_sharded_steps.json"
 ARCH = "internlm2-1.8b"
-ARCHS = ("xlstm-350m", "llava-next-mistral-7b")
+ARCHS = ("xlstm-350m", "llava-next-mistral-7b", "minicpm3-4b", "qwen3-moe-235b-a22b")
+REMAT = ("minicpm3-4b", "qwen3-moe-235b-a22b")
+CAPACITY = {"qwen3-moe-235b-a22b": 1.0}
 MESH = (2, 4)
 BATCH, SEQ, STEPS, MICROBATCHES = 8, 16, 2, 2
 
 
 def _port_model(arch: str):
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import ranks
     from repro_torch.models.model import build_model
-    return build_model(get_smoke_config(arch).scaled(dtype="float32"), device="cpu")
+    return build_model(ranks.config_of(arch, capacity_factor=CAPACITY.get(arch)), device="cpu")
 
 
 def port_params(arch: str = ARCH) -> dict:
@@ -103,7 +109,9 @@ def _as_reference_tree(flat: dict, shapes):
 
 def reference_steps(arch: str, flat: dict, arrays: dict):
     """The reference's two sharded steps of ``arch`` from ``flat`` on the
-    batch ``arrays``: (per-step records, the trained parameters)."""
+    batch ``arrays`` (remat for :data:`REMAT`, an MoE at its
+    :data:`CAPACITY`): (per-step records, the trained parameters)."""
+    import dataclasses
     import jax
     import jax.numpy as jnp
     from repro.configs import TrainConfig, get_smoke_config
@@ -113,8 +121,10 @@ def reference_steps(arch: str, flat: dict, arrays: dict):
     from repro.utils.jaxcompat import set_mesh
 
     cfg = get_smoke_config(arch).scaled(dtype="float32")
+    if arch in CAPACITY:
+        cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=CAPACITY[arch]))
     mesh = small_test_mesh(data=MESH[0], model=MESH[1])
-    model = build_model(cfg, remat=False)
+    model = build_model(cfg, remat=arch in REMAT)
     batch = {k: jnp.asarray(v) if k == "tokens" else jnp.asarray(v, jnp.bfloat16)
              for k, v in arrays.items()}
     specs = {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in batch.items()}
@@ -162,6 +172,7 @@ def main() -> None:
             "devices": jax.device_count(), "mesh": {"data": MESH[0], "model": MESH[1]},
             "inputs": "repro_torch.launch.ranks.model_inputs(model, tokens, seed=0)",
             "params_sha256": params_sha256(flat), "inputs_sha256": params_sha256(arrays),
+            "remat": arch in REMAT, "capacity_factor": CAPACITY.get(arch),
             "steps": reference_steps(arch, flat, arrays)[0]}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(rec, indent=1) + "\n")

@@ -110,10 +110,12 @@ def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Trainer knobs carried alongside the model config (the reference's
-    fields).  ``remat`` has no effect: the port trains without activation
-    rematerialization, as the reference's LM example does.
-    ``grad_compression`` compresses the gradients of data parallelism, which
-    the port does not have: any value but None raises."""
+    fields).  ``remat`` is read by neither package's step: activation
+    rematerialization is ``build_model``'s argument (``remat=True`` by
+    default, as the reference's).  ``grad_compression`` is not read by the
+    reference's LM step either; the port refuses any value but None, so
+    that a config asking for compressed gradients does not train
+    uncompressed."""
     microbatches: int = 8
     remat: bool = True
     lr: float = 3e-4
@@ -127,5 +129,5 @@ class TrainConfig:
     def __post_init__(self):
         if self.grad_compression is not None:
             raise NotImplementedError(
-                f"grad_compression={self.grad_compression!r}: the port has no data "
-                "parallelism (ROADMAP queue A item 3)")
+                f"grad_compression={self.grad_compression!r}: the LM train step's data "
+                "parallelism does not compress gradients (the reference ignores the field)")

@@ -425,7 +425,7 @@ def trace_model(arch: str, *, smoke: bool = True, kind: str = "prefill", batch: 
         # the VLM's text length, seq_len - n_patches, must stay positive
         seq_len = max(seq_len, cfg.n_patches + 8)
     t0 = time.perf_counter()
-    model = build_model(cfg, device="meta")
+    model = build_model(cfg, device="meta", remat=False)      # as the reference traces it
     params = model.init_params()
     inputs = model.input_specs(ShapeConfig("ingest", seq_len, batch, "prefill"))
     t_build = time.perf_counter() - t0

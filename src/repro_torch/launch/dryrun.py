@@ -99,8 +99,7 @@ _NO_TRAFFIC = {"detach", "alias", "lift_fresh", "empty", "empty_like", "empty_st
 
 def train_config(arch: str) -> TrainConfig:
     """The train cells' config: the reference's microbatches, no float32
-    master copy; the port trains without recompute (``remat`` has no
-    effect)."""
+    master copy (remat is the model's: :func:`trace_step`'s ``remat``)."""
     return TrainConfig(microbatches=MICROBATCHES.get(arch, 8), master_fp32=False, remat=False)
 
 
@@ -430,17 +429,20 @@ def _opt_tree(state) -> dict:
 
 # ------------------------------------------------------------------ one cell
 def trace_step(cfg, shape: ShapeConfig, mesh_shape: tuple, mesh_names: tuple,
-               microbatches: int = 1, scopes: bool = True, detail: int = 0) -> dict:
+               microbatches: int = 1, scopes: bool = True, detail: int = 0,
+               remat: bool = False) -> dict:
     """Trace one step of ``cfg`` at ``shape`` as one device of a mesh of
     ``mesh_shape`` over ``mesh_names`` (this process joins a fake world of
-    its size).  Returns ``{"memory", "cost" (a StepCost), "timing",
-    "fallbacks", "outputs", "trace"}``."""
+    its size).  ``remat`` builds the model with it (the golden cells are
+    lowered without; with it a train step's backward counts each unit's
+    recomputed forward).  Returns ``{"memory", "cost" (a StepCost),
+    "timing", "fallbacks", "outputs", "trace"}``."""
     from ..models.model import build_model
     from ..optim import OptState
     from . import steps
 
     mesh = device_mesh(mesh_shape, mesh_names)
-    model = build_model(cfg, device="meta")
+    model = build_model(cfg, device="meta", remat=remat)
     specs, axes = model.input_records(shape)
     t0 = time.perf_counter()
     p_sh = steps.param_shardings(model, mesh)
@@ -528,11 +530,12 @@ def _cost_record(cost: StepCost) -> dict:
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool, return_trace: bool = False,
-               smoke: bool = False):
+               smoke: bool = False, remat: bool = False):
     """Trace one cell on the production mesh (16 x 16, or 2 x 16 x 16 with
     ``multi_pod``); ``smoke`` takes the arch's SMOKE config (a quick check
-    of the machinery, not a cell of the sweep).  Returns the record (and the
-    trace, for the perf probe, with ``return_trace``)."""
+    of the machinery, not a cell of the sweep); ``remat`` as
+    :func:`trace_step`'s (off, as the golden cells are lowered).  Returns
+    the record (and the trace, for the perf probe, with ``return_trace``)."""
     from ..models.model import analytic_flops
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     shape = SHAPES[shape_name]
@@ -546,13 +549,13 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, return_trace: bool =
                          else ((16, 16), ("data", "model")))
     m = MICROBATCHES.get(arch, 8) if shape.kind == "train" else 1
     res = trace_step(cfg, shape, mesh_shape, names, microbatches=m, scopes=return_trace,
-                     detail=8 if return_trace else 0)
+                     detail=8 if return_trace else 0, remat=remat)
     chips = 1
     for s in mesh_shape:
         chips *= s
     rl = roofline_from_cost(res["cost"], chips, analytic_flops(cfg, shape))
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "chips": chips,
-           **({"config": "smoke"} if smoke else {}), "method": METHOD, "remat": False, "hardware": HW,
+           **({"config": "smoke"} if smoke else {}), "method": METHOD, "remat": remat, "hardware": HW,
            "memory": res["memory"], "cost": _cost_record(res["cost"]),
            "roofline": rl.as_dict(), "timing": res["timing"],
            "fallbacks": res["fallbacks"], "outputs": res["outputs"], "status": "ok"}
@@ -605,6 +608,9 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="the archs' SMOKE configs (a quick check, not the sweep)")
+    ap.add_argument("--remat", action="store_true",
+                    help="rematerialize each unit body in the train cells (the reference's "
+                         "default lowering; the golden cells are lowered without)")
     args = ap.parse_args(argv)
 
     archs = list(ARCH_IDS) if args.arch == "all" or args.all else [args.arch]
@@ -626,7 +632,7 @@ def main(argv=None) -> int:
                         print(f"[skip-existing] {tag}")
                         continue
                 try:
-                    rec = lower_cell(arch, shape, multi, smoke=args.smoke)
+                    rec = lower_cell(arch, shape, multi, smoke=args.smoke, remat=args.remat)
                 except Exception as e:  # a failure here is a fault of the sharded program
                     rec = {"arch": arch, "shape": shape, "mesh": "multi" if multi else "single",
                            "status": "failed", "error": f"{type(e).__name__}: {e}"[:2000],

@@ -17,12 +17,14 @@ list of results a rank.  A job's ``"kind"`` names its function:
   that ``DTensor`` issues, on this world's devices;
 * ``"faults"`` (:func:`faults_job`) — the local-shard helpers on the
   offsets of ranks other than 0 (``_sharded_nll``, ``write_seq``,
-  ``whole_product``'s backward, the flash and SSD backwards).
+  ``whole_product``'s backward, the flash and SSD backwards, the MoE's slot
+  positions, an MLA decode step over a sequence-split latent cache).
 
 Every value a job reports is gathered to a full tensor.  Each rank returns
 its sha256 under ``"digests"``, so that a caller can hold the ranks'
 replicated values to one another bit for bit; rank 0 also returns it as a
-numpy array under ``"arrays"`` (with ``keep=True``), and, given a
+numpy array under ``"arrays"`` (with ``keep=True``, or those whose names start
+with one of the prefixes ``keep`` gives), and, given a
 ``reference`` file (``torch.save`` of name -> tensor), every rank returns
 under ``"errors"`` its largest difference from the reference's tensor of
 that name, the reference's largest magnitude, and the largest difference
@@ -34,6 +36,7 @@ host-clock milliseconds (the card synchronized first).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import time
 
@@ -44,6 +47,7 @@ from .. import optim
 from ..configs import ShapeConfig, TrainConfig, get_config, get_smoke_config
 from ..kernels import build
 from ..models.lm import params_from_numpy
+from ..models.mlp import recorded_routes
 from ..models.model import build_model
 from ..parallel.sharding import gather_tree, shard_tree
 from .mesh import device_mesh
@@ -51,8 +55,8 @@ from .steps import (make_decode_step, make_prefill_step, make_train_step, named_
                     value_and_grad)
 
 __all__ = ["NAMES", "KERNELS", "BF16_RTOL", "JOBS", "run_jobs", "steps_job",
-           "train_loop_job", "collectives_job", "faults_job", "numpy_of", "n_prefix",
-           "input_records", "model_inputs", "batch_of"]
+           "train_loop_job", "collectives_job", "faults_job", "numpy_of", "n_prefix", "config_of",
+           "input_records", "model_inputs", "batch_of", "put_routes"]
 
 #: the mesh axes of every job
 NAMES = ("data", "model")
@@ -75,11 +79,11 @@ def numpy_of(t) -> np.ndarray:
 
 
 class _Report:
-    """A job's result: digests (every rank), arrays (rank 0, with ``keep``),
-    differences from a reference, launch counts and host-clock ms by
-    phase."""
+    """A job's result: digests (every rank), arrays (rank 0, with ``keep``:
+    True, or the name prefixes to keep), differences from a reference,
+    launch counts and host-clock ms by phase."""
 
-    def __init__(self, rank: int, device: torch.device, keep: bool = True,
+    def __init__(self, rank: int, device: torch.device, keep: bool | tuple = True,
                  reference: str | None = None):
         self.rank, self.device, self.keep = rank, device, keep
         # mapped, not read: the ranks of one host share its page cache, and
@@ -92,24 +96,32 @@ class _Report:
     def put(self, name: str, t) -> np.ndarray:
         a = numpy_of(t)
         self.out["digests"][name] = hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
-        if self.keep and self.rank == 0:
+        if self.keeps(name) and self.rank == 0:
             self.out["arrays"][name] = a
         if name in self.ref:
             self._hold(name, torch.from_numpy(a), self.ref[name])
         return a
 
+    def keeps(self, name: str) -> bool:
+        return self.keep is True or (bool(self.keep) and name.startswith(tuple(self.keep)))
+
     def _hold(self, name: str, got: torch.Tensor, want: torch.Tensor) -> None:
         """Record ``got``'s errors against the reference's ``want``, a block
         of :data:`HOLD_BLOCK` elements at a time (a vocabulary's gradient
-        in float64 at once would be ~3 GB a temporary on each rank)."""
+        in float64 at once would be ~3 GB a temporary on each rank), on
+        ``got``'s device (a rank's shard on the card: qwen3-moe's experts'
+        gradients are 2.4 GB of bf16 a rank)."""
         got, want = got.reshape(-1), want.reshape(-1)
-        err = mag = rel = float("-inf") if got.numel() else float("nan")
+        if not got.numel():
+            self.out["errors"][name] = (float("nan"),) * 3
+            return
+        acc = torch.full((3,), float("-inf"), dtype=torch.float64, device=got.device)
         for i in range(0, got.numel(), HOLD_BLOCK):
-            g, w = got[i: i + HOLD_BLOCK].double(), want[i: i + HOLD_BLOCK].double()
+            g = got[i: i + HOLD_BLOCK].double()
+            w = want[i: i + HOLD_BLOCK].to(got.device).double()
             d, a = (g - w).abs(), w.abs()
-            err, mag = max(err, float(d.max())), max(mag, float(a.max()))
-            rel = max(rel, float((d - BF16_RTOL * a).max()))
-        self.out["errors"][name] = (err, mag, rel)
+            acc = torch.maximum(acc, torch.stack((d.max(), a.max(), (d - BF16_RTOL * a).max())))
+        self.out["errors"][name] = tuple(acc.tolist())
 
     def put_tree(self, prefix: str, tree) -> None:
         for name, leaf in named_leaves(tree):
@@ -120,13 +132,13 @@ class _Report:
         """A tree of sharded values: gathered and put with ``keep``; else
         each rank's local shard held to its slice of the reference (no
         gather, no digest: the shards differ by rank)."""
-        if self.keep:
+        if self.keeps(prefix + "/"):
             self.put_tree(prefix, gather_tree(tree))
             return
         for name, leaf in named_leaves(tree):
             key = f"{prefix}/{name}"
             if leaf is not None and key in self.ref:
-                self._hold(key, _local(leaf), _local_slice(leaf, self.ref[key]))
+                self._hold(key, _local(leaf, host=False), _local_slice(leaf, self.ref[key]))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -149,14 +161,14 @@ class _Report:
             counts[k] += build.LAUNCHES[k]
 
 
-def _local(t) -> torch.Tensor:
-    """This rank's shard of ``t`` (``t`` itself if plain), on the host; a
-    partial sum reduced first."""
+def _local(t, host: bool = True) -> torch.Tensor:
+    """This rank's shard of ``t`` (``t`` itself if plain), on the host (or
+    where it is); a partial sum reduced first."""
     if hasattr(t, "device_mesh"):
         from torch.distributed.tensor import Replicate
         t = t.redistribute(t.device_mesh, tuple(Replicate() if p.is_partial() else p
                                                 for p in t.placements)).to_local()
-    return t.detach().cpu()
+    return t.detach().cpu() if host else t.detach()
 
 
 def _local_slice(t, full: torch.Tensor) -> torch.Tensor:
@@ -199,11 +211,23 @@ def batch_of(arrays: dict, specs: dict, device) -> dict:
     return {k: torch.from_numpy(np.asarray(arrays[k])).to(device, specs[k].dtype) for k in specs}
 
 
-def _model(arch: str, smoke: bool, dtype: str, n_layers: int | None, device):
+def config_of(arch: str, smoke: bool = True, dtype: str = "float32",
+              n_layers: int | None = None, capacity_factor: float | None = None):
+    """``arch``'s SMOKE or full config in ``dtype``, its depth cut to
+    ``n_layers`` and its MoE's capacity factor set to ``capacity_factor``
+    where given."""
     cfg = (get_smoke_config if smoke else get_config)(arch).scaled(dtype=dtype)
     if n_layers is not None:
         cfg = cfg.scaled(n_layers=n_layers)
-    return build_model(cfg, device=device)
+    if capacity_factor is not None:
+        cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def _model(arch: str, smoke: bool, dtype: str, n_layers: int | None, device,
+           remat: bool = False, capacity_factor: float | None = None):
+    return build_model(config_of(arch, smoke, dtype, n_layers, capacity_factor), device=device,
+                       remat=remat)
 
 
 def _params(model, params, seed: int, device):
@@ -212,6 +236,23 @@ def _params(model, params, seed: int, device):
     if params is not None:
         return params_from_numpy(model.cfg, params, device)
     return model.init_params(seed=seed)
+
+
+def _sharded_params(world, model, params, seed: int, device, shardings):
+    """:func:`_params` at ``shardings``.  Ranks that share one card (gloo on
+    CUDA) make theirs in turn, each freeing its whole tree before the next
+    starts: four whole trees at once can run the card out of memory (four
+    qwen3-moe layers' experts)."""
+    if world.backend != "gloo" or device.type != "cuda":
+        return shard_tree(_params(model, params, seed, device), shardings)
+    import torch.distributed as dist
+    out = None
+    for turn in range(world.size):
+        if turn == world.rank:
+            out = shard_tree(_params(model, params, seed, device), shardings)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
 
 
 def _at(tree, shardings) -> bool:
@@ -247,7 +288,8 @@ def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, inpu
               decode: int = 3, feed=None, train: int = 0, microbatches: int = 2,
               grads: bool = False, full_params: bool = True, train_layers: int | None = None,
               save_dir: str | None = None, resume_mesh: tuple | None = None,
-              keep: bool = True, reference: str | None = None, profile: bool = False) -> dict:
+              keep: bool | tuple = True, reference: str | None = None, profile: bool = False,
+              remat: bool = False, capacity_factor: float | None = None) -> dict:
     """``arch`` on ``mesh`` through the step makers:
 
     * the prefill of ``tokens`` (B, S) and the model's other ``inputs``
@@ -255,7 +297,8 @@ def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, inpu
       patches) into a cache of ``max_len`` (default the VLM's patches + S
       + decode), and ``decode`` greedy steps: each reports the argmax of
       the gathered logits as its token and feeds it, or ``feed[i]`` where
-      given;
+      given; each MoE layer's routes, slot positions and drops beside them
+      (``prefill/routes/<call>/...``, ``decode/<i>/routes/...``);
     * the sharded ``value_and_grad`` of the loss (``grads``);
     * ``train`` train steps (``TrainConfig(microbatches=...)``), parameters
       gathered after the first (``full_params``), leaf norms after each; a
@@ -266,26 +309,28 @@ def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, inpu
       the new mesh's shardings.
 
     ``params`` is a numpy tree, else the seeded init (the same on every
-    rank); ``n_layers`` cuts the model's depth.  With ``profile`` the
-    prefill runs once more under the profiler and its B3/B4 kernels are
-    counted by name."""
+    rank); ``n_layers`` cuts the model's depth, ``capacity_factor`` sets an
+    MoE's, and ``remat`` rematerializes the loss's unit bodies (the
+    gradients and train steps).  With ``profile`` the prefill runs under
+    the profiler and its B3/B4 kernels are counted by name."""
     rep = _Report(world.rank, device, keep, reference)
-    model = _model(arch, smoke, dtype, n_layers, device)
+    model = _model(arch, smoke, dtype, n_layers, device, remat, capacity_factor)
     dmesh = device_mesh(mesh, NAMES, device)
     b, s = tokens.shape
     s += n_prefix(model.cfg)                   # the sequence the cache holds
     max_len = max_len or s + decode
     specs, axes = input_records(model, b, tokens.shape[1])
     prefill, (p_sh, b_sh) = make_prefill_step(model, dmesh, specs, axes)
-    dparams = shard_tree(_params(model, params, seed, device), p_sh)
+    dparams = _sharded_params(world, model, params, seed, device, p_sh)
     batch = shard_tree(batch_of({"tokens": tokens, **(inputs or {})}, specs, device), b_sh)
-    with rep.phase("prefill"):
+    with rep.phase("prefill"), recorded_routes() as routes:
         if profile:
             run = lambda: prefill(dparams, batch, max_len=max_len)      # noqa: E731
             (logits, cache), rep.out["kernel_names"] = _kernel_names(run)
         else:
             logits, cache = prefill(dparams, batch, max_len=max_len)
     rep.put("prefill/logits", logits)
+    put_routes(rep.put, "prefill", routes)
     rep.put_shards("prefill/cache", cache)
     dec, (_, tok_sh, c_sh) = make_decode_step(model, dmesh, b, max_len)
     rep.out["cache_at_shardings"] = _at(cache, c_sh)
@@ -294,9 +339,10 @@ def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, inpu
         rep.put(f"decode/{i}/token", tok)
         if feed is not None:
             tok = torch.from_numpy(feed[i]).to(device)
-        with rep.phase("decode"):
+        with rep.phase("decode"), recorded_routes() as routes:
             logits, cache = dec(dparams, shard_tree(tok, tok_sh), cache, s + i)
         rep.put(f"decode/{i}/logits", logits)
+        put_routes(rep.put, f"decode/{i}", routes)
     if decode:
         rep.put_shards("decode/cache", cache)
     del cache, logits
@@ -304,11 +350,11 @@ def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, inpu
         return rep.out
     if train_layers is not None:
         del dparams
-        model = _model(arch, smoke, dtype, train_layers, device)
+        model = _model(arch, smoke, dtype, train_layers, device, remat, capacity_factor)
     tcfg = TrainConfig(microbatches=microbatches)
     step, (p_sh, o_sh, _), optimizer = make_train_step(model, dmesh, tcfg, specs, axes)
     if train_layers is not None:
-        dparams = shard_tree(_params(model, None, seed, device), p_sh)
+        dparams = _sharded_params(world, model, None, seed, device, p_sh)
     if grads:
         from torch.distributed.tensor.experimental import implicit_replication
         with rep.phase("grads"), implicit_replication():
@@ -322,7 +368,7 @@ def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, inpu
             dparams, opt_state, metrics = step(dparams, opt_state, batch)
         for k in ("loss", "grad_norm", "step"):
             rep.put(f"train/{i}/{k}", metrics[k])
-        if rep.keep:
+        if rep.keeps(f"train/{i}/leaf_norms"):
             norms = [float(torch.linalg.vector_norm(t.full_tensor().double()))
                      for _, t in named_leaves(dparams)]
             rep.put(f"train/{i}/leaf_norms", torch.tensor(norms, dtype=torch.float64))
@@ -337,6 +383,14 @@ def steps_job(world, device, *, arch: str, mesh: tuple, tokens: np.ndarray, inpu
     if device.type == "cuda":
         rep.out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
     return rep.out
+
+
+def put_routes(put, prefix: str, routes: list) -> None:
+    """An MoE's recorded routes (:func:`~repro_torch.models.mlp.recorded_routes`)
+    under ``prefix/routes/<call>/{top_e,pos,keep}``."""
+    for j, r in enumerate(routes):
+        for name in ("top_e", "pos", "keep"):
+            put(f"{prefix}/routes/{j}/{name}", getattr(r, name))
 
 
 def _resume(rep, model, optimizer, state: dict, directory: str, step: int, mesh: tuple,
@@ -363,7 +417,7 @@ def _resume(rep, model, optimizer, state: dict, directory: str, step: int, mesh:
         if a is not None:
             full = _tensor(stored[name])
             same.append(all(bool(torch.equal(_local(t), _local_slice(t, full))) for t in (a, r)))
-            if rep.keep:
+            if rep.keeps(f"restored/{name}"):
                 rep.put(f"restored/{name}", r)
     rep.out["resume"] = {"leaves": len(same), "equal": sum(same), "mesh": list(mesh),
                          "at_shardings": _at(restored, sh)}
@@ -451,7 +505,8 @@ def train_loop_job(world, device, *, arch: str, mesh: tuple, directory: str, ste
 def faults_job(world, device, *, mesh: tuple, nll: dict | None = None,
                seq: dict | None = None, product: dict | None = None, flash: dict | None = None,
                ssd: dict | None = None, embed: dict | None = None,
-               decode: dict | None = None, slstm: dict | None = None) -> dict:
+               decode: dict | None = None, slstm: dict | None = None,
+               moe: dict | None = None, mla: dict | None = None) -> dict:
     """The local-shard helpers on ``mesh`` (a 4-way ``model`` axis, so that
     ranks 1-3 hold shards at offsets other than 0), each given one on numpy
     inputs:
@@ -472,7 +527,13 @@ def faults_job(world, device, *, mesh: tuple, nll: dict | None = None,
       cache split along the sequence;
     * ``slstm`` {"pre", "r_h", "dout", "nh"}: the sLSTM's training scan over
       ``DTensor``s (``_slstm_local``; the batch split along ``data``) under
-      autograd.
+      autograd;
+    * ``moe`` {"top_e", "n_experts"}: the MoE's slot positions
+      (``slot_positions``) with the tokens split along ``model``;
+    * ``mla`` {"arch", "params", "x", "ckv", "krope", "kv_len"}: one MLA
+      decode step of ``arch``'s SMOKE config (``mla_forward``: the latent
+      cache write and the absorbed attention) over a latent cache split
+      along the sequence.
 
     Reports each output and gradient, gathered."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -553,6 +614,23 @@ def faults_job(world, device, *, mesh: tuple, nll: dict | None = None,
             rep.put("slstm/hs", hs)
             rep.put("slstm/dpre", pre.grad)
             rep.put("slstm/dr_h", r_h.grad)
+
+        if moe is not None:
+            from ..models.mlp import slot_positions
+            top_e = put(moe["top_e"], rep_, model_shard(0))
+            rep.put("moe/positions", slot_positions(top_e, int(moe["n_experts"])))
+
+        if mla is not None:
+            from ..models.attention import mla_forward
+            cache = {n: put(mla[n], rep_, model_shard(1)) for n in ("ckv", "krope")}
+            x, kv_len = put(mla["x"]), int(mla["kv_len"])
+            out, _ = mla_forward({k: put(v) for k, v in mla["params"].items()},
+                                 config_of(mla["arch"]), x,
+                                 torch.arange(x.shape[1], device=device) + kv_len,
+                                 mode="decode", cache=cache, kv_len=kv_len)
+            rep.put("mla/out", out)
+            for n in ("ckv", "krope"):
+                rep.put(f"mla/{n}", cache[n])
 
     return rep.out
 

@@ -49,6 +49,8 @@ The sharded step makers take a mesh (an abstract one or a ``DeviceMesh``,
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.profiler import record_function
 
@@ -107,22 +109,20 @@ def value_and_grad(loss_fn, params: dict, batch: dict):
 
 
 def _microbatch(v, i: int, m: int):
-    """Slice ``i`` of ``m`` along the batch axis: rows ``i * B/m`` onward of
-    a tensor; of a ``DTensor`` sharded along the batch, slice ``i`` of every
-    rank's rows (each rank runs its own microbatches, as a sharded data
-    loader feeds them), or, where a rank's rows do not split ``m`` ways,
-    rows ``i * B/m`` onward of the gathered batch."""
-    if hasattr(v, "device_mesh") and any(getattr(p, "dim", None) == 0 for p in v.placements):
-        from torch.distributed.tensor import DTensor, Replicate
-        local = v.to_local()
-        size = local.shape[0] // m
-        if local.shape[0] % m == 0:
-            return DTensor.from_local(local[i * size: (i + 1) * size], v.device_mesh,
-                                      v.placements, run_check=False,
-                                      shape=(v.shape[0] // m, *v.shape[1:]), stride=v.stride())
-        v = v.redistribute(v.device_mesh, tuple(Replicate() if getattr(p, "dim", None) == 0
-                                                else p for p in v.placements))
+    """Slice ``i`` of ``m`` along the batch axis: rows ``i * B/m`` onward,
+    as the reference's reshape to (m, B/m, ...) takes them (an MoE's
+    dispatch depends on which tokens share a microbatch).  A ``DTensor``
+    sharded along the batch is gathered along it, sliced, and split again at
+    its placements, or, where the microbatch's rows do not split that many
+    ways, kept whole on every rank of those axes."""
     size = v.shape[0] // m
+    if hasattr(v, "device_mesh") and any(getattr(p, "dim", None) == 0 for p in v.placements):
+        from torch.distributed.tensor import Replicate
+        mesh, pl = v.device_mesh, tuple(v.placements)
+        whole = tuple(Replicate() if getattr(p, "dim", None) == 0 else p for p in pl)
+        mb = v.redistribute(mesh, whole)[i * size: (i + 1) * size]
+        ways = math.prod(n for n, p in zip(mesh.shape, pl) if getattr(p, "dim", None) == 0)
+        return mb.redistribute(mesh, pl) if size % ways == 0 else mb
     return v[i * size: (i + 1) * size]
 
 

@@ -199,11 +199,30 @@ def mla_cache_axes(cfg):
     return {"ckv": ("batch", "cache_seq", None), "krope": ("batch", "cache_seq", None)}
 
 
-def _mla_project_q(p, cfg, x, positions):
+def _heads(y, h: int, dh: int):
+    """(..., h * dh) -> (..., h, dh); a ``DTensor`` is first gathered along
+    any mesh axis that splits the packed dim inside a head
+    (:func:`whole_heads`)."""
+    if hasattr(y, "device_mesh"):
+        y = whole_heads(y, h)
+    return y.reshape(*y.shape[:-1], h, dh)
+
+
+def _latent(x, w, whole: bool):
+    """``x @ w`` into one of MLA's latents (``wq_a``, ``wkv_a``: columns
+    split over no mesh axis).  Under ``DTensor``, with ``whole`` (train and
+    prefill) it is computed whole on every rank of the axes that store
+    ``w`` whole (:func:`whole_product`), as XLA computes the reference's
+    there, as GQA's K; else by ``DTensor``'s rule, which splits its columns
+    (as XLA does in decode)."""
+    return whole_product(x, w) if whole and hasattr(w, "device_mesh") else x @ w
+
+
+def _mla_project_q(p, cfg, x, positions, whole: bool):
     """(q_nope (B, S, H, dn), q_rope (B, S, H, dr) with rotary)."""
     h, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    b, s, _ = x.shape
-    q = (rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]).reshape(b, s, h, dn + dr)
+    q = _heads(rms_norm(_latent(x, p["wq_a"], whole), p["q_norm"], cfg.norm_eps) @ p["wq_b"],
+               h, dn + dr)
     cos, sin = rotary_embedding(positions, dr, cfg.rope_theta)
     return q[..., :dn], apply_rotary(q[..., dn:], cos, sin)
 
@@ -216,8 +235,9 @@ def mla_forward(p, cfg, x, positions, *, mode: str = "prefill", cache=None, kv_l
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
     b, s, _ = x.shape
-    q_nope, q_rope = _mla_project_q(p, cfg, x, positions)
-    kv = x @ p["wkv_a"]
+    whole = mode != "decode"
+    q_nope, q_rope = _mla_project_q(p, cfg, x, positions, whole)
+    kv = _latent(x, p["wkv_a"], whole)
     ckv = rms_norm(kv[..., :kvr], p["kv_norm"], cfg.norm_eps)
     cos, sin = rotary_embedding(positions, dr, cfg.rope_theta)
     k_rope = apply_rotary(kv[..., None, kvr:], cos, sin)[:, :, 0, :]
@@ -226,26 +246,25 @@ def mla_forward(p, cfg, x, positions, *, mode: str = "prefill", cache=None, kv_l
         write_seq(cache["ckv"], kv_len, ckv)
         write_seq(cache["krope"], kv_len, k_rope)
         # absorbed scores: q_nope through W_uk gives queries in the latent space
-        q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(),
-                             p["wk_b"].reshape(kvr, h, dn).float())
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), _heads(p["wk_b"], h, dn).float())
         ck, kr = cache["ckv"].float(), cache["krope"].float()
         scores = (torch.einsum("bshr,btr->bhst", q_lat, ck)
                   + torch.einsum("bshr,btr->bhst", q_rope.float(), kr)) / math.sqrt(dn + dr)
         valid = torch.arange(ck.shape[1], device=x.device) < kv_len + s
         attn = torch.softmax(scores.masked_fill(~valid, float("-inf")), dim=-1)
         ctx = torch.einsum("bhst,btr->bshr", attn, ck)
-        out = torch.einsum("bshr,rhv->bshv", ctx, p["wv_b"].reshape(kvr, h, dv).float())
+        out = torch.einsum("bshr,rhv->bshv", ctx, _heads(p["wv_b"], h, dv).float())
         out, new_cache = out.to(x.dtype), cache
     elif mode in ("train", "prefill"):
         # materialized per-head K and V, each built contiguous in (B, S, H, D)
         # so that the flash op reads them as they are
-        k = torch.cat([(ckv @ p["wk_b"]).reshape(b, s, h, dn),
+        k = torch.cat([_heads(ckv @ p["wk_b"], h, dn),
                        k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
-        v = (ckv @ p["wv_b"]).reshape(b, s, h, dv)
+        v = _heads(ckv @ p["wv_b"], h, dv)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                         causal=True, scale=float((dn + dr) ** -0.5)).transpose(1, 2)
         new_cache = {"ckv": ckv, "krope": k_rope} if mode == "prefill" else None
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    return out.reshape(b, s, h * dv) @ p["wo"], new_cache
+    return _out(p, out), new_cache

@@ -10,6 +10,7 @@ to ``x``'s dtype gives that here.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -20,6 +21,7 @@ from ..kernels.sharded import shard_offset
 
 __all__ = ["DTYPES", "dtype_of", "Init", "KeyStream", "Annotated", "param", "split_annotated",
            "lift_layers", "TensorSpec", "constrain", "distribute_tree", "write_seq",
+           "exclusive_cumsum",
            "embed_lookup", "column_sharded_product", "whole_product", "whole_heads",
            "flat_heads", "on_local_shards",
            "rms_norm", "layer_norm", "rotary_embedding", "apply_rotary", "softmax_cross_entropy"]
@@ -185,6 +187,31 @@ def write_seq(dst, start: int, val, axis: int = 1) -> None:
     lo, hi = max(start, off), min(start + n, off + local.shape[axis])
     if lo < hi:
         local.narrow(axis, lo - off, hi - lo).copy_(val.narrow(axis, lo - start, hi - lo))
+
+
+def exclusive_cumsum(x):
+    """``x.cumsum(0) - x``: each row's sum of the rows before it.  On a
+    ``DTensor`` split along dim 0 each rank takes its local cumsum and adds
+    the totals of the shards before its own, all-gathered along the axes
+    that split dim 0 (one row a shard, not the rows: the reference's
+    prefix + correction); the shard's rank in that order comes from its
+    offset (its mesh coordinate).  Other placements go through ``DTensor``'s
+    own cumsum."""
+    pl = tuple(getattr(x, "placements", ()))
+    split = [i for i, p in enumerate(pl) if getattr(p, "dim", None) == 0]
+    if not split or any(p.is_partial() for p in pl):
+        return x.cumsum(0) - x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    ways = math.prod(mesh.shape[i] for i in split)
+    if x.shape[0] % ways:
+        return x.cumsum(0) - x
+    local = x.to_local()
+    totals = _from_local(local.sum(0, keepdim=True), mesh, pl, (ways, *x.shape[1:]))
+    whole = tuple(Replicate() if i in split else p for i, p in enumerate(pl))
+    totals = totals.redistribute(mesh, whole).to_local()
+    before = totals[: shard_offset(x, 0) // local.shape[0]].sum(0)
+    return _from_local(local.cumsum(0) - local + before, mesh, pl, x.shape)
 
 
 def embed_lookup(table, tokens):

@@ -33,7 +33,7 @@ from .common import (Init, constrain, distribute_tree, dtype_of, embed_lookup, l
                      rms_norm, softmax_cross_entropy, write_seq)
 
 __all__ = [
-    "decompose_pattern", "init_lm", "lm_axes", "init_lm_cache", "lm_cache_axes", "lm_forward",
+    "decompose_pattern", "rematerialized", "init_lm", "lm_axes", "init_lm_cache", "lm_cache_axes", "lm_forward",
     "lm_loss", "lm_prefill", "pad_cache_to", "lm_decode_step", "params_from_numpy",
     "tree_from_numpy",
 ]
@@ -120,17 +120,35 @@ def _store(slot, new) -> None:
             slot[key].copy_(val)
 
 
-def _backbone(params, cfg, x, positions, *, mode, cache, kv_len):
+def rematerialized(body, remat: bool):
+    """``body`` (activations -> activations), run under
+    ``torch.utils.checkpoint`` (non-reentrant) where ``remat`` is on and
+    gradients are enabled: the reference's ``jax.checkpoint`` of a unit
+    body.  Its activations are not saved; the backward recomputes them."""
+    if not (remat and torch.is_grad_enabled()):
+        return body
+    from torch.utils.checkpoint import checkpoint
+    return lambda x: checkpoint(body, x, use_reentrant=False)
+
+
+def _backbone(params, cfg, x, positions, *, mode, cache, kv_len, remat=False):
     unit, n_full, tail = decompose_pattern(cfg)
     shared = params.get("shared_attn")
+
+    def unit_body(layer):
+        def run(x):
+            for i, tok in enumerate(unit):
+                p = shared if tok == "A" else _layer(params["blocks"][f"u{i}"], layer)
+                slot = None if cache is None else _layer(cache["blocks"][f"u{i}"], layer)
+                x, nc = blocks.block_forward(p, cfg, tok, x, positions, mode=mode,
+                                             cache=slot if mode == "decode" else None,
+                                             kv_len=kv_len)
+                _store(slot, nc)
+            return x
+        return run
+
     for layer in trace_hooks.loop("layers", n_full):
-        for i, tok in enumerate(unit):
-            p = shared if tok == "A" else _layer(params["blocks"][f"u{i}"], layer)
-            slot = None if cache is None else _layer(cache["blocks"][f"u{i}"], layer)
-            x, nc = blocks.block_forward(p, cfg, tok, x, positions, mode=mode,
-                                         cache=slot if mode == "decode" else None,
-                                         kv_len=kv_len)
-            _store(slot, nc)
+        x = rematerialized(unit_body(layer), remat and mode == "train")(x)
     for i, tok in enumerate(tail):
         slot = None if cache is None else cache["tail"][f"t{i}"]
         x, nc = blocks.block_forward(params["tail"][f"t{i}"], cfg, tok, x, positions, mode=mode,
@@ -161,25 +179,25 @@ def _embed_inputs(params, cfg, batch):
     return x, n_prefix
 
 
-def lm_forward(params, cfg, batch, *, mode, cache, kv_len=None):
+def lm_forward(params, cfg, batch, *, mode, cache, kv_len=None, remat=False):
     """Embed (``batch["tokens"]`` (B, S) and, for the VLM, its ``patches``),
-    run every block (filling ``cache``; None in ``train``), final norm.
-    Returns (x, n_prefix)."""
+    run every block (filling ``cache``; None in ``train``, where ``remat``
+    rematerializes each unit body), final norm.  Returns (x, n_prefix)."""
     x, n_prefix = _embed_inputs(params, cfg, batch)
     x = constrain(x, ("batch", "act_seq", "act_embed"))
     positions = torch.arange(x.shape[1], device=x.device)
     if mode == "decode":
         positions = positions + kv_len
-    x = _backbone(params, cfg, x, positions, mode=mode, cache=cache, kv_len=kv_len)
+    x = _backbone(params, cfg, x, positions, mode=mode, cache=cache, kv_len=kv_len, remat=remat)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), n_prefix
 
 
-def lm_loss(params, cfg, batch):
+def lm_loss(params, cfg, batch, *, remat=True):
     """Next-token cross-entropy over the text region of ``batch["tokens"]``
     (B, S) (after the VLM's patch prefix), with the optional
     ``batch["loss_mask"]`` (B, S) weighting the predicted tokens (the
-    reference's ``lm_loss``)."""
-    x, n_prefix = lm_forward(params, cfg, batch, mode="train", cache=None)
+    reference's ``lm_loss``; ``remat`` as its)."""
+    x, n_prefix = lm_forward(params, cfg, batch, mode="train", cache=None, remat=remat)
     tokens = batch["tokens"].to(x.device)
     logits = _logits(params, cfg, x[:, n_prefix:-1, :])
     mask = batch.get("loss_mask")

@@ -1,18 +1,23 @@
 """The Model facade (``repro.models.model``) for the LM zoo's serving and
 training paths.
 
-``build_model(cfg, device=None)`` returns a :class:`Model` with the
-reference's names:
+``build_model(cfg, device=None, *, remat=True)`` returns a :class:`Model`
+with the reference's names:
 
 * ``init_params(seed=0, host=False)`` — parameters drawn from a seeded
   ``torch.Generator`` on the model's device (on ``meta``: shapes only), or
   with ``host=True`` from threefry on the host (the same weights on every
   machine; slow: for smoke sizes);
 * ``loss(params, batch)`` — the scalar train loss (float32), differentiable
-  through autograd: B3 and B4 run under their autograd Functions;
+  through autograd: B3 and B4 run under their autograd Functions.  With
+  ``remat`` (the reference's default) and gradients enabled, each unit body
+  of the layer loop (whisper: each encoder and decoder layer) runs under
+  ``torch.utils.checkpoint`` (non-reentrant): its activations are not kept
+  for the backward, which recomputes the body's forward, as the reference's
+  ``jax.checkpoint`` does; the tail blocks stay outside;
 * ``prefill(params, batch, max_len=None)`` — (last-position logits, cache);
 * ``decode_step(params, token, cache, kv_len)`` — (logits, cache), writing
-  the step into ``cache``;
+  the step into ``cache`` (prefill and decode never remat);
 * ``init_cache(batch, max_len)``;
 * ``param_axes()`` / ``cache_axes()`` — the logical-sharding trees of the
   parameters and the cache (same structure; one name or None a dim), which
@@ -66,6 +71,7 @@ def _serving(fn):
 class Model:
     cfg: ModelConfig
     device: torch.device
+    remat: bool = True
 
     @property
     def _audio(self) -> bool:
@@ -84,8 +90,8 @@ class Model:
         """The train loss of ``batch`` (``tokens`` (B, S), and for whisper
         ``audio_embed`` (B, encoder_seq, d); optionally ``loss_mask``)."""
         if self._audio:
-            return whisper.whisper_loss(params, self.cfg, batch)
-        return lm.lm_loss(params, self.cfg, batch)
+            return whisper.whisper_loss(params, self.cfg, batch, remat=self.remat)
+        return lm.lm_loss(params, self.cfg, batch, remat=self.remat)
 
     @_serving
     def prefill(self, params, batch, max_len: int | None = None):
@@ -142,11 +148,13 @@ class Model:
                 for k, r in specs.items() if k != "kv_len"}
 
 
-def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:
-    """The model's serving handle; raises for what is not ported yet."""
+def build_model(cfg: ModelConfig, device: str | torch.device | None = None, *,
+                remat: bool = True) -> Model:
+    """The model's serving handle (``remat``: the train loss rematerializes
+    each unit body); raises for what is not ported yet."""
     for tok in set("ec" if cfg.family == "audio" else cfg.pattern()):
         blocks.check_supported(cfg, tok)
-    return Model(cfg, resolve_device(device))
+    return Model(cfg, resolve_device(device), remat)
 
 
 def count_params(model: Model) -> int:

@@ -20,7 +20,7 @@ from .. import trace_hooks
 from . import blocks
 from .common import (Init, distribute_tree, dtype_of, embed_lookup, lift_layers, rms_norm,
                      softmax_cross_entropy)
-from .lm import _layer, _store
+from .lm import _layer, _store, rematerialized
 
 __all__ = ["init_whisper", "whisper_axes", "init_whisper_cache", "whisper_cache_axes",
            "whisper_loss", "whisper_prefill", "whisper_decode_step"]
@@ -59,35 +59,45 @@ def whisper_cache_axes(cfg):
     return lift_layers(blocks.block_cache_axes(cfg, "c"))
 
 
-def _encode(params, cfg, audio_embed):
+def _encode(params, cfg, audio_embed, remat=False):
     x = audio_embed.to(params["embed"].dtype) + params["enc_pos"][None]
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def body(layer):
+        return lambda x: blocks.block_forward(_layer(params["encoder"], layer), cfg, "e", x,
+                                              positions, mode="train")[0]
     for layer in trace_hooks.loop("encoder", cfg.encoder_layers):
-        x, _ = blocks.block_forward(_layer(params["encoder"], layer), cfg, "e", x, positions,
-                                    mode="train")
+        x = rematerialized(body(layer), remat)(x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _decode_stack(params, cfg, x, positions, enc_out, *, mode, cache, kv_len):
+def _decode_stack(params, cfg, x, positions, enc_out, *, mode, cache, kv_len, remat=False):
+    def body(layer):
+        def run(x):
+            slot = None if cache is None else _layer(cache, layer)
+            x, nc = blocks.block_forward(_layer(params["decoder"], layer), cfg, "c", x,
+                                         positions, mode=mode,
+                                         cache=slot if mode == "decode" else None,
+                                         kv_len=kv_len, enc_out=enc_out)
+            _store(slot, nc)
+            return x
+        return run
     for layer in trace_hooks.loop("decoder", cfg.n_layers):
-        slot = None if cache is None else _layer(cache, layer)
-        x, nc = blocks.block_forward(_layer(params["decoder"], layer), cfg, "c", x, positions,
-                                     mode=mode, cache=slot if mode == "decode" else None,
-                                     kv_len=kv_len, enc_out=enc_out)
-        _store(slot, nc)
+        x = rematerialized(body(layer), remat and mode == "train")(x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def whisper_loss(params, cfg, batch):
+def whisper_loss(params, cfg, batch, *, remat=True):
     """Encode ``batch["audio_embed"]`` (B, encoder_seq, d), run the decoder
     over ``batch["tokens"]`` (B, S) and return the next-token
-    cross-entropy (the reference's ``whisper_loss``)."""
+    cross-entropy (the reference's ``whisper_loss``; with ``remat`` each
+    encoder and decoder layer is rematerialized)."""
     device = params["embed"].device
     tokens = batch["tokens"].to(device)
-    enc_out = _encode(params, cfg, batch["audio_embed"].to(device))
+    enc_out = _encode(params, cfg, batch["audio_embed"].to(device), remat)
     x = _decode_stack(params, cfg, embed_lookup(params["embed"], tokens),
                       torch.arange(tokens.shape[1], device=device), enc_out, mode="train",
-                      cache=None, kv_len=None)
+                      cache=None, kv_len=None, remat=remat)
     return softmax_cross_entropy(x[:, :-1, :] @ params["embed"].T, tokens[:, 1:])
 
 

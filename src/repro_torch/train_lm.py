@@ -55,7 +55,7 @@ def make_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir, save_every: in
     """The training loop of ``cfg`` on ``device`` (the card unless named):
     parameters ``params`` (default: ``init_params(seed=0)`` on the device),
     a fresh AdamW state, and the token stream of seed 0."""
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, device=device, remat=False)   # as the reference's example
     tcfg = train_config(steps)
     optimizer = make_optimizer(tcfg)
     if params is None:
@@ -86,7 +86,7 @@ def main(argv=None) -> int:
     cfg = get_smoke_config(args.arch)
     if cfg.block_pattern is None:
         cfg = cfg.scaled(n_layers=args.layers)
-    model = build_model(cfg, device=args.device)
+    model = build_model(cfg, device=args.device, remat=False)
     print(f"[model] {args.arch} (reduced): {count_params(model) / 1e6:.2f}M params on "
           f"{model.device}")
     loop = make_loop(cfg, steps=args.steps, batch=args.batch, seq=args.seq,

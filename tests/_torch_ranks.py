@@ -35,6 +35,7 @@ from repro_torch import optim
 from repro_torch.configs import TrainConfig, get_smoke_config
 from repro_torch.launch import make_optimizer, make_train_fn, named_leaves, ranks, value_and_grad
 from repro_torch.models.lm import params_from_numpy
+from repro_torch.models.mlp import recorded_routes
 from repro_torch.models.model import build_model
 from repro_torch.parallel.data import run_ranks
 
@@ -43,6 +44,9 @@ B, S, DECODE = 8, 16, 3
 TOL_STEP = 1e-5          # logits, cache: x max(1, |x|)
 TOL_LOSS = 1e-5          # relative
 TOL_LEAF = 1e-4          # x max(1, max|x|)
+#: the MoE archs' SMOKE capacity factor in the rank tests: small enough that
+#: every step drops slots (the default 1.25 leaves some steps without drops)
+MOE_CAPACITY = {"qwen3-moe-235b-a22b": 1.0, "kimi-k2-1t-a32b": 1.0}
 GOLDEN = json.loads((Path(__file__).parent / "golden" / "torch_sharded_steps.json").read_text())
 
 
@@ -51,8 +55,13 @@ def cell_id(cell) -> str:
     return f"{d}x{m}-{arch}"
 
 
-def model(arch: str):
-    return build_model(get_smoke_config(arch).scaled(dtype="float32"), device="cpu")
+def smoke_config(arch: str):
+    """``arch``'s SMOKE config in float32 (an MoE at :data:`MOE_CAPACITY`)."""
+    return ranks.config_of(arch, capacity_factor=MOE_CAPACITY.get(arch))
+
+
+def model(arch: str, remat: bool = False):
+    return build_model(smoke_config(arch), device="cpu", remat=remat)
 
 
 def params(arch: str) -> dict:
@@ -81,11 +90,11 @@ def golden_steps(arch: str) -> bool:
     return arch in GOLDEN.get("archs", {})
 
 
-def step_jobs(archs, prm: dict, arrays: dict) -> list:
+def step_jobs(archs, prm: dict, arrays: dict, remat: bool = False) -> list:
     """A steps job a (mesh, arch) cell: prefill, greedy decode, the sharded
     ``value_and_grad`` and train steps (two where the golden file holds the
     reference's own sharded steps, on (2, 2): the same global batch as its
-    (2, 4))."""
+    (2, 4)); with ``remat`` the loss rematerializes its unit bodies."""
     jobs = []
     for mesh in MESHES:
         for arch in archs:
@@ -96,29 +105,38 @@ def step_jobs(archs, prm: dict, arrays: dict) -> list:
                              inputs={k: v for k, v in arrays[arch].items() if k != "tokens"},
                              params=prm[arch], max_len=ranks.n_prefix(
                                  get_smoke_config(arch)) + S + DECODE,
-                             decode=DECODE, train=n_train, grads=True))
+                             decode=DECODE, train=n_train, grads=True, remat=remat,
+                             capacity_factor=MOE_CAPACITY.get(arch)))
     return jobs
 
 
-def single(arch: str, prm: dict, arrays: dict, max_len: int | None = None) -> dict:
+def single(arch: str, prm: dict, arrays: dict, max_len: int | None = None,
+           remat: bool = False) -> dict:
     """The port in this process: prefill (into a cache of ``max_len``,
     default the prompt and the decode steps), greedy decode, value_and_grad
     and one train step."""
-    mdl = model(arch)
+    mdl = model(arch, remat)
     cfg = mdl.cfg
     p = params_from_numpy(cfg, prm, "cpu")
     specs, _ = ranks.input_records(mdl, B, S)
     batch = ranks.batch_of(arrays, specs, "cpu")
     s = S + ranks.n_prefix(cfg)
     out = {}
-    logits, cache = mdl.prefill(p, batch, max_len=max_len or s + DECODE)
+    def put(name, t):
+        out[name] = ranks.numpy_of(t)
+
+    with recorded_routes() as routes:
+        logits, cache = mdl.prefill(p, batch, max_len=max_len or s + DECODE)
     out["prefill/logits"] = logits.numpy()
+    ranks.put_routes(put, "prefill", routes)
     out.update({f"prefill/cache/{k}": v.numpy().copy() for k, v in named_leaves(cache)})
     for i in range(DECODE):
         tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         out[f"decode/{i}/token"] = tok.numpy()
-        logits, cache = mdl.decode_step(p, tok, cache, s + i)
+        with recorded_routes() as routes:
+            logits, cache = mdl.decode_step(p, tok, cache, s + i)
         out[f"decode/{i}/logits"] = logits.numpy()
+        ranks.put_routes(put, f"decode/{i}", routes)
     out.update({f"decode/cache/{k}": v.numpy() for k, v in named_leaves(cache)})
     loss, grads = value_and_grad(mdl.loss, p, batch)
     out["grads/loss"] = loss.numpy()
@@ -131,12 +149,21 @@ def single(arch: str, prm: dict, arrays: dict, max_len: int | None = None) -> di
     return out
 
 
-def reference(arch: str, prm: dict, arrays: dict) -> dict:
+def reference_config(arch: str):
+    """The reference's SMOKE config of ``arch`` as :func:`smoke_config`'s."""
+    import dataclasses
+    jcfg = jax_get_smoke_config(arch).scaled(dtype="float32")
+    if arch in MOE_CAPACITY:
+        jcfg = jcfg.scaled(moe=dataclasses.replace(jcfg.moe, capacity_factor=MOE_CAPACITY[arch]))
+    return jcfg
+
+
+def reference(arch: str, prm: dict, arrays: dict, remat: bool = False) -> dict:
     """The JAX package on one device: ``jax.value_and_grad`` of its loss and
     one step of its ``make_train_fn``, on the same batch (the frames and
     patches in bfloat16)."""
-    jcfg = jax_get_smoke_config(arch).scaled(dtype="float32")
-    jm = jax_build_model(jcfg, remat=False, attn_impl="chunked", ssd_impl="chunked")
+    jm = jax_build_model(reference_config(arch), remat=remat, attn_impl="chunked",
+                         ssd_impl="chunked")
     jp = jax.tree.map(jnp.asarray, prm)
     batch = {k: jnp.asarray(v) if k == "tokens" else jnp.asarray(v, jnp.bfloat16)
              for k, v in arrays.items()}
@@ -151,17 +178,18 @@ def reference(arch: str, prm: dict, arrays: dict) -> dict:
     return out
 
 
-def run(archs, extra_jobs: list) -> dict:
+def run(archs, extra_jobs: list, remat: bool = False) -> dict:
     """The world (steps of every cell, then ``extra_jobs``), with the single
-    process and the reference computed while it runs."""
+    process and the reference computed while it runs (``remat`` in all
+    three)."""
     prm = {arch: params(arch) for arch in archs}
     arrays = {arch: inputs(arch) for arch in archs}
-    jobs = step_jobs(archs, prm, arrays) + extra_jobs
+    jobs = step_jobs(archs, prm, arrays, remat) + extra_jobs
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         world = pool.submit(run_ranks, ranks.run_jobs, 4, backend="gloo", device="cpu",
                             timeout_s=600, args=(jobs,))
-        single_ = {arch: single(arch, prm[arch], arrays[arch]) for arch in archs}
-        ref = {arch: reference(arch, prm[arch], arrays[arch]) for arch in archs}
+        single_ = {arch: single(arch, prm[arch], arrays[arch], remat=remat) for arch in archs}
+        ref = {arch: reference(arch, prm[arch], arrays[arch], remat) for arch in archs}
         per_rank = world.result()
     cells = [(m, a) for m in MESHES for a in archs]
     return {"cells": {cell: [r[j] for r in per_rank] for j, cell in enumerate(cells)},
@@ -176,7 +204,7 @@ def check_prefill_and_decode(runs, cell):
     keys = [k for k in want if k.startswith(("prefill/", "decode/"))]
     assert len(keys) > 2 * DECODE + 2
     for k in keys:
-        if k.endswith("/token"):
+        if k.endswith("/token") or "/routes/" in k:      # tokens, MoE routes and drops
             assert np.array_equal(got["arrays"][k], want[k]), k
         else:
             within(got["arrays"][k], want[k], TOL_STEP, k)
@@ -227,6 +255,7 @@ def check_golden(runs, arch):
     assert gold["params_sha256"] == params_sha256(runs["params"][arch])
     assert gold["inputs_sha256"] == params_sha256(runs["arrays"][arch])
     assert gold["devices"] == 8 and tuple(gold["mesh"].values()) == (2, 4)
+    assert gold.get("capacity_factor") == MOE_CAPACITY.get(arch)
     for i, step in enumerate(gold["steps"]):
         assert float(got[f"train/{i}/step"]) == step["step"]
         assert float(got[f"train/{i}/loss"]) == pytest.approx(step["loss"], rel=TOL_LOSS)

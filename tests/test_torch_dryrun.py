@@ -2,13 +2,15 @@
 ``roofline``, ``perfprobe``) held to the reference's (``repro.launch.dryrun``
 and ``repro.utils.hlo.analyze_hlo``).
 
-* (a) SMOKE configs of a dense GQA arch, an MoE arch and zamba2-7b x train /
-  prefill / decode, and xlstm-350m's prefill and train step, on a (2, 4) mesh: the
+* (a) SMOKE configs of a dense GQA arch, minicpm3-4b's MLA, an MoE arch and
+  zamba2-7b x train / prefill / decode, and xlstm-350m's prefill and train
+  step, on a (2, 4) mesh: the
   reference lowers them with XLA on 8 host devices (``memory_analysis()``,
   ``analyze_hlo``), the port traces its own step over a fake 8-rank world;
 * (b) the golden cells of ``tests/golden/torch_dryrun.json`` (written by
   ``scripts/make_dryrun_golden.py`` from the reference at 256 and 512 host
-  devices);
+  devices), and internlm2-1.8b's two train cells traced with ``remat`` held
+  to the reference's default lowering (``remat_default``) in that file;
 * (c) collectives: none on a 1 x 1 mesh, some in every golden cell where the
   reference has some;
 * (d) the roofline's arithmetic on hand-made ``StepCost`` records;
@@ -39,7 +41,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = json.loads((ROOT / "tests" / "golden" / "torch_dryrun.json").read_text())
 GOLDEN_CELLS = sorted(GOLDEN["cells"])
-SMALL_ARCHS = ("internlm2-1.8b", "qwen3-moe-235b-a22b", "zamba2-7b")
+SMALL_ARCHS = ("internlm2-1.8b", "minicpm3-4b", "qwen3-moe-235b-a22b", "zamba2-7b")
 SMALL_SHAPES = {"train": (64, 8), "prefill": (64, 4), "decode": (64, 8)}   # (seq, batch)
 SMALL_MICROBATCHES = 2
 # and the sLSTM's time loop over local shards (xlstm-350m's prefill; its
@@ -47,6 +49,9 @@ SMALL_MICROBATCHES = 2
 # recompute the reference does not: XLSTM_TRAIN, held on its own below)
 SMALL_CELLS = [f"{a}:{k}" for a in SMALL_ARCHS for k in SMALL_SHAPES] + ["xlstm-350m:prefill"]
 XLSTM_TRAIN = "xlstm-350m:train"
+# the golden train cells whose reference record holds its default lowering
+# (remat on) beside the golden one
+REMAT_CELLS = ("internlm2-1.8b__train_4k__single", "internlm2-1.8b__train_4k__multi")
 TUPLE_ENTRY = 8     # XLA's CPU memory analysis: one pointer an output leaf
 _REF_CHILD = textwrap.dedent(r"""
     import json, os, sys
@@ -105,9 +110,9 @@ _PORT_CHILD = textwrap.dedent(r"""
     shapes, m, jobs = json.loads(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
     out = {}
     for job in jobs:
-        if job.count("__") == 2:                       # a golden cell
-            arch, shape, mesh = job.split("__")
-            rec = lower_cell(arch, shape, mesh == "multi")
+        if job.count("__") >= 2:                       # a golden cell, maybe with __remat
+            arch, shape, mesh, *remat = job.split("__")
+            rec = lower_cell(arch, shape, mesh == "multi", remat=bool(remat))
             out[job] = {"memory": rec["memory"], "cost": rec["cost"],
                         "roofline": rec["roofline"], "outputs": rec["outputs"]}
             continue
@@ -157,7 +162,8 @@ def runs():
     procs = [_start(_REF_CHILD, SMALL_CELLS + [XLSTM_TRAIN]),
              _start(_PORT_CHILD, [f"{c}:2x4" for c in SMALL_CELLS]
                     + ["internlm2-1.8b:train:1x1"] + [c for c in GOLDEN_CELLS if c not in trains]),
-             _start(_PORT_CHILD, trains + [f"{XLSTM_TRAIN}:2x4"])]
+             _start(_PORT_CHILD, trains + [f"{c}__remat" for c in REMAT_CELLS]
+                    + [f"{XLSTM_TRAIN}:2x4"])]
     ref, port, port_train = (_result(p) for p in procs)
     port.update(port_train)
     return ref, port
@@ -279,6 +285,27 @@ def test_golden_cell_matches_reference(runs, cell):
         print(f"{cell}: prefill output bytes {p['memory']['output_bytes']} against the "
               f"reference's {ref['memory']['output_bytes'] - TUPLE_ENTRY * len(ref['outputs'])}"
               " (its cache in XLA's unconstrained layout)")
+
+
+@pytest.mark.parametrize("cell", REMAT_CELLS)
+def test_remat_cell_matches_reference_default_lowering(runs, cell):
+    """``remat=True`` (``build_model``'s default, as the reference's): the
+    backward recomputes each unit's forward, which the golden file's
+    ``remat_default`` record (the reference's default lowering) counts;
+    its per-device flops within the same 5 %, and well above the cell's
+    own lowering without remat."""
+    _, port = runs
+    ref = GOLDEN["cells"][cell]
+    got = port[f"{cell}__remat"]["roofline"]["flops_per_device"]
+    want = ref["remat_default"]["hlo_cost"]["flops_per_device"]
+    plain = port[cell]["roofline"]["flops_per_device"]
+    print(f"{cell} remat: per-device flops {got:.6g} against the reference's default lowering "
+          f"{want:.6g} ({got / want:.4f}x); without remat {plain:.6g} (reference "
+          f"{ref['hlo_cost']['flops_per_device']:.6g})")
+    assert port[f"{cell}__remat"]["memory"]["argument_bytes"] == port[cell]["memory"][
+        "argument_bytes"]
+    assert abs(got / want - 1) <= 0.05
+    assert got > 1.2 * plain
 
 
 # ---------------------------------------------------------------- (c) collectives
