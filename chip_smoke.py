@@ -338,7 +338,19 @@ Run from the repository root:  python3 chip_smoke.py
    single-process call on the card (run first, then freed); each rank's
    B3/B4 launches by counter and by profiler name, every replicated value
    equal across ranks; B3 and B4 at the ranks' local shapes held to their
-   plain versions and timed.
+   plain versions and timed;
+48. (between 4 and 11) the decode_bf16 path, with the launch counters
+   reset just before and read just after: RespectScheduler.from_release(
+   decode_bf16=True) on the ten Table-I and 64 synthetic graphs (one
+   ptr_decode_cluster_bf16 a bucket, nothing else of B1) and
+   init(seed=0, decode_bf16=True) on the synthetic ones (one
+   ptr_decode_block_bf16), their digests against
+   tests/golden/torch_bf16_schedules.json (the JAX package's bf16 schedules)
+   and the CPU plain bf16 path; (with 5) the two bf16 templates held to the
+   plain bf16 version at bucket 1024, B = 4 and bucket 32, B = 64 (hidden
+   128) and bucket 32, B = 64 (hidden 256), their device time in turns with
+   the float32 twin's, their bound at 2 bytes an element; (with 10) the
+   templates the path ran by profiler name.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -348,6 +360,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import hashlib
 import json
 import math
@@ -363,6 +376,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "dnn_schedules.json"
 SEEDED_GOLDEN = ROOT / "tests" / "golden" / "torch_seeded_schedules.json"
+BF16_GOLDEN = ROOT / "tests" / "golden" / "torch_bf16_schedules.json"
 sys.path.insert(0, str(ROOT / "src"))
 try:     # the H100's published peaks, the dry run's roofline's (one home for them)
     from repro_torch.launch.roofline import HW
@@ -469,6 +483,54 @@ def device_ms(fn, name: str, iters: int, attempts: int = 3) -> float:
     raise SmokeFailure(f"profiler saw {seen} {name} kernels in windows of {calls} calls")
 
 
+def turns_ms(calls: dict, order: tuple, iters: int, attempts: int = 3) -> dict[str, list]:
+    """Device time, in ms, of each turn of ``order`` in one profiled()
+    window: ``calls`` maps a kernel's exact name to a call that launches it
+    once; a turn is ``2 iters + 2`` calls of its name's, then a one-cycle spin
+    kernel that ends it, and reads the mean of its last ``iters`` kernels.
+    Fails if a turn ran a kernel of another name of ``calls``.  A window that
+    shows fewer than ``iters`` kernels in a turn is profiled again with twice
+    the calls, up to ``attempts`` times.  Returns each name's turns, in
+    order."""
+    import torch
+    from torch.autograd import DeviceType
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for attempt in range(attempts):
+        n_calls = 2 ** (attempt + 1) * iters + 2
+        with profiled() as prof:
+            for name in order:
+                for _ in range(n_calls):
+                    calls[name]()
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                        for e in prof.events() if e.device_type == DeviceType.CUDA
+                        and (e.name in calls or "spin_kernel" in e.name))
+        # the turns start at the first kernel of a call (the lead-in's spin
+        # kernels come before it); each later spin kernel ends one
+        first = next((i for i, ev in enumerate(events) if ev[1] in calls), len(events))
+        turns, cur = [], []
+        for _, name, us in events[first:]:
+            if name in calls:
+                cur.append((name, us))
+            else:
+                turns.append(cur)
+                cur = []
+        for name, turn in zip(order, turns):
+            check(all(nm == name for nm, _ in turn),
+                  f"a turn of {name} ran {sorted({nm for nm, _ in turn})}")
+        if len(turns) == len(order) and all(len(t) >= iters for t in turns):
+            out = {name: [] for name in order}
+            for name, turn in zip(order, turns):
+                out[name].append(sum(us for _, us in turn[-iters:]) / iters / 1e3)
+            return out
+        seen.append([len(t) for t in turns])
+    raise SmokeFailure(f"profiler saw turns of {seen} kernels, {order} of {iters} wanted")
+
+
 def profile_kernels(fn) -> list[tuple[str, float, float]]:
     """(name, start, end), in microseconds and by start, of every device
     kernel one profiled call of ``fn`` ran."""
@@ -519,15 +581,20 @@ def frontier_sizes(graph, order) -> list[int]:
     return sizes
 
 
-def decode_work(graphs, orders, n: int, H: int, D: int) -> tuple[float, float]:
+def decode_work(graphs, orders, n: int, H: int, D: int,
+                itemsize: int = 4) -> tuple[float, float]:
     """(bytes, flops) a whole decode of ``graphs`` padded to ``n`` needs:
     every real row of C, CWg, CWp and emb read once, the weights once, the
     outputs written once; per real step the gate products, the two query
-    products and the frontier rows' scores, softmax and glimpse."""
-    w_bytes = 4 * (2 * H * 4 * H + 4 * H + 4 * H * H + 3 * H)   # wx, wh, b, 4 HxH, v, v, dec0
+    products and the frontier rows' scores, softmax and glimpse.  C, CWg,
+    CWp, emb, wx, wh, the two query weights, v, v and dec0 count
+    ``itemsize`` bytes an element (2 for the bf16 templates); the bias, the
+    two W_ref, h0, c0, the indices and the outputs 4."""
+    w_bytes = (itemsize * (2 * H * 4 * H + 2 * H * H + 3 * H)   # wx, wh, 2 w_q, v, v, dec0
+               + 4 * (4 * H + 2 * H * H))                        # b, 2 w_ref
     nbytes, flops = float(w_bytes), 0.0
     for g, o in zip(graphs, orders):
-        nbytes += 4 * (4 * g.n * H + 2 * H + n * D + 1) + 3 * 4 * n
+        nbytes += itemsize * 4 * g.n * H + 4 * (2 * H + n * D + 1) + 3 * 4 * n
         flops += g.n * 2 * 2 * H * H              # C @ W_ref of both heads
         for m in frontier_sizes(g, o):
             flops += 2 * 2 * H * 4 * H + 10 * H    # gates (x and h halves) + cell
@@ -938,6 +1005,98 @@ def seeded_phase(card: str, sched, seeded: dict, table1, names, synth, hetero_gr
               f"{statistics.mean(smp) / statistics.mean(g):.3f}); selectable rows summed over "
               f"the real steps: greedy {rows[0]}, sampled {rows[1]}", flush=True)
     del seeded
+
+
+# ---------------------------------------------------------------------- #
+# the decode_bf16 path: B1's bf16 storage templates
+# ---------------------------------------------------------------------- #
+def bf16_path(card: str, table1, names, synth) -> tuple[dict, dict, float]:
+    """The decode_bf16 path, counted: RespectScheduler.from_release(
+    decode_bf16=True) on the Table-I and synthetic graphs runs one
+    ptr_decode_cluster_bf16 a bucket and nothing else of B1, init(seed=0,
+    decode_bf16=True) on the synthetic ones one ptr_decode_block_bf16; their
+    digests equal the JAX package's bf16 schedules (BF16_GOLDEN) and the CPU
+    plain bf16 path.  Returns the path's launches, the two schedulers (for
+    the profiler's names, read late) and the seconds it took."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RespectScheduler
+    from repro_torch.core.batching import bucketize
+    from repro_torch.kernels.ptr import ops
+
+    t0 = time.perf_counter()
+    gold = json.loads(BF16_GOLDEN.read_text())
+    check(gold["meta"]["table1"] == names, "bf16 golden: Table-I graphs differ")
+    scheds = {"respect-v1": RespectScheduler.from_release(decode_bf16=True),
+              "init_seed0": RespectScheduler.init(seed=0, decode_bf16=True)}
+    batches = {"respect-v1": table1 + synth, "init_seed0": synth}
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    res, ran = {}, {}
+    for label, sched in scheds.items():
+        before = dict(ops.LAUNCHES)
+        res[label] = sched.schedule_many(batches[label], STAGES, use_cache=False)
+        torch.cuda.synchronize()
+        ran[label] = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+    launches = dict(ops.LAUNCHES)
+    n_buckets = len(bucketize(table1 + synth))
+    for label, template, count in (("respect-v1", "ptr_decode_cluster_bf16", n_buckets),
+                                   ("init_seed0", "ptr_decode_block_bf16", 1)):
+        want = {k: count * (k == template) for k in launches}
+        check(ran[label] == want, f"decode_bf16 {label}: launches {ran[label]}, expected "
+              f"{count} {template} and nothing else")
+
+    want = {k: [gold["table1"][nm][k] for nm in names] + gold["synthetic"]["respect-v1"][k]
+            for k in ("order_sha256", "assign_sha256")}
+    bad = digest_misses(schedule_digests(res["respect-v1"]), want)
+    check(not bad, f"decode_bf16 respect-v1: graphs {bad} differ from the bf16 golden file")
+    bad = digest_misses(schedule_digests(res["init_seed0"]), gold["synthetic"]["init_seed0"])
+    check(not bad, f"decode_bf16 init(seed=0): graphs {bad} differ from the bf16 golden file")
+    f32 = json.loads(GOLDEN.read_text())["models"]
+    differ = [nm for nm, r in zip(names, res["respect-v1"])
+              if digest(r["order"]) != f32[nm]["order_sha256"]]
+    check(differ == gold["table1_differs_from_f32"]["order"],
+          f"decode_bf16: Table-I orders that differ from float32 {differ}")
+    cpu = {"respect-v1": RespectScheduler.from_release(device="cpu", decode_bf16=True),
+           "init_seed0": RespectScheduler.init(seed=0, device="cpu", decode_bf16=True)}
+    for label, sched in cpu.items():
+        want = sched.schedule_many(batches[label], STAGES, use_cache=False)
+        bad = [i for i, (r, rc) in enumerate(zip(res[label], want))
+               if not (np.array_equal(r["order"], rc["order"])
+                       and np.array_equal(r["assignment"], rc["assignment"]))]
+        check(not bad, f"decode_bf16 {label}: graphs {bad} differ from the CPU plain bf16 path")
+    sec = time.perf_counter() - t0
+    print(f"decode_bf16 path on {card}: respect-v1 on {len(table1)} Table-I and {len(synth)} "
+          f"synthetic graphs ran {n_buckets} ptr_decode_cluster_bf16 launches, init(seed=0) on "
+          f"the synthetic ones 1 ptr_decode_block_bf16 (counted {launches}); every order and "
+          f"assignment digest equals the JAX package's bf16 schedules and the CPU plain bf16 "
+          f"path; Table-I orders that differ from float32: {differ} ({sec:.1f} s)", flush=True)
+    return launches, {"respect-v1": (scheds["respect-v1"], table1 + synth, n_buckets),
+                      "init_seed0": (scheds["init_seed0"], synth, 1)}, sec
+
+
+def bf16_names(card: str, runs: dict) -> float:
+    """Which B1 templates the decode_bf16 path ran, by the profiler's kernel
+    names (exact), in one window: ptr_decode_cluster_bf16 for respect-v1,
+    one a bucket, and ptr_decode_block_bf16 for init(seed=0), nothing else
+    of B1.  Returns its seconds."""
+    from repro_torch.kernels.ptr import ops
+    from repro_torch.kernels.ptr.decode import TEMPLATES
+
+    t0 = time.perf_counter()
+    before = dict(ops.LAUNCHES)
+    names_run = kernel_names(lambda: [sched.schedule_many(graphs, STAGES, use_cache=False)
+                                      for sched, graphs, _ in runs.values()])
+    counted = {t: ops.LAUNCHES[t] - before[t] for t in TEMPLATES.values()}
+    ran = {t: names_run.count(t) for t in TEMPLATES.values()}
+    want = {t: 0 for t in TEMPLATES.values()}
+    want["ptr_decode_cluster_bf16"] = runs["respect-v1"][2]
+    want["ptr_decode_block_bf16"] = runs["init_seed0"][2]
+    print(f"decode_bf16 path: B1 kernels by profiler name {ran}, counted {counted}", flush=True)
+    check(ran == counted == want, f"decode_bf16 path ran B1 templates {ran} (counted "
+          f"{counted}), expected {want}")
+    return time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------- #
@@ -2780,10 +2939,10 @@ def partitioner_phase(card: str) -> list[dict]:
         names = kernel_names(lambda: [partition_model(get_config(arch), shape, k,
                                                       method="respect", mesh_slice=mesh,
                                                       scheduler=sched) for arch in ARCH_IDS])
-        ran = {t: sum(t in n for n in names) for t in TEMPLATES.values()}
+        ran = {t: names.count(t) for t in TEMPLATES.values()}
         if ran["ptr_decode_cluster"] == len(ARCH_IDS):
             break
-    check(ran == {"ptr_decode_cluster": len(ARCH_IDS), "ptr_decode_block": 0},
+    check(ran == {t: len(ARCH_IDS) * (t == "ptr_decode_cluster") for t in TEMPLATES.values()},
           f"partitioner ran B1 templates {ran} by profiler name")
 
     # ---- B1 at the largest bucket of these graphs, against plain ------- #
@@ -5368,6 +5527,9 @@ def run_phases(card: str, dry: list) -> dict:
         print(f"hidden {Hw}: the heterogeneous batch ran {ran} ptr_step launches and its "
               f"{len(hetero_graphs)} schedules equal the CPU plain path", flush=True)
 
+    # ---- the decode_bf16 path (its own counted run) ------------------- #
+    bf16_launches, bf16_runs, bf16_sec = bf16_path(card, table1, names, synth)
+
     # ---- the seeded and sampled path (its own counted run) ------------ #
     seeded_phase(card, sched, {256: wide, 96: widths[96]}, table1, names, synth,
                  hetero_graphs, hsys)
@@ -5395,55 +5557,81 @@ def run_phases(card: str, dry: list) -> dict:
         return batch, C, h0, c0, emb
 
     def decode_case(label, dnet, graphs, template):
-        """Holds B1 to its plain version on the card (greedy and sampled,
-        orders equal, logp/entropy within TOL_LOGP), checks that the batch
-        ran ``template``, and times kernel and plain version."""
+        """Holds B1's float32 ``template`` and its bf16 storage twin to their
+        plain versions on the card (greedy and sampled, orders equal,
+        logp/entropy within TOL_LOGP), checks that each call ran its own
+        template, and times both: their device times in turns in one window
+        (float32, bf16, bf16, float32), each plain version by its greedy
+        check's own call.  Returns the two rows, float32 first."""
         batch, C, h0, c0, emb = encoded(graphs, dnet)
         B, n, Hd = batch.n_valid.shape[0], batch.bucket_n, dnet.hidden
         args = (dnet, C, emb, h0, c0, batch.parent_mat, batch.n_valid)
         unif = torch.rand((B, n), generator=gen, device="cuda")
-        before = dict(ops.LAUNCHES)
-        with torch.inference_mode():
-            k_out = decode_batch(*args)
-            p_out = decode_batch_reference(*args)
-            k_smp = decode_batch(*args, unif)
-            p_smp = decode_batch_reference(*args, unif)
-        torch.cuda.synchronize()
-        ran = {t: ops.LAUNCHES[t] - before[t] for t in TEMPLATES.values()}
-        check(ran == {t: 2 * (t == template) for t in ran},
-              f"ptr_decode {label} H={Hd}: launched {ran}, expected two {template}")
         valid = torch.arange(n, device="cuda")[None, :] < batch.n_valid[:, None].long()
-        err = 0.0
-        for what, (ko, kl, ke), (po, pl_, pe) in (("greedy", k_out, p_out),
-                                                  ("sampled", k_smp, p_smp)):
-            check(torch.equal(torch.where(valid, ko, -1), torch.where(valid, po, -1)),
-                  f"ptr_decode {label} H={Hd} {what}: orders differ from the plain version")
-            e = max(float((kl - pl_).abs().max()), float((ke - pe).abs().max()))
-            check(e <= TOL_LOGP, f"ptr_decode {label} H={Hd} {what}: logp/entropy error {e:.3e}")
-            err = max(err, e)
+        names = {False: template, True: template + "_bf16"}
+        checked = {}
+        for bf16, name in names.items():
+            before = dict(ops.LAUNCHES)
+            plain_ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            with torch.inference_mode():
+                k_out = decode_batch(*args, bf16=bf16)
+                plain_ev[0].record()
+                p_out = decode_batch_reference(*args, bf16=bf16)
+                plain_ev[1].record()
+                k_smp = decode_batch(*args, unif, bf16=bf16)
+                p_smp = decode_batch_reference(*args, unif, bf16=bf16)
+            torch.cuda.synchronize()
+            ran = {t: ops.LAUNCHES[t] - before[t] for t in TEMPLATES.values()}
+            check(ran == {t: 2 * (t == name) for t in ran},
+                  f"ptr_decode {label} H={Hd}: launched {ran}, expected two {name}")
+            err = 0.0
+            for what, (ko, kl, ke), (po, pl_, pe) in (("greedy", k_out, p_out),
+                                                      ("sampled", k_smp, p_smp)):
+                check(torch.equal(torch.where(valid, ko, -1), torch.where(valid, po, -1)),
+                      f"ptr_decode {label} H={Hd} {name} {what}: orders differ from the plain "
+                      "version")
+                e = max(float((kl - pl_).abs().max()), float((ke - pe).abs().max()))
+                check(e <= TOL_LOGP,
+                      f"ptr_decode {label} H={Hd} {name} {what}: logp/entropy error {e:.3e}")
+                err = max(err, e)
+            checked[name] = (k_out[0].cpu().numpy(), err, plain_ev[0].elapsed_time(plain_ev[1]))
         with torch.inference_mode():
-            ev_ms = cuda_ms(lambda: decode_batch(*args), iters=5)
-            dev_ms = device_ms(lambda: decode_batch(*args), template, iters=5)
-            ms = reported_ms(ev_ms, dev_ms)
             refs_ms = cuda_ms(lambda: ops.precompute_refs(dnet, C), iters=20)
-            plain_ms = cuda_ms(lambda: decode_batch_reference(*args), iters=2)
-        b_ms, b_by = bound(*decode_work(graphs, k_out[0].cpu().numpy(), n, Hd, D))
-        print(f"ptr_decode {label} H={Hd} ({template}) on {card}: kernel {ev_ms:.4f} ms (CUDA "
-              f"events; device {dev_ms:.4f} ms; the wrapper's two C @ W_ref products alone "
-              f"{refs_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"orders equal greedy and sampled, max |err| logp/ent {err:.2e} "
-              f"(tolerance {TOL_LOGP})", flush=True)
-        return {"name": template, "route": "cuda",
-                "source": "src/repro_torch/kernels/ptr/csrc/ptr_decode.cu",
-                "replaces": "src/repro/kernels/ptr/decode.py:84",
-                "launches": launches[template], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            calls = {name: functools.partial(decode_batch, *args, bf16=bf16)
+                     for bf16, name in names.items()}
+            ev_ms = {name: cuda_ms(fn, iters=5) for name, fn in calls.items()}
+            # each turn runs only its own template, by exact name
+            turns = turns_ms(calls, (template, names[True], names[True], template), iters=5)
+        dev_ms = {name: statistics.mean(xs) for name, xs in turns.items()}
+        rows = []
+        for bf16, name in names.items():
+            order, err, plain_ms = checked[name]
+            b_ms, b_by = bound(*decode_work(graphs, order, n, Hd, D, itemsize=2 if bf16 else 4))
+            print(f"ptr_decode {label} H={Hd} ({name}) on {card}: kernel {ev_ms[name]:.4f} ms "
+                  f"(CUDA events; device {dev_ms[name]:.4f} ms; the wrapper's two C @ W_ref "
+                  f"products alone {refs_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}), orders equal greedy and sampled, max |err| "
+                  f"logp/ent {err:.2e} (tolerance {TOL_LOGP})", flush=True)
+            rows.append({"name": name, "route": "cuda",
+                         "source": "src/repro_torch/kernels/ptr/csrc/ptr_decode.cu",
+                         "replaces": "src/repro/kernels/ptr/decode.py:84",
+                         "launches": (bf16_launches if bf16 else launches)[name],
+                         "max_abs_err": err, "ms": reported_ms(ev_ms[name], dev_ms[name]),
+                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None})
+        print(f"ptr_decode {label} H={Hd} device time in turns on {card}: "
+              + ", ".join(f"{nm} {' '.join(f'{x:.4f}' for x in xs)} ms"
+                          for nm, xs in turns.items())
+              + f" (bf16 / float32 {dev_ms[names[True]] / dev_ms[template]:.3f})", flush=True)
+        return rows
 
-    # the release's width: the cluster template at both buckets
-    kernels.append(decode_case("bucket 1024, B=4", net, big, "ptr_decode_cluster"))
+    # the release's width: the cluster templates at both buckets; then
+    # RespectScheduler.init's default width, 256: the block templates
+    t0 = time.perf_counter()
+    kernels += decode_case("bucket 1024, B=4", net, big, "ptr_decode_cluster")
     decode_case("bucket 32, B=64", net, synth, "ptr_decode_cluster")
-    # RespectScheduler.init's default width, 256: the block template
-    kernels.append(decode_case("bucket 32, B=64", wide.net, synth, "ptr_decode_block"))
+    kernels += decode_case("bucket 32, B=64", wide.net, synth, "ptr_decode_block")
+    bf16_sec += time.perf_counter() - t0
 
     # single step at bucket 1024, B=4, a seeded half-dense mask: the release's
     # width, then the same graphs and mask at hidden 96 and 640
@@ -5589,13 +5777,18 @@ def run_phases(card: str, dry: list) -> dict:
     before = dict(ops.LAUNCHES)
     names_run = kernel_names(lambda: sched.schedule_many(table1 + synth, STAGES, use_cache=False))
     counted = {t: ops.LAUNCHES[t] - before[t] for t in TEMPLATES.values()}
-    ran = {t: sum(t in nm for nm in names_run) for t in TEMPLATES.values()}
+    ran = {t: names_run.count(t) for t in TEMPLATES.values()}
     print(f"respect-v1 path, {n_buckets} buckets: B1 kernels by profiler name {ran}, "
           f"counted {counted}", flush=True)
-    check(ran == counted == {"ptr_decode_cluster": n_buckets, "ptr_decode_block": 0},
+    check(ran == counted == {t: n_buckets * (t == "ptr_decode_cluster")
+                             for t in TEMPLATES.values()},
           f"respect-v1 path ran B1 templates {ran} (counted {counted}), expected only "
           f"{n_buckets} ptr_decode_cluster")
     del sched
+    bf16_sec += bf16_names(card, bf16_runs)
+    del bf16_runs
+    print(f"decode_bf16 phase: {bf16_sec:.1f} s (its counted path, three kernel cases of both "
+          "storage types, the profiler's names)", flush=True)
 
     # ---- last: the LM zoo's training path, whisper-tiny and xlstm-350m;
     # after its runs and profiles the profiler's windows lose kernels,

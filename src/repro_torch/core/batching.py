@@ -215,11 +215,13 @@ class BucketedDecoder:
     takes the scan: the whole-decode kernel has no system input.  A forced
     "kernel" that cannot take a bucket, or a conditioned system, raises.
     Without an explicit ``decode_impl`` the :data:`DECODE_IMPL_ENV`
-    variable, when set and not empty, chooses it.
+    variable, when set and not empty, chooses it.  ``decode_bf16`` runs the
+    whole-decode kernel's bf16 storage templates (the reference's
+    ``decode_bf16``: bfloat16 operands, float32 sums); the scan ignores it.
     """
 
     def __init__(self, device: torch.device, max_deg: int = 6, min_bucket: int = MIN_BUCKET,
-                 decode_impl: str | None = None):
+                 decode_impl: str | None = None, decode_bf16: bool = False):
         if decode_impl is None:
             decode_impl = os.environ.get(DECODE_IMPL_ENV) or None
         if decode_impl not in DECODE_IMPLS:
@@ -228,11 +230,12 @@ class BucketedDecoder:
         self.max_deg = max_deg
         self.min_bucket = min_bucket
         self.decode_impl = decode_impl
+        self.decode_bf16 = decode_bf16
 
     def resolve_decode_impl(self, bucket_n: int, hidden: int, conditioned: bool = False) -> str:
         """The decode impl one bucket runs: "kernel" or "scan"."""
-        supported = not conditioned and ptr_ops.decode_kernel_supported(bucket_n, hidden,
-                                                                        self.max_deg)
+        supported = not conditioned and ptr_ops.decode_kernel_supported(
+            bucket_n, hidden, self.max_deg, self.decode_bf16)
         if self.decode_impl is None:
             return "kernel" if supported else "scan"
         if self.decode_impl == "kernel" and not supported:
@@ -242,12 +245,14 @@ class BucketedDecoder:
         return self.decode_impl
 
     @staticmethod
-    def _decode(net, feats, parent_mat, n_valid, impl: str, sys_feat=None, uniforms=None):
+    def _decode(net, feats, parent_mat, n_valid, impl: str, sys_feat=None, uniforms=None,
+                bf16: bool = False):
         """Encode and decode one padded batch on ``impl``: order, logp and
-        entropy, each (B, n); ``uniforms`` (B, n) for a sampled decode."""
+        entropy, each (B, n); ``uniforms`` (B, n) for a sampled decode;
+        ``bf16`` for the kernel's bf16 storage templates."""
         C, (h0, c0), emb = net.encode(feats, n_valid)
         if impl == "kernel":
-            return decode_batch(net, C, emb, h0, c0, parent_mat, n_valid, uniforms)
+            return decode_batch(net, C, emb, h0, c0, parent_mat, n_valid, uniforms, bf16=bf16)
         return net.decode(C, emb, (h0, c0), parent_mat, n_valid=n_valid, uniforms=uniforms,
                           logits_fn=ptr_ops.make_logits_fn(net, C), sys_feat=sys_feat)
 
@@ -262,8 +267,8 @@ class BucketedDecoder:
         orders: list[np.ndarray | None] = [None] * len(graphs)
         for idxs, batch in self._packed_buckets(graphs):
             impl = self.resolve_decode_impl(batch.bucket_n, net.hidden)
-            out = self._decode(net, batch.feats, batch.parent_mat, batch.n_valid,
-                               impl)[0].cpu().numpy()
+            out = self._decode(net, batch.feats, batch.parent_mat, batch.n_valid, impl,
+                               bf16=self.decode_bf16)[0].cpu().numpy()
             for row, i in enumerate(idxs):
                 orders[i] = out[row, : graphs[i].n].astype(np.int64)
         return orders
@@ -280,7 +285,7 @@ class BucketedDecoder:
         for idxs, batch in self._packed_buckets(graphs):
             impl = self.resolve_decode_impl(batch.bucket_n, net.hidden, sys_feat is not None)
             orders = self._decode(net, batch.feats, batch.parent_mat, batch.n_valid, impl,
-                                  sys_feat)[0]
+                                  sys_feat, bf16=self.decode_bf16)[0]
             assigns = segment.rho_dp(orders, batch.flops, batch.param_bytes, batch.out_bytes,
                                      batch.parent_mat, n_stages, system, batch.n_valid)
             orders = orders.cpu().numpy()
@@ -294,7 +299,7 @@ class BucketedDecoder:
 
 
 @torch.inference_mode()
-def _order(net, feats, parent_mat, keys, n_valid, sys_feat, decode):
+def _order(net, feats, parent_mat, keys, n_valid, sys_feat, decode, decode_bf16):
     """One graph ``(n, F)`` or a padded batch ``(B, n, F)`` through
     :class:`BucketedDecoder`'s decode on the net's device."""
     dev = net.dec0.device
@@ -306,16 +311,18 @@ def _order(net, feats, parent_mat, keys, n_valid, sys_feat, decode):
     B, n, _ = feats.shape
     nv = torch.full((B,), n) if n_valid is None else torch.as_tensor(n_valid).reshape(B)
     sys_feat = _profile_input(sys_feat, dev)
-    decoder = BucketedDecoder(dev, max_deg=pm.shape[-1], decode_impl=decode)
+    decoder = BucketedDecoder(dev, max_deg=pm.shape[-1], decode_impl=decode,
+                              decode_bf16=decode_bf16)
     impl = decoder.resolve_decode_impl(n, net.hidden, sys_feat is not None)
     uniforms = None if keys is None else step_uniforms(np.asarray(keys).reshape(B, 2), n).to(dev)
     out = decoder._decode(net, feats.to(dev), pm.to(device=dev, dtype=torch.int32),
-                          nv.to(device=dev, dtype=torch.int32), impl, sys_feat, uniforms)
+                          nv.to(device=dev, dtype=torch.int32), impl, sys_feat, uniforms,
+                          decode_bf16)
     return tuple(o[0] for o in out) if single else out
 
 
 def greedy_order(net, feats, parent_mat, n_valid=None, sys_feat=None,
-                 decode: str | None = None):
+                 decode: str | None = None, decode_bf16: bool = False):
     """Greedy decode of one graph or of a padded batch, on the net's device.
 
     feats: (n, F) or (B, n, F) embedding rows; parent_mat: (n, D) or
@@ -323,14 +330,17 @@ def greedy_order(net, feats, parent_mat, n_valid=None, sys_feat=None,
     sys_feat: a hardware profile (a non-zero one conditions the start token
     and takes the scan); decode: one of :data:`DECODE_IMPLS`, chosen as in
     :class:`BucketedDecoder`; on CPU tensors each runs its plain PyTorch
-    version.  Returns order (int64), logp and entropy, each (n,) or (B, n)."""
-    return _order(net, feats, parent_mat, None, n_valid, sys_feat, decode)
+    version; decode_bf16: the kernel's bf16 storage templates (the
+    reference's ``make_decode_fn(bf16=True)`` as ``decode_builder``; the
+    scan ignores it).  Returns order (int64), logp and entropy, each (n,) or
+    (B, n)."""
+    return _order(net, feats, parent_mat, None, n_valid, sys_feat, decode, decode_bf16)
 
 
 def sample_order(net, feats, parent_mat, key, n_valid=None, sys_feat=None,
-                 decode: str | None = None):
+                 decode: str | None = None, decode_bf16: bool = False):
     """Sampled decode as :func:`greedy_order`, graph ``b`` drawing step
     ``i``'s uniform from ``fold_in(key[b], i)`` — the reference's stream, so
     orders equal its ``sample_order``'s, padded or not.  key: a (2,) uint32
     key for one graph, (B, 2) for a batch."""
-    return _order(net, feats, parent_mat, key, n_valid, sys_feat, decode)
+    return _order(net, feats, parent_mat, key, n_valid, sys_feat, decode, decode_bf16)

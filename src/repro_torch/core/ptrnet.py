@@ -177,15 +177,17 @@ class PointerNet(nn.Module):
             C, CWg, CWp, h, g.w_q, g.v, p.w_q, p.v, mask)
 
     def decode(self, C, emb, enc_state, parent_mat, *, n_valid=None, uniforms=None,
-               logits_fn=None, sys_feat=None):
+               logits_fn=None, sys_feat=None, cell=None):
         """Run the whole pointing decode (Alg. 1) for a batch of graphs.
 
         C, emb: (B, n, H); enc_state: (h, c) each (B, H); parent_mat:
         (B, n, D) int, -1 padded; n_valid: (B,) or None (all real);
         uniforms: (B, n) per-step uniforms for a sampled decode, None for
         greedy; logits_fn(h, mask) overrides the glimpse + pointer step
-        (the single-step kernel).  Returns order (B, n) int64 and per-step
-        logp, entropy (B, n) float32.
+        (the single-step kernel); cell = (d0, wx, wh, b) overrides the start
+        token and the decoder LSTM's weights (the bf16 plain version passes
+        rounded copies).  Returns order (B, n) int64 and per-step logp,
+        entropy (B, n) float32.
 
         Differentiable when the parameters require grad (see
         :func:`param_tree`) and ``logits_fn`` is the plain one: REINFORCE
@@ -198,8 +200,11 @@ class PointerNet(nn.Module):
         dev = C.device
         if logits_fn is None:
             logits_fn = self.plain_logits_fn(C)
-        ewx = emb @ self.dec.wx                                    # (B, n, 4H)
-        xw = (self.start_token(sys_feat) @ self.dec.wx).expand(B, -1)
+        if cell is None:
+            cell = (self.start_token(sys_feat), self.dec.wx, self.dec.wh, self.dec.b)
+        d0, wx, wh, b = cell
+        ewx = emb @ wx                                             # (B, n, 4H)
+        xw = (d0 @ wx).expand(B, -1)
         h, c = enc_state
         ar = torch.arange(n, device=dev)
         if n_valid is None:
@@ -213,7 +218,7 @@ class PointerNet(nn.Module):
         rows = torch.arange(B, device=dev)
         order, logp, ent = [], [], []
         for t in range(n):
-            h, c = lstm_gates_to_state(xw + h @ self.dec.wh + self.dec.b, c)
+            h, c = lstm_gates_to_state(xw + h @ wh + b, c)
             pvis = torch.gather(visited, 1, pm_flat).view(B, n, -1)
             mask = ~visited & valid & torch.where(has_parent, pvis, True).all(dim=-1)
             live = mask.any(dim=-1)

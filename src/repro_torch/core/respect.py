@@ -46,13 +46,17 @@ class ScheduleResult(dict):
 
 class RespectScheduler:
     def __init__(self, net: PointerNet, *, device=None, max_deg: int = 6,
-                 cache_size: int = 1024, decode_impl: str | None = None):
+                 cache_size: int = 1024, decode_impl: str | None = None,
+                 decode_bf16: bool = False):
         self.device = resolve_device(device)
         self.net = net.to(self.device)
         #: release manifest when the weights came from a verified release
         self.release: dict | None = None
         self.max_deg = max_deg
-        self._decoder = BucketedDecoder(self.device, max_deg=max_deg, decode_impl=decode_impl)
+        # decode_impl and decode_bf16 choose how the pointing loop runs (see
+        # BucketedDecoder)
+        self._decoder = BucketedDecoder(self.device, max_deg=max_deg, decode_impl=decode_impl,
+                                        decode_bf16=decode_bf16)
         self._cache: OrderedDict = OrderedDict()
         self._cache_size = cache_size
         # one lock guards the cache and the counters; device work runs outside it

@@ -54,7 +54,8 @@ _PTR = ("ptr_common.cuh",)
 KERNELS = {
     "ptr_step": KernelSource("ptr", "ptr_step.cu", _PTR),
     "ptr_decode": KernelSource("ptr", "ptr_decode.cu", _PTR,
-                               ("ptr_decode_cluster", "ptr_decode_block")),
+                               ("ptr_decode_cluster", "ptr_decode_block",
+                                "ptr_decode_cluster_bf16", "ptr_decode_block_bf16")),
     "flash_fwd": KernelSource("flash", "flash_fwd.cu"),
     "ssd_scan": KernelSource("ssd", "ssd_scan.cu"),
 }

@@ -1,8 +1,12 @@
 // Block-level building blocks shared by the pointer kernels (ptr_step.cu,
 // ptr_decode.cu).  Every kernel runs one thread block of PTR_THREADS threads
 // per graph; all helpers below are called by every thread of the block.
+// The helpers that read global memory take it stored as float or as
+// __nv_bfloat16 (T); they widen each element to float on read, so every
+// product and sum is float32 either way.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -22,6 +26,14 @@ __device__ __forceinline__ float ptr_warp_max(float v) {
 }
 
 __device__ __forceinline__ float ptr_sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// A stored element as float: float as it is, bfloat16 widened (exactly).
+__device__ __forceinline__ float ptr_f(float v) { return v; }
+__device__ __forceinline__ float ptr_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A read-only global element as float, through the non-coherent cache.
+template <class T>
+__device__ __forceinline__ float ptr_ld(const T* p) { return ptr_f(__ldg(p)); }
 
 // Sum of v over the block, returned to every thread.  red holds PTR_WARPS
 // floats.  The warp partials are added in warp order by every thread, so
@@ -79,7 +91,8 @@ __device__ int ptr_compact(int n, Pred pred, int* list, int* cnt) {
 // memory.  The PTR_THREADS / H thread groups each sum a slice of the rows
 // into part (PTR_THREADS floats); the slices are then added in order.
 // Needs PTR_THREADS % H == 0.
-__device__ __forceinline__ void ptr_matvec(const float* x, const float* __restrict__ W, int H,
+template <class T>
+__device__ __forceinline__ void ptr_matvec(const float* x, const T* __restrict__ W, int H,
                                            float* part, float* y) {
   const int G = PTR_THREADS / H;
   const int j = threadIdx.x % H, g = threadIdx.x / H;
@@ -87,7 +100,7 @@ __device__ __forceinline__ void ptr_matvec(const float* x, const float* __restri
   const int k0 = g * kc, k1 = min(H, k0 + kc);
   float acc = 0.0f;
 #pragma unroll 8
-  for (int k = k0; k < k1; ++k) acc = fmaf(x[k], __ldg(&W[(size_t)k * H + j]), acc);
+  for (int k = k0; k < k1; ++k) acc = fmaf(x[k], ptr_ld(&W[(size_t)k * H + j]), acc);
   part[threadIdx.x] = acc;
   __syncthreads();
   if (threadIdx.x < H) {
@@ -100,13 +113,14 @@ __device__ __forceinline__ void ptr_matvec(const float* x, const float* __restri
 
 // s[p] = sum_j tanh(R[list[p], j] + q[j]) * v[j] for p < m: one warp per
 // row, lanes striding over the H columns (coalesced row reads).
-__device__ __forceinline__ void ptr_row_scores(const float* __restrict__ R, const int* list, int m,
+template <class T>
+__device__ __forceinline__ void ptr_row_scores(const T* __restrict__ R, const int* list, int m,
                                                const float* q, const float* v, int H, float* s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int p = warp; p < m; p += PTR_WARPS) {
-    const float* row = R + (size_t)list[p] * H;
+    const T* row = R + (size_t)list[p] * H;
     float acc = 0.0f;
-    for (int j = lane; j < H; j += 32) acc = fmaf(tanhf(__ldg(&row[j]) + q[j]), v[j], acc);
+    for (int j = lane; j < H; j += 32) acc = fmaf(tanhf(ptr_ld(&row[j]) + q[j]), v[j], acc);
     acc = ptr_warp_sum(acc);
     if (lane == 0) s[p] = acc;
   }
@@ -132,13 +146,14 @@ __device__ __forceinline__ void ptr_softmax(float* s, int m, float* red) {
 
 // y[j] = sum_p a[p] * C[list[p], j]: PTR_THREADS / H thread groups each
 // take every G-th row, then the group partials are added in order.
-__device__ __forceinline__ void ptr_weighted_rows(const float* __restrict__ C, const int* list,
+template <class T>
+__device__ __forceinline__ void ptr_weighted_rows(const T* __restrict__ C, const int* list,
                                                   const float* a, int m, int H, float* part,
                                                   float* y) {
   const int G = PTR_THREADS / H;
   const int j = threadIdx.x % H, g = threadIdx.x / H;
   float acc = 0.0f;
-  for (int p = g; p < m; p += G) acc = fmaf(a[p], __ldg(&C[(size_t)list[p] * H + j]), acc);
+  for (int p = g; p < m; p += G) acc = fmaf(a[p], ptr_ld(&C[(size_t)list[p] * H + j]), acc);
   part[threadIdx.x] = acc;
   __syncthreads();
   if (threadIdx.x < H) {

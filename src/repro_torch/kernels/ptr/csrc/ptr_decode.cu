@@ -9,6 +9,18 @@
 // visited the step drains the first unvisited padded slot at zero log-prob
 // and entropy.  All arithmetic is float32.
 //
+// Each template comes in two storage types, as the reference's
+// decode_batch(bf16=): float32 (ptr_decode_cluster, ptr_decode_block) and
+// bfloat16 (ptr_decode_cluster_bf16, ptr_decode_block_bf16).  The bf16 ones
+// take C, CWg, CWp, emb, dec0, Wx, Wh, Wqg, vg, Wqp and vp in bfloat16 (the
+// wrapper rounds CWg and CWp from the float32 products) and widen every
+// element to float32 on read; the bias, h0, c0 and all state in shared memory
+// stay float32, and every sum runs in float32 in the float32 template's
+// order.  So a bf16 template gives the bits its float32 twin gives on the
+// same operands rounded to bfloat16.  It reads half the bytes of the
+// frontier rows and the query weights a step, and the cluster template keeps
+// Wx and Wh in shared memory as bfloat16 (64 KB at H = 128).
+//
 // Bound on the H100: neither bytes nor operations.  The n steps of a graph
 // are a dependent chain, each a few small matrix-vector products (d Wx and
 // h Wh: H x 4H each, two H x H query products) separated by barriers, and a
@@ -158,25 +170,44 @@ static size_t ptr_decode_block_smem_bytes(int n, int H, int D) {
   return sizeof(float) * 10 * (size_t)H + ptr_decode_state_bytes(n, H, D);
 }
 
-// ptr_decode_cluster: Wx and Wh columns (H x H each), h by parity (2H),
-// bias (H), c (H/4, padded to H), then the state.
-static size_t ptr_decode_cluster_smem_bytes(int n, int H, int D) {
-  return sizeof(float) * (2 * (size_t)H * H + 4 * (size_t)H) + ptr_decode_state_bytes(n, H, D);
+// ptr_decode_cluster: Wx and Wh columns (H x H each, elem bytes an
+// element: the storage type's), h by parity (2H), bias (H), c (H/4, padded
+// to H), then the state.
+static size_t ptr_decode_cluster_smem_bytes(int n, int H, int D, size_t elem) {
+  return elem * 2 * (size_t)H * H + sizeof(float) * 4 * (size_t)H +
+         ptr_decode_state_bytes(n, H, D);
 }
+
+// The arguments of every template; T is the storage type of the operands
+// the bf16 templates store in bfloat16.
+template <class T>
+struct DecodeArgs {
+  const T *C, *CWg, *CWp, *emb, *dec0;
+  const float *h0, *c0;
+  const T *wx, *wh;
+  const float* bias;
+  const T *wqg, *vg, *wqp, *vp;
+  const int *parent_mat, *n_valid;
+  const float* unif;
+  int* order;
+  float *logp, *ent;
+  int n, H, D;
+};
 
 // Loads what the state holds at the start: d = dec0, the score vectors, the
 // parent indices; clears the visited flags.  No barrier.
+template <class T>
 __device__ __forceinline__ void ptr_decode_state_init(const DecodeState& st,
-                                                      const float* __restrict__ dec0,
-                                                      const float* __restrict__ vg,
-                                                      const float* __restrict__ vp,
+                                                      const T* __restrict__ dec0,
+                                                      const T* __restrict__ vg,
+                                                      const T* __restrict__ vp,
                                                       const int* __restrict__ parent_mat, int n,
                                                       int H, int D) {
   const int tid = threadIdx.x;
   for (int j = tid; j < H; j += PTR_THREADS) {
-    st.ds[j] = dec0[j];
-    st.vgs[j] = vg[j];
-    st.vps[j] = vp[j];
+    st.ds[j] = ptr_ld(&dec0[j]);
+    st.vgs[j] = ptr_ld(&vg[j]);
+    st.vps[j] = ptr_ld(&vp[j]);
   }
   for (int i = tid; i < n * D; i += PTR_THREADS) st.pm[i] = parent_mat[i];
   for (int i = tid; i < n; i += PTR_THREADS) st.visited[i] = 0;
@@ -187,11 +218,11 @@ __device__ __forceinline__ void ptr_decode_state_init(const DecodeState& st,
 // and the current h and returns the new h (H floats in this block's shared
 // memory, published to every thread).  emit: this block writes order, logp
 // and ent.  clk marks the phases.
-template <class Cell>
+template <class T, class Cell>
 __device__ __forceinline__ void ptr_decode_steps(
-    const DecodeState& st, Cell&& cell, PhaseClock& clk, const float* __restrict__ C,
-    const float* __restrict__ CWg, const float* __restrict__ CWp, const float* __restrict__ emb,
-    const float* __restrict__ wqg, const float* __restrict__ wqp, const float* u_row,
+    const DecodeState& st, Cell&& cell, PhaseClock& clk, const T* __restrict__ C,
+    const T* __restrict__ CWg, const T* __restrict__ CWp, const T* __restrict__ emb,
+    const T* __restrict__ wqg, const T* __restrict__ wqp, const float* u_row,
     int* __restrict__ order, float* __restrict__ logp, float* __restrict__ ent, int n, int nv,
     int H, int D, bool emit) {
   const int tid = threadIdx.x;
@@ -303,24 +334,16 @@ __device__ __forceinline__ void ptr_decode_steps(
     }
     // the next step's decoder input; the gate loop that read ds is behind
     // this step's barriers, and the next one is behind ptr_compact's
-    for (int j = tid; j < H; j += PTR_THREADS) st.ds[j] = __ldg(&emb[(size_t)row * H + j]);
+    for (int j = tid; j < H; j += PTR_THREADS) st.ds[j] = ptr_ld(&emb[(size_t)row * H + j]);
     __syncthreads();
     clk.mark(PH_INPUT);
   }
 }
 
-extern "C" __global__ void __launch_bounds__(PTR_THREADS)
-ptr_decode_block(const float* __restrict__ C, const float* __restrict__ CWg,
-                 const float* __restrict__ CWp, const float* __restrict__ emb,
-                 const float* __restrict__ dec0, const float* __restrict__ h0,
-                 const float* __restrict__ c0, const float* __restrict__ wx,
-                 const float* __restrict__ wh, const float* __restrict__ bias,
-                 const float* __restrict__ wqg, const float* __restrict__ vg,
-                 const float* __restrict__ wqp, const float* __restrict__ vp,
-                 const int* __restrict__ parent_mat, const int* __restrict__ n_valid,
-                 const float* __restrict__ unif, int* __restrict__ order,
-                 float* __restrict__ logp, float* __restrict__ ent, int n, int H, int D) {
-  extern __shared__ __align__(16) float smem[];
+// ptr_decode_block's body: one block a graph.
+template <class T>
+__device__ __forceinline__ void ptr_decode_block_body(const DecodeArgs<T>& a, float* smem) {
+  const int n = a.n, H = a.H, D = a.D;
   const int H4 = 4 * H;
   float* hs = smem;                 // H
   float* cs = hs + H;               // H
@@ -333,23 +356,25 @@ ptr_decode_block(const float* __restrict__ C, const float* __restrict__ CWg,
   const int tid = threadIdx.x;
   const size_t off = (size_t)b * n * H;
   for (int j = tid; j < H; j += PTR_THREADS) {
-    hs[j] = h0[(size_t)b * H + j];
-    cs[j] = c0[(size_t)b * H + j];
+    hs[j] = a.h0[(size_t)b * H + j];
+    cs[j] = a.c0[(size_t)b * H + j];
   }
-  for (int k = tid; k < H4; k += PTR_THREADS) bs[k] = bias[k];
-  ptr_decode_state_init(st, dec0, vg, vp, parent_mat + (size_t)b * n * D, n, H, D);
+  for (int k = tid; k < H4; k += PTR_THREADS) bs[k] = a.bias[k];
+  ptr_decode_state_init(st, a.dec0, a.vg, a.vp, a.parent_mat + (size_t)b * n * D, n, H, D);
   __syncthreads();
   clk.mark(PH_SETUP);
 
   // decoder LSTM cell: gates = d Wx + h Wh + b, order i, f, g, o; the
   // weights stream from L2 every step
+  const T* __restrict__ wx = a.wx;
+  const T* __restrict__ wh = a.wh;
   auto cell = [&]() -> const float* {
     for (int k = tid; k < H4; k += PTR_THREADS) {
       float ax = 0.0f, ah = 0.0f;
 #pragma unroll 8
       for (int j = 0; j < H; ++j) {
-        ax = fmaf(st.ds[j], __ldg(&wx[(size_t)j * H4 + k]), ax);
-        ah = fmaf(hs[j], __ldg(&wh[(size_t)j * H4 + k]), ah);
+        ax = fmaf(st.ds[j], ptr_ld(&wx[(size_t)j * H4 + k]), ax);
+        ah = fmaf(hs[j], ptr_ld(&wh[(size_t)j * H4 + k]), ah);
       }
       gates[k] = ax + ah + bs[k];
     }
@@ -365,35 +390,27 @@ ptr_decode_block(const float* __restrict__ C, const float* __restrict__ CWg,
     clk.mark(PH_CELL);
     return hs;
   };
-  ptr_decode_steps(st, cell, clk, C + off, CWg + off, CWp + off, emb + off, wqg, wqp,
-                   unif ? unif + (size_t)b * n : nullptr, order + (size_t)b * n,
-                   logp + (size_t)b * n, ent + (size_t)b * n, n, n_valid[b], H, D, true);
+  ptr_decode_steps(st, cell, clk, a.C + off, a.CWg + off, a.CWp + off, a.emb + off, a.wqg, a.wqp,
+                   a.unif ? a.unif + (size_t)b * n : nullptr, a.order + (size_t)b * n,
+                   a.logp + (size_t)b * n, a.ent + (size_t)b * n, n, a.n_valid[b], H, D, true);
   clk.flush();
 }
 
-// One graph a cluster of PTR_CLUSTER blocks (launched with the cluster
-// dimension by ptr_decode_launch); needs H % PTR_CLUSTER == 0.
-extern "C" __global__ void __launch_bounds__(PTR_THREADS)
-ptr_decode_cluster(const float* __restrict__ C, const float* __restrict__ CWg,
-                   const float* __restrict__ CWp, const float* __restrict__ emb,
-                   const float* __restrict__ dec0, const float* __restrict__ h0,
-                   const float* __restrict__ c0, const float* __restrict__ wx,
-                   const float* __restrict__ wh, const float* __restrict__ bias,
-                   const float* __restrict__ wqg, const float* __restrict__ vg,
-                   const float* __restrict__ wqp, const float* __restrict__ vp,
-                   const int* __restrict__ parent_mat, const int* __restrict__ n_valid,
-                   const float* __restrict__ unif, int* __restrict__ order,
-                   float* __restrict__ logp, float* __restrict__ ent, int n, int H, int D) {
-  extern __shared__ __align__(16) float smem[];
+// ptr_decode_cluster's body: one graph a cluster of PTR_CLUSTER blocks
+// (launched with the cluster dimension by ptr_decode_launch); needs
+// H % PTR_CLUSTER == 0.
+template <class T>
+__device__ __forceinline__ void ptr_decode_cluster_body(const DecodeArgs<T>& a, float* smem) {
   cg::cluster_group cluster = cg::this_cluster();
+  const int n = a.n, H = a.H, D = a.D;
   const int r = (int)cluster.block_rank();
   const int Hq = H / PTR_CLUSTER;   // hidden units this block owns
   const int H4 = 4 * H;
   // local gate column k (0..H-1) is gate k / Hq of unit r Hq + k % Hq:
   // global column (k / Hq) H + r Hq + k % Hq of Wx, Wh and the bias
-  float* wxs = smem;                        // H x H, row j, local column k
-  float* whs = wxs + (size_t)H * H;         // H x H
-  float* hb = whs + (size_t)H * H;          // 2 x H: h of even, odd steps
+  T* wxs = reinterpret_cast<T*>(smem);      // H x H, row j, local column k
+  T* whs = wxs + (size_t)H * H;             // H x H
+  float* hb = reinterpret_cast<float*>(whs + (size_t)H * H);  // 2 x H: h of even, odd steps
   float* bs = hb + 2 * H;                   // H
   float* cs = bs + H;                       // H/4 used: c of this block's units
   const DecodeState st = ptr_decode_state(cs + H, n, H, D);
@@ -406,15 +423,15 @@ ptr_decode_cluster(const float* __restrict__ C, const float* __restrict__ CWg,
   for (int i = tid; i < H * H; i += PTR_THREADS) {
     const int j = i / H, k = i - j * H;
     const size_t g = (size_t)j * H4 + (size_t)(k / Hq) * H + r * Hq + k % Hq;
-    wxs[i] = __ldg(&wx[g]);
-    whs[i] = __ldg(&wh[g]);
+    wxs[i] = __ldg(&a.wx[g]);
+    whs[i] = __ldg(&a.wh[g]);
   }
   for (int k = tid; k < H; k += PTR_THREADS) {
-    bs[k] = bias[(k / Hq) * H + r * Hq + k % Hq];
-    hb[k] = h0[(size_t)b * H + k];
+    bs[k] = a.bias[(k / Hq) * H + r * Hq + k % Hq];
+    hb[k] = a.h0[(size_t)b * H + k];
   }
-  for (int u = tid; u < Hq; u += PTR_THREADS) cs[u] = c0[(size_t)b * H + r * Hq + u];
-  ptr_decode_state_init(st, dec0, vg, vp, parent_mat + (size_t)b * n * D, n, H, D);
+  for (int u = tid; u < Hq; u += PTR_THREADS) cs[u] = a.c0[(size_t)b * H + r * Hq + u];
+  ptr_decode_state_init(st, a.dec0, a.vg, a.vp, a.parent_mat + (size_t)b * n * D, n, H, D);
   // every block of the cluster has started (its shared memory may be
   // written) and has its own state loaded
   cluster.sync();
@@ -431,15 +448,15 @@ ptr_decode_cluster(const float* __restrict__ C, const float* __restrict__ CWg,
       const bool hh = tid >= H;
       const int k = hh ? tid - H : tid;
       const float* x = hh ? h : st.ds;
-      const float* w = (hh ? whs : wxs) + k;
+      const T* w = (hh ? whs : wxs) + k;
       float acc = 0.0f;
 #pragma unroll 4
       for (int j = 0; j < H; j += 4) {
         const float4 xv = *reinterpret_cast<const float4*>(x + j);
-        acc = fmaf(xv.x, w[(size_t)j * H], acc);
-        acc = fmaf(xv.y, w[(size_t)(j + 1) * H], acc);
-        acc = fmaf(xv.z, w[(size_t)(j + 2) * H], acc);
-        acc = fmaf(xv.w, w[(size_t)(j + 3) * H], acc);
+        acc = fmaf(xv.x, ptr_f(w[(size_t)j * H]), acc);
+        acc = fmaf(xv.y, ptr_f(w[(size_t)(j + 1) * H]), acc);
+        acc = fmaf(xv.z, ptr_f(w[(size_t)(j + 2) * H]), acc);
+        acc = fmaf(xv.w, ptr_f(w[(size_t)(j + 3) * H]), acc);
       }
       st.part[tid] = acc;
     }
@@ -464,44 +481,38 @@ ptr_decode_cluster(const float* __restrict__ C, const float* __restrict__ CWg,
     parity ^= 1;
     return h_next;
   };
-  ptr_decode_steps(st, cell, clk, C + off, CWg + off, CWp + off, emb + off, wqg, wqp,
-                   unif ? unif + (size_t)b * n : nullptr, order + (size_t)b * n,
-                   logp + (size_t)b * n, ent + (size_t)b * n, n, n_valid[b], H, D, r == 0);
+  ptr_decode_steps(st, cell, clk, a.C + off, a.CWg + off, a.CWp + off, a.emb + off, a.wqg, a.wqp,
+                   a.unif ? a.unif + (size_t)b * n : nullptr, a.order + (size_t)b * n,
+                   a.logp + (size_t)b * n, a.ent + (size_t)b * n, n, a.n_valid[b], H, D, r == 0);
   // no block leaves while another may still write into its shared memory
   cluster.sync();
   clk.flush();
 }
 
-// Launch on the given stream; returns cudaGetLastError() (0 on success) and
-// writes the template it launched to *template_out: 1 ptr_decode_cluster,
-// 0 ptr_decode_block.  The cluster template runs when H % PTR_CLUSTER == 0,
-// its shared memory fits a block and the card can hold one such cluster;
-// else the block template, if its shared memory fits; else nothing runs.
-extern "C" int ptr_decode_launch(const float* C, const float* CWg, const float* CWp,
-                                 const float* emb, const float* dec0, const float* h0,
-                                 const float* c0, const float* wx, const float* wh,
-                                 const float* bias, const float* wqg, const float* vg,
-                                 const float* wqp, const float* vp, const int* parent_mat,
-                                 const int* n_valid, const float* unif, int* order, float* logp,
-                                 float* ent, int B, int n, int H, int D, int sampled, int device,
-                                 void* stream, int* template_out) {
-  *template_out = -1;
-  if (H <= 0 || H > PTR_THREADS || PTR_THREADS % H != 0 || B <= 0 || n <= 0 || D <= 0 ||
-      (sampled && unif == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  int max_smem = 0;
-  e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (e != cudaSuccess) return (int)e;
-  const float* u = sampled ? unif : nullptr;
-  const cudaStream_t st = (cudaStream_t)stream;
+// The four kernels: each template in each storage type, under its own name
+// (the launch counters and the profiler tell them apart by it).
+#define PTR_DECODE_KERNEL(name, body, T)                                      \
+  extern "C" __global__ void __launch_bounds__(PTR_THREADS) name(DecodeArgs<T> a) { \
+    extern __shared__ __align__(16) float smem[];                             \
+    body(a, smem);                                                            \
+  }
+PTR_DECODE_KERNEL(ptr_decode_block, ptr_decode_block_body, float)
+PTR_DECODE_KERNEL(ptr_decode_cluster, ptr_decode_cluster_body, float)
+PTR_DECODE_KERNEL(ptr_decode_block_bf16, ptr_decode_block_body, __nv_bfloat16)
+PTR_DECODE_KERNEL(ptr_decode_cluster_bf16, ptr_decode_cluster_body, __nv_bfloat16)
 
-  const size_t smem_c = ptr_decode_cluster_smem_bytes(n, H, D);
+// The launch of one storage type; see ptr_decode_launch.  tag is the value
+// *template_out takes for the block kernel, tag + 1 for the cluster kernel.
+template <class T>
+static int ptr_decode_run(const DecodeArgs<T>& a, void (*cluster_k)(DecodeArgs<T>),
+                          void (*block_k)(DecodeArgs<T>), int tag, int B, int max_smem,
+                          cudaStream_t st, int* template_out) {
+  cudaError_t e;
+  const size_t smem_c = ptr_decode_cluster_smem_bytes(a.n, a.H, a.D, sizeof(T));
 #ifndef PTR_DECODE_FORCE_BLOCK  // defined only in a build that compares the templates
-  if (H % PTR_CLUSTER == 0 && smem_c <= (size_t)max_smem) {
-    e = cudaFuncSetAttribute(ptr_decode_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_c);
+  if (a.H % PTR_CLUSTER == 0 && smem_c <= (size_t)max_smem) {
+    e = cudaFuncSetAttribute((const void*)cluster_k,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -516,38 +527,87 @@ extern "C" int ptr_decode_launch(const float* C, const float* CWg, const float* 
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, (void*)ptr_decode_cluster, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&clusters, (void*)cluster_k, &cfg);
     if (e != cudaSuccess) return (int)e;
     if (clusters > 0) {
-      e = cudaLaunchKernelEx(&cfg, ptr_decode_cluster, C, CWg, CWp, emb, dec0, h0, c0, wx, wh,
-                             bias, wqg, vg, wqp, vp, parent_mat, n_valid, u, order, logp, ent,
-                             n, H, D);
+      e = cudaLaunchKernelEx(&cfg, cluster_k, a);
       if (e != cudaSuccess) return (int)e;
-      *template_out = 1;
+      *template_out = tag + 1;
       return (int)cudaGetLastError();
     }
   }
 #endif
 
-  const size_t smem_b = ptr_decode_block_smem_bytes(n, H, D);
+  const size_t smem_b = ptr_decode_block_smem_bytes(a.n, a.H, a.D);
   if (smem_b > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(ptr_decode_block, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute((const void*)block_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem_b);
   if (e != cudaSuccess) return (int)e;
-  ptr_decode_block<<<B, PTR_THREADS, smem_b, st>>>(C, CWg, CWp, emb, dec0, h0, c0, wx, wh, bias,
-                                                   wqg, vg, wqp, vp, parent_mat, n_valid, u,
-                                                   order, logp, ent, n, H, D);
-  *template_out = 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B);
+  cfg.blockDim = dim3(PTR_THREADS);
+  cfg.dynamicSmemBytes = smem_b;
+  cfg.stream = st;
+  e = cudaLaunchKernelEx(&cfg, block_k, a);
+  if (e != cudaSuccess) return (int)e;
+  *template_out = tag;
   return (int)cudaGetLastError();
 }
 
-#ifdef PTR_DECODE_PHASES
+// Launch on the given stream; returns cudaGetLastError() (0 on success) and
+// writes the template it launched to *template_out: 1 ptr_decode_cluster,
+// 0 ptr_decode_block, 3 ptr_decode_cluster_bf16, 2 ptr_decode_block_bf16.
+// bf16 != 0: C, CWg, CWp, emb, dec0, wx, wh, wqg, vg, wqp and vp point to
+// __nv_bfloat16, else to float; the rest is float (int for the indices).
+// The cluster template runs when H % PTR_CLUSTER == 0, its shared memory
+// fits a block and the card can hold one such cluster; else the block
+// template, if its shared memory fits; else nothing runs.
+extern "C" int ptr_decode_launch(const void* C, const void* CWg, const void* CWp,
+                                 const void* emb, const void* dec0, const float* h0,
+                                 const float* c0, const void* wx, const void* wh,
+                                 const float* bias, const void* wqg, const void* vg,
+                                 const void* wqp, const void* vp, const int* parent_mat,
+                                 const int* n_valid, const float* unif, int* order, float* logp,
+                                 float* ent, int B, int n, int H, int D, int sampled, int bf16,
+                                 int device, void* stream, int* template_out) {
+  *template_out = -1;
+  if (H <= 0 || H > PTR_THREADS || PTR_THREADS % H != 0 || B <= 0 || n <= 0 || D <= 0 ||
+      (sampled && unif == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  int max_smem = 0;
+  e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = (cudaStream_t)stream;
+  // the arguments in the storage type of the tag's type
+  const auto args = [&](auto tag) {
+    using T = decltype(tag);
+    return DecodeArgs<T>{(const T*)C,   (const T*)CWg,  (const T*)CWp, (const T*)emb,
+                         (const T*)dec0, h0,            c0,            (const T*)wx,
+                         (const T*)wh,  bias,           (const T*)wqg, (const T*)vg,
+                         (const T*)wqp, (const T*)vp,   parent_mat,    n_valid,
+                         sampled ? unif : nullptr,      order,         logp,
+                         ent,           n,              H,             D};
+  };
+  if (bf16)
+    return ptr_decode_run(args(__nv_bfloat16()), ptr_decode_cluster_bf16, ptr_decode_block_bf16,
+                          2, B, max_smem, st, template_out);
+  return ptr_decode_run(args(0.0f), ptr_decode_cluster, ptr_decode_block, 0, B, max_smem, st,
+                        template_out);
+}
+
+// The occupancy probes scripts/ptr_decode_phases.py reads, from the plain
+// build (the phase clocks' registers would change their answer).
+
 // How many clusters of the cluster template the card holds at once for an
-// (n, H, D) batch, into *out; returns a CUDA error code.
-extern "C" int ptr_decode_max_clusters(int n, int H, int D, int* out) {
-  const size_t smem = ptr_decode_cluster_smem_bytes(n, H, D);
-  cudaError_t e = cudaFuncSetAttribute(ptr_decode_cluster,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// (n, H, D) batch, into *out (bf16 != 0: the bf16 template); returns a CUDA
+// error code.
+extern "C" int ptr_decode_max_clusters(int n, int H, int D, int bf16, int* out) {
+  const void* k = bf16 ? (const void*)ptr_decode_cluster_bf16 : (const void*)ptr_decode_cluster;
+  const size_t smem =
+      ptr_decode_cluster_smem_bytes(n, H, D, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -560,6 +620,17 @@ extern "C" int ptr_decode_max_clusters(int n, int H, int D, int* out) {
   cfg.dynamicSmemBytes = smem;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(out, (void*)ptr_decode_cluster, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, k, &cfg);
 }
-#endif
+
+// How many blocks of the cluster template one SM holds at once, clusters
+// aside, for an (n, H, D) batch, into *out (bf16 != 0: the bf16 template);
+// returns a CUDA error code.
+extern "C" int ptr_decode_max_blocks(int n, int H, int D, int bf16, int* out) {
+  const void* k = bf16 ? (const void*)ptr_decode_cluster_bf16 : (const void*)ptr_decode_cluster;
+  const size_t smem =
+      ptr_decode_cluster_smem_bytes(n, H, D, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, PTR_THREADS, smem);
+}

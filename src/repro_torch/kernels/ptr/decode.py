@@ -12,6 +12,14 @@ the decoder's gate weights in their shared memory (hidden widths up to 128
 at the release's buckets); ``ptr_decode_block`` runs a graph on one block
 that reads them from L2 every step (any other width that fits, e.g. the
 default 256).  Each template counts its own launches in ``LAUNCHES``.
+
+``bf16=True`` is the reference's ``decode_batch(bf16=True)``: the two
+templates' bf16 storage twins (``ptr_decode_cluster_bf16``,
+``ptr_decode_block_bf16``) take ``C``, ``C @ W_ref`` of both heads (rounded
+from the float32 products), ``emb``, ``dec0`` and every decoder weight but
+the bias in bfloat16, and sum in float32.  The plain version rounds the same
+operands and decodes in float32.  Its orders are the reference's bf16
+orders, which may differ from the float32 ones.
 """
 
 from __future__ import annotations
@@ -23,16 +31,17 @@ import torch
 
 from .. import build
 from .kernel import MAX_SMEM_BYTES, THREADS, _WARPS, refuse_grad
-from .ref import precompute_refs
+from .ref import precompute_refs, reference_pointer_step
 
 __all__ = ["decode_batch", "decode_batch_reference", "decode_kernel_supported",
-           "decode_smem_bytes", "decode_template", "launch", "step_uniforms", "TEMPLATES",
-           "ARGTYPES"]
+           "decode_smem_bytes", "decode_template", "launch", "step_uniforms", "stored_operands",
+           "TEMPLATES", "ARGTYPES"]
 
 #: blocks a graph of the cluster template runs on (PTR_CLUSTER in ptr_decode.cu)
 CLUSTER = 4
-#: the kernel's templates, by the value its launcher reports
-TEMPLATES = {1: "ptr_decode_cluster", 0: "ptr_decode_block"}
+#: the kernel's templates, by the value its launcher reports: 2 bf16 + cluster
+TEMPLATES = {1: "ptr_decode_cluster", 0: "ptr_decode_block",
+             3: "ptr_decode_cluster_bf16", 2: "ptr_decode_block_bf16"}
 
 
 def hidden_ok(hidden: int) -> bool:
@@ -42,42 +51,47 @@ def hidden_ok(hidden: int) -> bool:
 
 
 def decode_smem_bytes(n: int, hidden: int, max_deg: int, template: str) -> int:
-    """Dynamic shared memory of one block of ``template`` (mirrors
-    ``ptr_decode_{cluster,block}_smem_bytes``): the per-graph state both keep
-    (decoder input, query and score vectors, per-node scores, lists, flags
-    and parent indices), plus h, c, gates and bias for the block template,
-    or the block's Wx and Wh columns (2 hidden^2 floats), h by step parity,
+    """Dynamic shared memory of one block of ``template``, any of
+    :data:`TEMPLATES` (mirrors ``ptr_decode_{cluster,block}_smem_bytes``):
+    the per-graph state all keep (decoder input, query and score vectors,
+    per-node scores, lists, flags and parent indices), plus h, c, gates and
+    bias for the block template, or the block's Wx and Wh columns (2 hidden^2
+    elements of the storage type: 4 bytes, 2 for bf16), h by step parity,
     bias and c for the cluster template."""
     state = (4 * (6 * hidden + THREADS + _WARPS + 2 * n)
              + 4 * (n + _WARPS + n * max_deg + 1) + n)
-    if template == "ptr_decode_block":
+    if template in (TEMPLATES[0], TEMPLATES[2]):
         return 4 * 10 * hidden + state
-    if template == "ptr_decode_cluster":
-        return 4 * (2 * hidden * hidden + 4 * hidden) + state
+    if template in (TEMPLATES[1], TEMPLATES[3]):
+        elem = 2 if template == TEMPLATES[3] else 4
+        return elem * 2 * hidden * hidden + 4 * 4 * hidden + state
     raise ValueError(f"unknown template {template!r}")
 
 
-def decode_template(bucket_n: int, hidden: int, max_deg: int = 6) -> str:
+def decode_template(bucket_n: int, hidden: int, max_deg: int = 6, bf16: bool = False) -> str:
     """The template the launcher runs for a (bucket_n, hidden, max_deg)
-    batch on a card that holds a four-block cluster (every Hopper card):
-    the cluster template when hidden splits four ways and its shared memory
-    fits 227 KB, else the block template when its own fits.  Raises
-    ``ValueError`` when neither takes the shape."""
+    batch in the storage type (``bf16``) on a card that holds a four-block
+    cluster (every Hopper card): the cluster template when hidden splits
+    four ways and its shared memory fits 227 KB, else the block template
+    when its own fits.  Raises ``ValueError`` when neither takes the
+    shape."""
     if hidden_ok(hidden):
+        cluster, block = TEMPLATES[2 * bf16 + 1], TEMPLATES[2 * bf16]
         if (hidden % CLUSTER == 0
-                and decode_smem_bytes(bucket_n, hidden, max_deg, TEMPLATES[1]) <= MAX_SMEM_BYTES):
-            return TEMPLATES[1]
-        if decode_smem_bytes(bucket_n, hidden, max_deg, TEMPLATES[0]) <= MAX_SMEM_BYTES:
-            return TEMPLATES[0]
+                and decode_smem_bytes(bucket_n, hidden, max_deg, cluster) <= MAX_SMEM_BYTES):
+            return cluster
+        if decode_smem_bytes(bucket_n, hidden, max_deg, block) <= MAX_SMEM_BYTES:
+            return block
     raise ValueError(f"ptr_decode kernel cannot take n={bucket_n}, hidden={hidden}, "
-                     f"max_deg={max_deg}")
+                     f"max_deg={max_deg}" + (" in bf16" if bf16 else ""))
 
 
-def decode_kernel_supported(bucket_n: int, hidden: int, max_deg: int = 6) -> bool:
-    """True when one of the whole-decode kernel's templates takes a
-    (bucket_n, hidden) graph (see :func:`decode_template`)."""
+def decode_kernel_supported(bucket_n: int, hidden: int, max_deg: int = 6,
+                            bf16: bool = False) -> bool:
+    """True when one of the whole-decode kernel's templates in the storage
+    type takes a (bucket_n, hidden) graph (see :func:`decode_template`)."""
     try:
-        decode_template(bucket_n, hidden, max_deg)
+        decode_template(bucket_n, hidden, max_deg, bf16)
     except ValueError:
         return False
     return True
@@ -96,13 +110,34 @@ def step_uniforms(key, n: int) -> torch.Tensor:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: argument types of ``ptr_decode_launch``
-ARGTYPES = [_P] * 20 + [_I] * 6 + [_P, ctypes.POINTER(ctypes.c_int)]
+ARGTYPES = [_P] * 20 + [_I] * 7 + [_P, ctypes.POINTER(ctypes.c_int)]
 
 
-def decode_batch_reference(net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None):
+def stored_operands(net, C, emb, dtype: torch.dtype) -> list[torch.Tensor]:
+    """The operands the bf16 templates store in bfloat16, in ``dtype``: C,
+    CWg, CWp, emb (per graph), then dec0, Wx, Wh, Wqg, vg, Wqp, vp.  CWg and
+    CWp are the float32 products of the float32 C and W_ref, converted after
+    that (as the reference rounds them); W_ref itself is never rounded."""
+    CWg, CWp = precompute_refs(net, C)
+    ops = (C, CWg, CWp, emb, net.start_token(), net.dec.wx, net.dec.wh, net.glimpse.w_q,
+           net.glimpse.v, net.pointer.w_q, net.pointer.v)
+    return [x.to(device=C.device, dtype=dtype).contiguous() for x in ops]
+
+
+def decode_batch_reference(net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None, *,
+                           bf16: bool = False):
     """Plain PyTorch whole decode with the kernel's contract (see
-    :func:`decode_batch`)."""
-    return net.decode(C, emb, (h0, c0), parent_mat, n_valid=n_valid, uniforms=uniforms)
+    :func:`decode_batch`).  ``bf16``: the :func:`stored_operands` rounded to
+    bfloat16 and back, then the float32 decode, which is what the reference's
+    ``bf16=True`` kernel computes."""
+    if not bf16:
+        return net.decode(C, emb, (h0, c0), parent_mat, n_valid=n_valid, uniforms=uniforms)
+    C, CWg, CWp, emb, dec0, wx, wh, wqg, vg, wqp, vp = (
+        x.float() for x in stored_operands(net, C, emb, torch.bfloat16))
+    return net.decode(C, emb, (h0, c0), parent_mat, n_valid=n_valid, uniforms=uniforms,
+                      logits_fn=lambda h, mask: reference_pointer_step(
+                          C, CWg, CWp, h, wqg, vg, wqp, vp, mask),
+                      cell=(dec0, wx, wh, net.dec.b))
 
 
 def load_launcher():
@@ -111,7 +146,8 @@ def load_launcher():
     return build.load_function("ptr_decode", "ptr_decode_launch", ARGTYPES)
 
 
-def decode_batch(net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None):
+def decode_batch(net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None, *,
+                 bf16: bool = False):
     """Whole decode over a padded batch of encoded graphs.
 
     C, emb: (B, n, H) contexts and projected embeddings; h0, c0: (B, H)
@@ -119,34 +155,35 @@ def decode_batch(net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None):
     (B,) int; uniforms: (B, n) per-step draws for a sampled decode, None for
     greedy.  A node is selectable once every parent is visited.  Returns
     order (B, n) int64 and logp, entropy (B, n) float32, drained padded
-    steps at zero logp and entropy.  Forward only: raises on a
-    grad-requiring input (or parameter) in grad mode, on the CPU too
+    steps at zero logp and entropy.  ``bf16``: the bf16 storage templates
+    (see the module's docstring).  Forward only: raises on a grad-requiring
+    input (or parameter) in grad mode, on the CPU too
     (:func:`~repro_torch.kernels.ptr.kernel.refuse_grad`).
     """
     refuse_grad("decode_batch", C, emb, h0, c0, *net.parameters())
     if not C.is_cuda:
-        return decode_batch_reference(net, C, emb, h0, c0, parent_mat, n_valid, uniforms)
+        return decode_batch_reference(net, C, emb, h0, c0, parent_mat, n_valid, uniforms,
+                                      bf16=bf16)
     fn = load_launcher()
-    *out, template = launch(fn, net, C, emb, h0, c0, parent_mat, n_valid, uniforms)
+    *out, template = launch(fn, net, C, emb, h0, c0, parent_mat, n_valid, uniforms, bf16=bf16)
     build.LAUNCHES[template] += 1
     return tuple(out)
 
 
-def launch(fn, net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None):
+def launch(fn, net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None, *, bf16: bool = False):
     """Launches ``fn`` — ``ptr_decode_launch`` of the kernel's library, or of
     an instrumented variant of it — on CUDA tensors with the contract of
     :func:`decode_batch`; returns order, logp, entropy and the name of the
     template that ran.  Counts nothing."""
     B, n, H = C.shape
     D = parent_mat.shape[-1]
-    decode_template(n, H, D)          # raises on a shape neither template takes
+    decode_template(n, H, D, bf16)    # raises on a shape neither template takes
     dev = C.device
     f32 = torch.float32
-    CWg, CWp = precompute_refs(net, C)
     f = lambda x: x.to(device=dev, dtype=f32).contiguous()
-    args = [f(C), f(CWg), f(CWp), f(emb), f(net.start_token()), f(h0), f(c0), f(net.dec.wx),
-            f(net.dec.wh), f(net.dec.b), f(net.glimpse.w_q), f(net.glimpse.v),
-            f(net.pointer.w_q), f(net.pointer.v)]
+    C, CWg, CWp, emb, dec0, wx, wh, wqg, vg, wqp, vp = stored_operands(
+        net, C, emb, torch.bfloat16 if bf16 else f32)
+    args = [C, CWg, CWp, emb, dec0, f(h0), f(c0), wx, wh, f(net.dec.b), wqg, vg, wqp, vp]
     pm = parent_mat.to(device=dev, dtype=torch.int32).contiguous()
     nv = n_valid.to(device=dev, dtype=torch.int32).contiguous()
     unif = None if uniforms is None else f(uniforms)
@@ -160,6 +197,7 @@ def launch(fn, net, C, emb, h0, c0, parent_mat, n_valid, uniforms=None):
     rc = fn(*(a.data_ptr() for a in args), pm.data_ptr(), nv.data_ptr(),
             None if unif is None else unif.data_ptr(),
             order.data_ptr(), logp.data_ptr(), ent.data_ptr(),
-            B, n, H, D, int(unif is not None), dev.index or 0, stream, ctypes.byref(launched))
+            B, n, H, D, int(unif is not None), int(bf16), dev.index or 0, stream,
+            ctypes.byref(launched))
     build.check("ptr_decode", rc)
     return order.long(), logp, ent, TEMPLATES[launched.value]
