@@ -9,15 +9,18 @@ Run from the repository root:  python3 chip_smoke.py
    policy (checkpoints/respect-v1, hidden 128) on the ten Table-I graphs
    plus 64 synthetic graphs (uniform system, whole-decode kernel B1 in its
    cluster template), a seeded RespectScheduler.init (the default hidden
-   256) on the synthetic graphs (B1 in its block template), then a
-   heterogeneous system (scan decode with the single-step kernel) — with
-   the launch counters reset just before and read just after;
+   256) on the synthetic graphs (B1 in its block template) and on the
+   first 14 of them (two waves of 16-block clusters: B1's wide template),
+   then a heterogeneous system (scan decode with the single-step kernel) —
+   with the launch counters reset just before and read just after;
 4. checks the ten golden order/assignment digests
    (tests/golden/dnn_schedules.json) and holds the synthetic and
    heterogeneous results to the plain PyTorch path on the CPU (at the
-   release's width, and with seeded schedulers at hidden 96 and 640, widths
-   the whole-decode kernel refuses, through the single-step kernel B2);
-5. holds each kernel (B1's two templates apart) to its plain PyTorch
+   release's width, and with seeded schedulers at hidden 96 and 640 through
+   the single-step kernel B2, as every profile-conditioned batch); a
+   uniform batch at hidden 384 (a width the block's thread groups do not
+   divide) through B1's block template, equal to the CPU plain path;
+5. holds each kernel (B1's three templates apart) to its plain PyTorch
    version on the card at the main path's shapes, times both with CUDA
    events (and, for each kernel, its device time from the profiler's kernel
    durations: a kernel under 0.2 ms is reported by that time, which leaves
@@ -50,8 +53,8 @@ Run from the repository root:  python3 chip_smoke.py
    reset just before and read just after: seeded weights drawn on the host
    for seed 0 at hidden 256, 128 and 96, their leaves (read back from the
    card) against tests/golden/torch_seeded_schedules.json, then those
-   schedulers on the 64 synthetic graphs (B1 block template, B1 cluster
-   template, the scan with B2) and on the heterogeneous batch (the scan with
+   schedulers on the 64 synthetic graphs (B1 block template at hidden 256
+   and 96, B1 cluster template) and on the heterogeneous batch (the scan with
    B2, a start token conditioned through w_sys), digests against the golden
    file (hidden 256 on the synthetic graphs and hidden 96 on the
    heterogeneous ones are the main path's runs of 1 and 3, held to the file
@@ -280,11 +283,17 @@ Run from the repository root:  python3 chip_smoke.py
    the compiler emulation's, the exact solver's and RESPECT's assignment
    sha256 and monotone flag equal to tests/golden/torch_edge_deploy.json
    (the JAX package's) and their bottleneck_s within TOL_DEPLOY relative,
-   30 ptr_decode_block launches (one a schedule call) and no other, the
-   table's host-clock time; the quickstart twin on ResNet50 at k = 4 the
-   same way (one ptr_decode_block launch), its per-stage placement too;
-41. B1's block template at the table's largest bucket (InceptionResNetv2,
-   bucket 1024, B = 1) held to its plain version and timed;
+   30 B1 launches (one a schedule call, B = 1) of the template the rule
+   picks at each bucket (decode.decode_template with the card's count of
+   16-block clusters: ptr_decode_wide_f32) and no other, the table's
+   host-clock time split into the compiler emulation, the exact solver,
+   the evaluation and RESPECT's schedule calls (encode, B1, the rest),
+   the card synchronized around each part; the quickstart twin on ResNet50 at k = 4 the same way
+   (one launch), its per-stage placement too;
+41. B1 at the table's largest bucket (InceptionResNetv2, bucket 1024,
+   B = 1): the wide template (greedy and sampled) and the block template
+   (a build with -DPTR_DECODE_FORCE_BLOCK) held to the plain version and
+   timed in turns by their exact profiler names;
 42. the serve_traffic twin (hidden 64: the cluster template) with its two
    bursts of 80 requests, counted: every result equal to schedule_many's
    and to the golden pool's, 0 failed, degraded, retried or restarted,
@@ -344,13 +353,16 @@ Run from the repository root:  python3 chip_smoke.py
    decode_bf16=True) on the ten Table-I and 64 synthetic graphs (one
    ptr_decode_cluster_bf16 a bucket, nothing else of B1) and
    init(seed=0, decode_bf16=True) on the synthetic ones (one
-   ptr_decode_block_bf16), their digests against
+   ptr_decode_block_bf16) and on the first 16 of them (one
+   ptr_decode_wide_bf16: two waves of the 14 clusters the card holds at
+   bucket 32 in bf16), their digests against
    tests/golden/torch_bf16_schedules.json (the JAX package's bf16 schedules)
-   and the CPU plain bf16 path; (with 5) the two bf16 templates held to the
-   plain bf16 version at bucket 1024, B = 4 and bucket 32, B = 64 (hidden
-   128) and bucket 32, B = 64 (hidden 256), their device time in turns with
-   the float32 twin's, their bound at 2 bytes an element; (with 10) the
-   templates the path ran by profiler name.
+   and the CPU plain bf16 path; (with 5) the three bf16 templates held to
+   the plain bf16 version at bucket 1024, B = 4 and bucket 32, B = 64
+   (hidden 128), bucket 32, B = 64 and bucket 1024, B = 2 (hidden 256),
+   their device time in turns with the float32 twin's, their bound at 2
+   bytes an element; (with 10) the templates the path ran by profiler
+   name.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.  The last line is the JSON device record.
@@ -371,6 +383,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -386,6 +399,10 @@ HBM_BYTES_PER_S = HW.get("hbm_bw")        # H100 SXM device memory
 F32_FLOPS_PER_S = HW.get("f32_flops")     # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = HW.get("peak_flops")   # H100 SXM bf16 tensor cores, dense
 STAGES = 4
+FORCE_BLOCK = ("PTR_DECODE_FORCE_BLOCK",)   # B1's build with only its block template
+BF16_TWIN = {"ptr_decode_cluster": "ptr_decode_cluster_bf16",
+             "ptr_decode_block": "ptr_decode_block_bf16",
+             "ptr_decode_wide_f32": "ptr_decode_wide_bf16"}
 TOL_LOGITS = 1e-4              # single step: float32 sums in another order
 TOL_LOGP = 1e-3                # whole decode: drift carried through n LSTM steps
 HETERO = dict(n_stages=STAGES, compute_rate=(4e12, 2e12, 4e12, 8e12),
@@ -586,16 +603,17 @@ def decode_work(graphs, orders, n: int, H: int, D: int,
     """(bytes, flops) a whole decode of ``graphs`` padded to ``n`` needs:
     every real row of C, CWg, CWp and emb read once, the weights once, the
     outputs written once; per real step the gate products, the two query
-    products and the frontier rows' scores, softmax and glimpse.  C, CWg,
-    CWp, emb, wx, wh, the two query weights, v, v and dec0 count
-    ``itemsize`` bytes an element (2 for the bf16 templates); the bias, the
-    two W_ref, h0, c0, the indices and the outputs 4."""
+    products and the frontier rows' scores, softmax and glimpse.  CWg and CWp
+    (C @ W_ref of both heads) are the kernel's inputs, computed before it:
+    neither W_ref nor that product counts.  C, CWg, CWp, emb, wx, wh, the
+    two query weights, v, v and dec0 count ``itemsize`` bytes an element (2
+    for the bf16 templates); the bias, h0, c0, the indices and the outputs
+    4."""
     w_bytes = (itemsize * (2 * H * 4 * H + 2 * H * H + 3 * H)   # wx, wh, 2 w_q, v, v, dec0
-               + 4 * (4 * H + 2 * H * H))                        # b, 2 w_ref
+               + 4 * 4 * H)                                      # b
     nbytes, flops = float(w_bytes), 0.0
     for g, o in zip(graphs, orders):
         nbytes += itemsize * 4 * g.n * H + 4 * (2 * H + n * D + 1) + 3 * 4 * n
-        flops += g.n * 2 * 2 * H * H              # C @ W_ref of both heads
         for m in frontier_sizes(g, o):
             flops += 2 * 2 * H * 4 * H + 10 * H    # gates (x and h halves) + cell
             flops += 2 * 2 * H * H                 # qg, qp
@@ -824,7 +842,7 @@ def steps_bound(net, rec: dict) -> tuple[float, str]:
 # the seeded and sampled path: threefry weights and uniforms, the fallback
 # rung, save/load
 # ---------------------------------------------------------------------- #
-SEEDED_ROUTES = {256: "ptr_decode_block", 128: "ptr_decode_cluster", 96: "ptr_step"}
+SEEDED_ROUTES = {256: "ptr_decode_block", 128: "ptr_decode_cluster", 96: "ptr_decode_block"}
 
 
 def schedule_digests(results) -> dict:
@@ -1014,23 +1032,32 @@ def bf16_path(card: str, table1, names, synth) -> tuple[dict, dict, float]:
     """The decode_bf16 path, counted: RespectScheduler.from_release(
     decode_bf16=True) on the Table-I and synthetic graphs runs one
     ptr_decode_cluster_bf16 a bucket and nothing else of B1, init(seed=0,
-    decode_bf16=True) on the synthetic ones one ptr_decode_block_bf16; their
-    digests equal the JAX package's bf16 schedules (BF16_GOLDEN) and the CPU
-    plain bf16 path.  Returns the path's launches, the two schedulers (for
-    the profiler's names, read late) and the seconds it took."""
+    decode_bf16=True) on the synthetic ones one ptr_decode_block_bf16 and on
+    the first BF16_WIDE_BATCH of them the template the rule picks with the
+    card's count of bf16 wide clusters (ptr_decode_wide_bf16); their digests
+    equal the JAX package's bf16 schedules (BF16_GOLDEN) and the CPU plain
+    bf16 path.  Returns the path's launches, the runs (for the profiler's
+    names, read late) and the seconds it took."""
     import numpy as np
     import torch
 
     from repro_torch.core import RespectScheduler
     from repro_torch.core.batching import bucketize
     from repro_torch.kernels.ptr import ops
+    from repro_torch.kernels.ptr.decode import decode_template, wide_clusters
 
     t0 = time.perf_counter()
     gold = json.loads(BF16_GOLDEN.read_text())
     check(gold["meta"]["table1"] == names, "bf16 golden: Table-I graphs differ")
     scheds = {"respect-v1": RespectScheduler.from_release(decode_bf16=True),
               "init_seed0": RespectScheduler.init(seed=0, decode_bf16=True)}
-    batches = {"respect-v1": table1 + synth, "init_seed0": synth}
+    scheds["init_seed0_few"] = scheds["init_seed0"]
+    few = synth[:BF16_WIDE_BATCH]
+    batches = {"respect-v1": table1 + synth, "init_seed0": synth, "init_seed0_few": few}
+    few_template = decode_template(32, 256, 6, True, batch=len(few),
+                                   clusters=wide_clusters(32, 256, 6, True))
+    check(few_template == "ptr_decode_wide_bf16",
+          f"decode_bf16 init(seed=0): {len(few)} graphs of bucket 32 take {few_template}")
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     res, ran = {}, {}
@@ -1042,7 +1069,8 @@ def bf16_path(card: str, table1, names, synth) -> tuple[dict, dict, float]:
     launches = dict(ops.LAUNCHES)
     n_buckets = len(bucketize(table1 + synth))
     for label, template, count in (("respect-v1", "ptr_decode_cluster_bf16", n_buckets),
-                                   ("init_seed0", "ptr_decode_block_bf16", 1)):
+                                   ("init_seed0", "ptr_decode_block_bf16", 1),
+                                   ("init_seed0_few", few_template, 1)):
         want = {k: count * (k == template) for k in launches}
         check(ran[label] == want, f"decode_bf16 {label}: launches {ran[label]}, expected "
               f"{count} {template} and nothing else")
@@ -1053,6 +1081,10 @@ def bf16_path(card: str, table1, names, synth) -> tuple[dict, dict, float]:
     check(not bad, f"decode_bf16 respect-v1: graphs {bad} differ from the bf16 golden file")
     bad = digest_misses(schedule_digests(res["init_seed0"]), gold["synthetic"]["init_seed0"])
     check(not bad, f"decode_bf16 init(seed=0): graphs {bad} differ from the bf16 golden file")
+    bad = digest_misses(schedule_digests(res["init_seed0_few"]),
+                        {k: v[:len(few)] for k, v in gold["synthetic"]["init_seed0"].items()})
+    check(not bad, f"decode_bf16 init(seed=0), {len(few)} graphs: graphs {bad} differ from the "
+          "bf16 golden file")
     f32 = json.loads(GOLDEN.read_text())["models"]
     differ = [nm for nm, r in zip(names, res["respect-v1"])
               if digest(r["order"]) != f32[nm]["order_sha256"]]
@@ -1062,37 +1094,42 @@ def bf16_path(card: str, table1, names, synth) -> tuple[dict, dict, float]:
            "init_seed0": RespectScheduler.init(seed=0, device="cpu", decode_bf16=True)}
     for label, sched in cpu.items():
         want = sched.schedule_many(batches[label], STAGES, use_cache=False)
-        bad = [i for i, (r, rc) in enumerate(zip(res[label], want))
-               if not (np.array_equal(r["order"], rc["order"])
-                       and np.array_equal(r["assignment"], rc["assignment"]))]
-        check(not bad, f"decode_bf16 {label}: graphs {bad} differ from the CPU plain bf16 path")
+        for lb in (label, label + "_few"):
+            bad = [i for i, (r, rc) in enumerate(zip(res.get(lb, []), want))
+                   if not (np.array_equal(r["order"], rc["order"])
+                           and np.array_equal(r["assignment"], rc["assignment"]))]
+            check(not bad, f"decode_bf16 {lb}: graphs {bad} differ from the CPU plain bf16 path")
     sec = time.perf_counter() - t0
     print(f"decode_bf16 path on {card}: respect-v1 on {len(table1)} Table-I and {len(synth)} "
           f"synthetic graphs ran {n_buckets} ptr_decode_cluster_bf16 launches, init(seed=0) on "
-          f"the synthetic ones 1 ptr_decode_block_bf16 (counted {launches}); every order and "
-          f"assignment digest equals the JAX package's bf16 schedules and the CPU plain bf16 "
-          f"path; Table-I orders that differ from float32: {differ} ({sec:.1f} s)", flush=True)
-    return launches, {"respect-v1": (scheds["respect-v1"], table1 + synth, n_buckets),
-                      "init_seed0": (scheds["init_seed0"], synth, 1)}, sec
+          f"the synthetic ones 1 ptr_decode_block_bf16 and on the first {len(few)} 1 "
+          f"{few_template} (counted {launches}); every order and assignment digest equals the "
+          f"JAX package's bf16 schedules and the CPU plain bf16 path; Table-I orders that "
+          f"differ from float32: {differ} ({sec:.1f} s)", flush=True)
+    return launches, {"respect-v1": (scheds["respect-v1"], table1 + synth,
+                                     "ptr_decode_cluster_bf16", n_buckets),
+                      "init_seed0": (scheds["init_seed0"], synth, "ptr_decode_block_bf16", 1),
+                      "init_seed0_few": (scheds["init_seed0"], few, few_template, 1)}, sec
 
 
 def bf16_names(card: str, runs: dict) -> float:
     """Which B1 templates the decode_bf16 path ran, by the profiler's kernel
     names (exact), in one window: ptr_decode_cluster_bf16 for respect-v1,
-    one a bucket, and ptr_decode_block_bf16 for init(seed=0), nothing else
-    of B1.  Returns its seconds."""
+    one a bucket, ptr_decode_block_bf16 for init(seed=0) on the synthetic
+    graphs and ptr_decode_wide_bf16 on the first BF16_WIDE_BATCH, nothing
+    else of B1.  Returns its seconds."""
     from repro_torch.kernels.ptr import ops
     from repro_torch.kernels.ptr.decode import TEMPLATES
 
     t0 = time.perf_counter()
     before = dict(ops.LAUNCHES)
     names_run = kernel_names(lambda: [sched.schedule_many(graphs, STAGES, use_cache=False)
-                                      for sched, graphs, _ in runs.values()])
+                                      for sched, graphs, _, _ in runs.values()])
     counted = {t: ops.LAUNCHES[t] - before[t] for t in TEMPLATES.values()}
     ran = {t: names_run.count(t) for t in TEMPLATES.values()}
     want = {t: 0 for t in TEMPLATES.values()}
-    want["ptr_decode_cluster_bf16"] = runs["respect-v1"][2]
-    want["ptr_decode_block_bf16"] = runs["init_seed0"][2]
+    for _, _, template, count in runs.values():
+        want[template] += count
     print(f"decode_bf16 path: B1 kernels by profiler name {ran}, counted {counted}", flush=True)
     check(ran == counted == want, f"decode_bf16 path ran B1 templates {ran} (counted "
           f"{counted}), expected {want}")
@@ -1376,6 +1413,8 @@ TOL_TRAIN_REL = 1e-5      # loss, entropy, advantage, grad_norm, leaf norms: flo
 TOL_TRAIN_PARAM = 1e-5    # parameter entries: float32 gradient sums through Adam's lr / eps
 TRAIN_DRAWS = 3           # uniform draws at k = 4 (the golden steps are the first draw's)
 PAPER = dict(hidden=256, batch=128, n=30)   # the paper's scale
+WIDE_BATCH = 14   # bucket-32 graphs at hidden 256 in two waves of the wide template's 7 clusters
+BF16_WIDE_BATCH = 16   # and in bf16, in two waves of its 14 (two blocks an SM)
 
 
 def int_digest(a) -> str:
@@ -1478,7 +1517,7 @@ def train_phase(card: str) -> None:
     from repro_torch.core.batching import bucketize
     from repro_torch.core.ptrnet import param_tree
     from repro_torch.kernels.ptr import ops
-    from repro_torch.kernels.ptr.decode import decode_template
+    from repro_torch.kernels.ptr.decode import decode_template, wide_clusters
 
     gold = json.loads(TRAIN_GOLDEN.read_text())
     c = gold["meta"]["config"]
@@ -1617,7 +1656,9 @@ def train_phase(card: str) -> None:
     ppack = DagSampler(seed=c["seed"], n=PAPER["n"]).next_packed_batch(PAPER["batch"],
                                                                        c["n_stages"])
     impl = rl._resolve(wide.baseline_params, ppack.to("cuda"), False)
-    tmpl = decode_template(ppack.bucket_n, PAPER["hidden"]) if impl == "kernel" else "ptr_step"
+    tmpl = (decode_template(ppack.bucket_n, PAPER["hidden"], batch=ppack.batch,
+                            clusters=wide_clusters(ppack.bucket_n, PAPER["hidden"], 6))
+            if impl == "kernel" else "ptr_step")
     before = dict(ops.LAUNCHES)
     times = []
     for i in range(2):
@@ -3996,7 +4037,7 @@ def data_parallel_phase(card: str) -> None:
               "--ckpt-dir", str(work / "ckpt"), "--out", str(work / "agent"),
               "--label-cache", str(work / "labels"), "--metrics", str(work / "metrics.jsonl")]
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    for steps_to in (4, 6):
+    for steps_to in (2, 4):   # cut from 4 + 2 to 2 + 2 (the script's clock)
         t0 = time.perf_counter()
         proc = subprocess.run(common + ["--steps", str(steps_to)], cwd=ROOT, env=env,
                               capture_output=True, text=True, timeout=900)
@@ -4006,11 +4047,11 @@ def data_parallel_phase(card: str) -> None:
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
         print(f"train_respect --devices 2 --steps {steps_to} on {card} ({dt:.1f} s): "
               + " | ".join(lines[-4:]), flush=True)
-        if steps_to == 6:
-            check(any(ln.startswith("[resume] restored trainer checkpoint at step 4")
-                      for ln in lines), "train_respect did not resume at step 4")
+        if steps_to == 4:
+            check(any(ln.startswith("[resume] restored trainer checkpoint at step 2")
+                      for ln in lines), "train_respect did not resume at step 2")
     logged = [json.loads(ln)["step"] for ln in (work / "metrics.jsonl").read_text().splitlines()]
-    check(logged == list(range(1, 7)), f"train_respect logged steps {logged}")
+    check(logged == list(range(1, 5)), f"train_respect logged steps {logged}")
     sched = RespectScheduler.load(work / "agent")
     golden = json.loads(GOLDEN.read_text())
     table1 = [build_model_graph(nm) for nm in golden["models"]]
@@ -4218,18 +4259,21 @@ def same_deploy_record(got: dict, want: dict, label: str) -> None:
 def examples_phase(card: str) -> list[dict]:
     """The example scripts' twins on the card (see the module docstring,
     items 40-42): edge_pipeline_deploy's table and quickstart held to
-    tests/golden/torch_edge_deploy.json through B1's block template,
-    serve_traffic's two bursts held to schedule_many and the golden pool;
-    B1 at the table's largest bucket held to its plain version and
-    timed."""
+    tests/golden/torch_edge_deploy.json through the B1 template the rule
+    picks for one graph (the wide one), serve_traffic's two bursts held to
+    schedule_many and the golden pool; at the table's largest bucket the
+    wide and the block template held to the plain version and timed in
+    turns."""
     import numpy as np
     import torch
 
     from repro_torch import edge_pipeline_deploy as deploy
-    from repro_torch.core import RespectScheduler, build_model_graph
-    from repro_torch.core.batching import pack_padded
+    from repro_torch.core import RespectScheduler, batching, build_model_graph
+    from repro_torch.core.batching import bucket_for, pack_padded
+    from repro_torch.kernels import build
     from repro_torch.kernels.ptr import ops
-    from repro_torch.kernels.ptr.decode import decode_batch, decode_batch_reference
+    from repro_torch.kernels.ptr.decode import (ARGTYPES, decode_batch, decode_batch_reference,
+                                                decode_template, launch, wide_clusters)
     from repro_torch.quickstart import quickstart
     from repro_torch.serve_traffic import serve_traffic
 
@@ -4240,13 +4284,41 @@ def examples_phase(card: str) -> list[dict]:
           f"examples: expected the untrained seed-0 agent on the card, got trained={trained} "
           f"hidden {sched.hidden} on {sched.device}")
 
-    # ---- edge_pipeline_deploy's table, counted ----------------------- #
+    # ---- edge_pipeline_deploy's table, counted, its time split --------- #
+    # each part's host-clock seconds, the card synchronized around each call
+    split = dict.fromkeys(("compiler emulation", "exact solver", "evaluation", "schedule",
+                           "encode", "B1"), 0.0)
+
+    def timed(part, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                split[part] += time.perf_counter() - t
+        return run
+
+    module_parts = ((deploy, "compiler_partition", "compiler emulation"),
+                    (deploy, "exact_dp", "exact solver"), (deploy, "evaluate_schedule", "evaluation"),
+                    (batching, "decode_batch", "B1"))
+    originals = [getattr(m, name) for m, name, _ in module_parts]
+    for (m, name, part), fn in zip(module_parts, originals):
+        setattr(m, name, timed(part, fn))
+    sched.schedule = timed("schedule", sched.schedule)
+    sched.net.encode = timed("encode", sched.net.encode)
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
-    t0 = time.perf_counter()
-    rows = deploy.deploy_table(sched)
-    torch.cuda.synchronize()
-    t_table = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        rows = deploy.deploy_table(sched)
+        torch.cuda.synchronize()
+        t_table = time.perf_counter() - t0
+    finally:
+        for (m, name, _), fn in zip(module_parts, originals):
+            setattr(m, name, fn)
+        del sched.schedule, sched.net.encode
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     check(len(rows) == len(gold["deploy"]) == 30, f"examples: {len(rows)} deploy rows")
     for got, want in zip(rows, gold["deploy"]):
@@ -4255,16 +4327,34 @@ def examples_phase(card: str) -> list[dict]:
         for method in deploy.METHODS:
             same_deploy_record(got[method], want[method],
                                f"edge_pipeline_deploy {got['model']} k={got['k']} {method}")
-    check(launches == {"ptr_decode_block": 30},
-          f"edge_pipeline_deploy: launches {launches}, expected 30 ptr_decode_block (one a "
-          "schedule call, hidden 256)")
+    # one graph a schedule call: the rule's template at each row's bucket,
+    # with the card's count of wide clusters there
+    H, D = sched.hidden, sched.max_deg
+
+    def one_graph(n):
+        b = bucket_for(n)
+        return decode_template(b, H, D, batch=1, clusters=wide_clusters(b, H, D))
+
+    d_want = {}
+    for r in rows:
+        d_want[one_graph(r["n"])] = d_want.get(one_graph(r["n"]), 0) + 1
+    check(d_want == {"ptr_decode_wide_f32": 30}, f"edge_pipeline_deploy: the rule picks {d_want}")
+    check(launches == d_want, f"edge_pipeline_deploy: launches {launches}, expected {d_want} "
+          "(one a schedule call, hidden 256)")
     differ = [f"{r['model']} k={r['k']}" for r in rows
               if r["respect"]["assign_sha256"] != r["exact"]["assign_sha256"]]
     speedups = [r["speedup"] for r in rows]
+    rest = split["schedule"] - split["encode"] - split["B1"]
+    parts = sum(split[k] for k in ("compiler emulation", "exact solver", "evaluation",
+                                   "schedule"))
     print(f"edge_pipeline_deploy on {card}: 30 rows (10 Table-I models x k = 4, 5, 6) equal "
           f"{EDGE_DEPLOY.name} (sha256 and monotone flags equal, bottleneck_s within "
           f"{TOL_DEPLOY} relative) in {t_table:.3f} s (host clock, first call, exact solver and "
-          f"compiler emulation included); B1 launches by template {launches}; RESPECT differs "
+          f"compiler emulation included): compiler emulation {split['compiler emulation']:.3f} "
+          f"s, exact solver {split['exact solver']:.3f} s, evaluation {split['evaluation']:.3f} "
+          f"s, RESPECT's schedule calls {split['schedule']:.3f} s (encode {split['encode']:.3f}, "
+          f"B1 {split['B1']:.3f}, pack, rho, repair and the rest {rest:.3f}), other "
+          f"{t_table - parts:.3f} s; B1 launches by template {launches}; RESPECT differs "
           f"from exact in {len(differ)} rows ({', '.join(differ)}); mean RESPECT speedup over "
           f"the compiler emulation {np.mean(speedups):.4f}x (max {np.max(speedups):.4f}x)",
           flush=True)
@@ -4277,8 +4367,8 @@ def examples_phase(card: str) -> list[dict]:
     out = quickstart(sched, want["model"], want["stages"])
     torch.cuda.synchronize()
     q_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-    check(q_launches == {"ptr_decode_block": 1},
-          f"quickstart: launches {q_launches}, expected one ptr_decode_block")
+    q_want = {one_graph(build_model_graph(want["model"]).n): 1}
+    check(q_launches == q_want, f"quickstart: launches {q_launches}, expected {q_want}")
     by_name = {r["scheduler"]: r for r in out["rows"]}
     for name, method in (("compiler", "compiler"), ("exact", "exact"), ("RESPECT", "respect")):
         same_deploy_record(by_name[name], want[method], f"quickstart {name}")
@@ -4292,40 +4382,66 @@ def examples_phase(card: str) -> list[dict]:
           f"{by_name['RESPECT']['solve_s'] * 1e3:.2f} ms to solve (host clock), launches "
           f"{q_launches}", flush=True)
 
-    # ---- B1's block template at the table's largest bucket ------------ #
+    # ---- B1 at the table's largest bucket: the wide template, and the
+    # block template forced, in turns, each against the plain version ---- #
     g = build_model_graph("InceptionResNetv2")
-    net, D = sched.net, sched.max_deg
+    net = sched.net
     batch = pack_padded([g], max_deg=D).to("cuda")
     n = batch.bucket_n
+    wide_name = one_graph(g.n)
+    force_block = build.load_function("ptr_decode", "ptr_decode_launch", ARGTYPES, FORCE_BLOCK)
+    unif = torch.rand((1, n), generator=torch.Generator(device="cuda").manual_seed(n),
+                      device="cuda")
     with torch.inference_mode():
         C, (h0, c0), emb = net.encode(batch.feats, batch.n_valid)
         args = (net, C, emb, h0, c0, batch.parent_mat, batch.n_valid)
-        before = ops.LAUNCHES["ptr_decode_block"]
+        before = ops.LAUNCHES[wide_name]
         k_out = decode_batch(*args)
+        k_smp = decode_batch(*args, unif)
+        *b_out, b_ran = launch(force_block, *args)
+        plain_ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        plain_ev[0].record()
         p_out = decode_batch_reference(*args)
+        plain_ev[1].record()
+        p_smp = decode_batch_reference(*args, unif)
         torch.cuda.synchronize()
-        check(ops.LAUNCHES["ptr_decode_block"] == before + 1,
-              "examples B1 check: the block template did not launch")
+        check(ops.LAUNCHES[wide_name] == before + 2 and b_ran == "ptr_decode_block",
+              f"examples B1 check: ran {b_ran} forced, {wide_name} "
+              f"{ops.LAUNCHES[wide_name] - before} times")
         valid = torch.arange(n, device="cuda")[None, :] < batch.n_valid[:, None].long()
-        check(torch.equal(torch.where(valid, k_out[0], -1), torch.where(valid, p_out[0], -1)),
-              f"examples B1 bucket {n}: orders differ from the plain version")
-        err = max(float((k_out[1] - p_out[1]).abs().max()),
-                  float((k_out[2] - p_out[2]).abs().max()))
-        check(err <= TOL_LOGP, f"examples B1 bucket {n}: logp/entropy error {err:.3e}")
+        errs = {}
+        # greedy: the wide and the block template; sampled: the wide one
+        for name, out, want in ((wide_name, k_out, p_out), ("ptr_decode_block", b_out, p_out),
+                                (wide_name, k_smp, p_smp)):
+            check(torch.equal(torch.where(valid, out[0], -1), torch.where(valid, want[0], -1)),
+                  f"examples B1 bucket {n} {name}: orders differ from the plain version")
+            errs[name] = max(errs.get(name, 0.0), float((out[1] - want[1]).abs().max()),
+                             float((out[2] - want[2]).abs().max()))
+            check(errs[name] <= TOL_LOGP,
+                  f"examples B1 bucket {n} {name}: logp/entropy error {errs[name]:.3e}")
+        same = all(torch.equal(a, b) for a, b in zip(k_out, b_out))
         ev_ms = cuda_ms(lambda: decode_batch(*args), iters=5)
-        dev_ms = device_ms(lambda: decode_batch(*args), "ptr_decode_block", iters=5)
-        plain_ms = cuda_ms(lambda: decode_batch_reference(*args), iters=2)
-    b_ms, b_by = bound(*decode_work([g], k_out[0].cpu().numpy(), n, net.hidden, D))
-    print(f"ptr_decode edge_pipeline_deploy bucket {n}, B=1 (InceptionResNetv2) H={net.hidden} "
-          f"(ptr_decode_block) on {card}: kernel {ev_ms:.4f} ms (CUDA events; device "
-          f"{dev_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), orders "
-          f"equal, max |err| logp/ent {err:.2e} (tolerance {TOL_LOGP})", flush=True)
-    kernel_rows = [{"name": "ptr_decode_block (edge_pipeline_deploy)", "route": "cuda",
+        # each turn runs only its own template, by exact profiler name
+        turns = turns_ms({wide_name: lambda: decode_batch(*args),
+                          "ptr_decode_block": lambda: launch(force_block, *args)},
+                         ("ptr_decode_block", wide_name, wide_name, "ptr_decode_block"), iters=3)
+    plain_ms = plain_ev[0].elapsed_time(plain_ev[1])
+    dev = {k: statistics.mean(v) for k, v in turns.items()}
+    b_ms, b_by = bound(*decode_work([g], k_out[0].cpu().numpy(), n, H, D))
+    print(f"ptr_decode edge_pipeline_deploy bucket {n}, B=1 (InceptionResNetv2) H={H} "
+          f"({wide_name}) on {card}: kernel {ev_ms:.4f} ms (CUDA events), device time in turns "
+          + ", ".join(f"{k} {' '.join(f'{x:.4f}' for x in v)} ms" for k, v in turns.items())
+          + f" (block / wide {dev['ptr_decode_block'] / dev[wide_name]:.2f}), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); orders equal the plain version's "
+          f"(wide greedy and sampled, block greedy), max |err| logp/ent {errs[wide_name]:.2e} and "
+          f"{errs['ptr_decode_block']:.2e} (tolerance {TOL_LOGP}); wide and block equal bit for "
+          f"bit: {same}", flush=True)
+    kernel_rows = [{"name": f"{wide_name} (edge_pipeline_deploy)", "route": "cuda",
                     "source": "src/repro_torch/kernels/ptr/csrc/ptr_decode.cu",
                     "replaces": "src/repro/kernels/ptr/decode.py:84",
-                    "launches": launches.get("ptr_decode_block", 0), "max_abs_err": err,
-                    "ms": reported_ms(ev_ms, dev_ms), "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None}]
+                    "launches": launches.get(wide_name, 0), "max_abs_err": errs[wide_name],
+                    "ms": reported_ms(ev_ms, dev[wide_name]), "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
     del sched, net, C, emb, args
 
     # ---- serve_traffic: two bursts of 80 requests, counted ------------ #
@@ -5418,12 +5534,18 @@ def run_phases(card: str, dry: list) -> dict:
     from repro_torch.core.batching import bucketize, pack_padded
     from repro_torch.core.segment import repair, rho_dp
     from repro_torch.kernels.ptr import ops
-    from repro_torch.kernels.ptr.decode import TEMPLATES, decode_batch, decode_batch_reference
+    from repro_torch.kernels.ptr.decode import (TEMPLATES, decode_batch, decode_batch_reference,
+                                                decode_template, wide_clusters)
     from repro_torch.kernels.ptr.kernel import pointer_step_cuda, step_cluster_size
     from repro_torch.kernels.ptr.ref import reference_pointer_step
 
-    t_build = ops.build_kernels()
-    print(f"build: all four kernels in {t_build:.2f} s (nvcc, sm_90a, in parallel)", flush=True)
+    # the four kernels, and B1 with its block template forced (the
+    # examples' A/B at B = 1): one nvcc a library, all started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda a: ops.build_kernels(*a), [(), (["ptr_decode"], FORCE_BLOCK)]))
+    print(f"build: all four kernels and B1's forced-block variant in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, in parallel)", flush=True)
 
     golden = json.loads(GOLDEN.read_text())
     seeded_gold = json.loads(SEEDED_GOLDEN.read_text())["seeded"]
@@ -5452,6 +5574,11 @@ def run_phases(card: str, dry: list) -> dict:
     res_w = wide.schedule_many(synth, STAGES, use_cache=False)
     torch.cuda.synchronize()
     wide_launches = {k: ops.LAUNCHES[k] - uniform_launches[k] for k in ops.LAUNCHES}
+    # the first 14: two waves of the wide template's 16-block clusters
+    before = dict(ops.LAUNCHES)
+    res_few = wide.schedule_many(synth[:WIDE_BATCH], STAGES, use_cache=False)
+    torch.cuda.synchronize()
+    few_launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
     t0 = time.perf_counter()
     res_h = sched.schedule_many(hetero_graphs, STAGES, hsys, use_cache=False)
     torch.cuda.synchronize()
@@ -5465,12 +5592,26 @@ def run_phases(card: str, dry: list) -> dict:
           and uniform_launches["ptr_decode_block"] == 0,
           f"respect-v1 uniform batch: B1 launches {uniform_launches}, expected "
           f"{n_buckets} ptr_decode_cluster (one a bucket) and no ptr_decode_block")
-    check(wide_launches["ptr_decode_block"] == 1 and wide_launches["ptr_decode_cluster"] == 0,
-          f"width-256 batch: B1 launches {wide_launches}, expected one ptr_decode_block")
+    # the rule (decode.decode_template) with the card's own count of wide
+    # clusters: 64 graphs of bucket 32 take the block template, 14 the wide
+    D = sched.max_deg
+    rule = {B: decode_template(32, 256, D, batch=B, clusters=wide_clusters(32, 256, D))
+            for B in (len(synth), WIDE_BATCH)}
+    check(rule == {len(synth): "ptr_decode_block", WIDE_BATCH: "ptr_decode_wide_f32"},
+          f"the template rule at hidden 256, bucket 32: {rule}")
+    for label, ran, B in (("width-256 batch", wide_launches, len(synth)),
+                          (f"width-256 batch of {WIDE_BATCH}", few_launches, WIDE_BATCH)):
+        want = {k: int(k == rule[B]) for k in TEMPLATES.values()}
+        check({k: ran[k] for k in TEMPLATES.values()} == want,
+              f"{label}: B1 launches {ran}, expected one {rule[B]}")
     check(all(r["assignment"].shape == (g.n,) and validate_monotone(g, r["assignment"], STAGES)
               for g, r in zip(synth, res_w)), "width-256 batch: invalid schedule")
     bad = digest_misses(schedule_digests(res_w), seeded_gold["256"]["synthetic"])
     check(not bad, f"width-256 batch: graphs {bad} differ from the seeded golden file")
+    bad = digest_misses(schedule_digests(res_few),
+                        {k: v[:WIDE_BATCH] for k, v in seeded_gold["256"]["synthetic"].items()})
+    check(not bad, f"width-256 batch of {WIDE_BATCH}: graphs {bad} differ from the seeded "
+          "golden file")
     hetero_steps = sum(bucketize(hetero_graphs))   # one B2 launch a step of each bucket
     check(launches["ptr_step"] == hetero_steps,
           f"heterogeneous batch: {launches['ptr_step']} ptr_step launches, expected "
@@ -5503,13 +5644,14 @@ def run_phases(card: str, dry: list) -> dict:
                        and np.array_equal(r["assignment"], rc["assignment"]))]
         check(not bad, f"{label}: card and CPU plain path disagree:\n  " + "\n  ".join(bad))
 
-    D = sched.max_deg
     same_as_cpu("heterogeneous batch", res_h, cpu)
     print(f"outputs: {len(synth)} synthetic and {len(hetero_graphs)} heterogeneous schedules "
           "equal the CPU plain path", flush=True)
 
-    # widths the whole-decode kernel refuses: the heterogeneous batch at
-    # hidden 96 and 640 runs the scan, B2 at every step, as on the CPU
+    # other widths: the heterogeneous batch at hidden 96 and 640 runs the
+    # scan, B2 at every step, as on the CPU (a profile-conditioned batch);
+    # a uniform one at hidden 384 runs B1's block template, whose thread
+    # groups loop over the columns (the wide one's float32 columns do not fit)
     widths = {}
     for Hw in (96, 640):
         widths[Hw] = RespectScheduler.init(seed=0, hidden=Hw)
@@ -5526,6 +5668,25 @@ def run_phases(card: str, dry: list) -> dict:
             check(not bad, f"hidden {Hw}: graphs {bad} differ from the seeded golden file")
         print(f"hidden {Hw}: the heterogeneous batch ran {ran} ptr_step launches and its "
               f"{len(hetero_graphs)} schedules equal the CPU plain path", flush=True)
+    t0 = time.perf_counter()
+    h384 = RespectScheduler.init(seed=0, hidden=384)
+    few = synth[:16]
+    before = dict(ops.LAUNCHES)
+    got = h384.schedule_many(few, STAGES, use_cache=False)
+    torch.cuda.synchronize()
+    ran = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES if ops.LAUNCHES[k] != before[k]}
+    check(ran == {"ptr_decode_block": 1}, f"hidden 384, uniform: launches {ran}, expected one "
+          "ptr_decode_block")
+    want = RespectScheduler.init(seed=0, hidden=384, device="cpu").schedule_many(
+        few, STAGES, use_cache=False)
+    bad = [i for i, (r, rc) in enumerate(zip(got, want))
+           if not (np.array_equal(r["order"], rc["order"])
+                   and np.array_equal(r["assignment"], rc["assignment"]))]
+    check(not bad, f"hidden 384, uniform: graphs {bad} differ from the CPU plain path")
+    print(f"hidden 384: the uniform batch of {len(few)} synthetic graphs ran {ran} (B1, not "
+          f"the scan) and its schedules equal the CPU plain path ({time.perf_counter() - t0:.1f} "
+          "s)", flush=True)
+    del h384
 
     # ---- the decode_bf16 path (its own counted run) ------------------- #
     bf16_launches, bf16_runs, bf16_sec = bf16_path(card, table1, names, synth)
@@ -5568,7 +5729,7 @@ def run_phases(card: str, dry: list) -> dict:
         args = (dnet, C, emb, h0, c0, batch.parent_mat, batch.n_valid)
         unif = torch.rand((B, n), generator=gen, device="cuda")
         valid = torch.arange(n, device="cuda")[None, :] < batch.n_valid[:, None].long()
-        names = {False: template, True: template + "_bf16"}
+        names = {False: template, True: BF16_TWIN[template]}
         checked = {}
         for bf16, name in names.items():
             before = dict(ops.LAUNCHES)
@@ -5626,11 +5787,13 @@ def run_phases(card: str, dry: list) -> dict:
         return rows
 
     # the release's width: the cluster templates at both buckets; then
-    # RespectScheduler.init's default width, 256: the block templates
+    # RespectScheduler.init's default width, 256: the block templates at
+    # bucket 32, B = 64, the wide ones at bucket 1024, B = 2
     t0 = time.perf_counter()
     kernels += decode_case("bucket 1024, B=4", net, big, "ptr_decode_cluster")
     decode_case("bucket 32, B=64", net, synth, "ptr_decode_cluster")
     kernels += decode_case("bucket 32, B=64", wide.net, synth, "ptr_decode_block")
+    kernels += decode_case("bucket 1024, B=2", wide.net, big[-2:], "ptr_decode_wide_f32")
     bf16_sec += time.perf_counter() - t0
 
     # single step at bucket 1024, B=4, a seeded half-dense mask: the release's

@@ -3,8 +3,8 @@ port's twin of ``examples/edge_pipeline_deploy.py``.
 
 For every Table-I model and every pipeline depth in {4, 5, 6}: schedule with
 the commercial-compiler emulation, the exact solver and RESPECT (the pointer
-network's decode on the card: B1, in its block template at the default
-hidden 256); check that RESPECT's schedule is deployable (monotone,
+network's decode on the card: B1, one graph a launch, in its wide template
+at the default hidden 256); check that RESPECT's schedule is deployable (monotone,
 repaired); and simulate each schedule's steady-state pipeline throughput on
 the Coral cost model (``EDGETPU``).
 

@@ -55,7 +55,8 @@ KERNELS = {
     "ptr_step": KernelSource("ptr", "ptr_step.cu", _PTR),
     "ptr_decode": KernelSource("ptr", "ptr_decode.cu", _PTR,
                                ("ptr_decode_cluster", "ptr_decode_block",
-                                "ptr_decode_cluster_bf16", "ptr_decode_block_bf16")),
+                                "ptr_decode_cluster_bf16", "ptr_decode_block_bf16",
+                                "ptr_decode_wide_f32", "ptr_decode_wide_bf16")),
     "flash_fwd": KernelSource("flash", "flash_fwd.cu"),
     "ssd_scan": KernelSource("ssd", "ssd_scan.cu"),
 }

@@ -1,6 +1,6 @@
 // Block-level building blocks shared by the pointer kernels (ptr_step.cu,
-// ptr_decode.cu).  Every kernel runs one thread block of PTR_THREADS threads
-// per graph; all helpers below are called by every thread of the block.
+// ptr_decode.cu).  Every kernel runs thread blocks of PTR_THREADS threads;
+// all helpers below are called by every thread of the block.
 // The helpers that read global memory take it stored as float or as
 // __nv_bfloat16 (T); they widen each element to float on read, so every
 // product and sum is float32 either way.
@@ -87,21 +87,40 @@ __device__ int ptr_compact(int n, Pred pred, int* list, int* cnt) {
   return base;
 }
 
+// Thread groups of the H-wide products below: PTR_THREADS / H groups of H
+// threads when H <= PTR_THREADS / 2, else one group whose threads loop over
+// the columns.  For an H that divides PTR_THREADS every thread is in a group.
+__device__ __forceinline__ int ptr_groups(int H) {
+  return H <= PTR_THREADS / 2 ? PTR_THREADS / H : 1;
+}
+
 // y = x @ W for x (H) in shared memory and W (H, H) row-major in global
-// memory.  The PTR_THREADS / H thread groups each sum a slice of the rows
-// into part (PTR_THREADS floats); the slices are then added in order.
-// Needs PTR_THREADS % H == 0.
+// memory.  ptr_groups(H) thread groups each sum a slice of the rows, in
+// ascending order, into part (PTR_THREADS floats); the slices are then
+// added in order, starting from 0.  Any H.
 template <class T>
 __device__ __forceinline__ void ptr_matvec(const float* x, const T* __restrict__ W, int H,
                                            float* part, float* y) {
-  const int G = PTR_THREADS / H;
-  const int j = threadIdx.x % H, g = threadIdx.x / H;
-  const int kc = (H + G - 1) / G;
-  const int k0 = g * kc, k1 = min(H, k0 + kc);
-  float acc = 0.0f;
+  const int G = ptr_groups(H);
+  if (G == 1) {   // one slice: all the rows
+    for (int j = threadIdx.x; j < H; j += PTR_THREADS) {
+      float acc = 0.0f;
 #pragma unroll 8
-  for (int k = k0; k < k1; ++k) acc = fmaf(x[k], ptr_ld(&W[(size_t)k * H + j]), acc);
-  part[threadIdx.x] = acc;
+      for (int k = 0; k < H; ++k) acc = fmaf(x[k], ptr_ld(&W[(size_t)k * H + j]), acc);
+      y[j] = 0.0f + acc;
+    }
+    __syncthreads();
+    return;
+  }
+  const int kc = (H + G - 1) / G;
+  if (threadIdx.x < G * H) {
+    const int j = threadIdx.x % H, g = threadIdx.x / H;
+    const int k0 = g * kc, k1 = min(H, k0 + kc);
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int k = k0; k < k1; ++k) acc = fmaf(x[k], ptr_ld(&W[(size_t)k * H + j]), acc);
+    part[threadIdx.x] = acc;
+  }
   __syncthreads();
   if (threadIdx.x < H) {
     float s = 0.0f;
@@ -144,17 +163,28 @@ __device__ __forceinline__ void ptr_softmax(float* s, int m, float* red) {
   __syncthreads();
 }
 
-// y[j] = sum_p a[p] * C[list[p], j]: PTR_THREADS / H thread groups each
-// take every G-th row, then the group partials are added in order.
+// y[j] = sum_p a[p] * C[list[p], j]: ptr_groups(H) thread groups each take
+// every G-th row, then the group partials are added in order.  Any H.
 template <class T>
 __device__ __forceinline__ void ptr_weighted_rows(const T* __restrict__ C, const int* list,
                                                   const float* a, int m, int H, float* part,
                                                   float* y) {
-  const int G = PTR_THREADS / H;
-  const int j = threadIdx.x % H, g = threadIdx.x / H;
-  float acc = 0.0f;
-  for (int p = g; p < m; p += G) acc = fmaf(a[p], ptr_ld(&C[(size_t)list[p] * H + j]), acc);
-  part[threadIdx.x] = acc;
+  const int G = ptr_groups(H);
+  if (G == 1) {
+    for (int j = threadIdx.x; j < H; j += PTR_THREADS) {
+      float acc = 0.0f;
+      for (int p = 0; p < m; ++p) acc = fmaf(a[p], ptr_ld(&C[(size_t)list[p] * H + j]), acc);
+      y[j] = 0.0f + acc;
+    }
+    __syncthreads();
+    return;
+  }
+  if (threadIdx.x < G * H) {
+    const int j = threadIdx.x % H, g = threadIdx.x / H;
+    float acc = 0.0f;
+    for (int p = g; p < m; p += G) acc = fmaf(a[p], ptr_ld(&C[(size_t)list[p] * H + j]), acc);
+    part[threadIdx.x] = acc;
+  }
   __syncthreads();
   if (threadIdx.x < H) {
     float s = 0.0f;

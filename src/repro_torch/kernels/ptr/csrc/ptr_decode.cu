@@ -1,4 +1,4 @@
-// Persistent whole-decode pointer kernel for Hopper (sm_90a), two templates.
+// Persistent whole-decode pointer kernel for Hopper (sm_90a), three templates.
 //
 // Replaces the Pallas kernel repro/kernels/ptr/decode.py:_decode_kernel
 // (launched by decode_batch): the whole greedy or sampled pointing decode of
@@ -10,16 +10,17 @@
 // and entropy.  All arithmetic is float32.
 //
 // Each template comes in two storage types, as the reference's
-// decode_batch(bf16=): float32 (ptr_decode_cluster, ptr_decode_block) and
-// bfloat16 (ptr_decode_cluster_bf16, ptr_decode_block_bf16).  The bf16 ones
-// take C, CWg, CWp, emb, dec0, Wx, Wh, Wqg, vg, Wqp and vp in bfloat16 (the
-// wrapper rounds CWg and CWp from the float32 products) and widen every
-// element to float32 on read; the bias, h0, c0 and all state in shared memory
-// stay float32, and every sum runs in float32 in the float32 template's
-// order.  So a bf16 template gives the bits its float32 twin gives on the
-// same operands rounded to bfloat16.  It reads half the bytes of the
-// frontier rows and the query weights a step, and the cluster template keeps
-// Wx and Wh in shared memory as bfloat16 (64 KB at H = 128).
+// decode_batch(bf16=): float32 (ptr_decode_cluster, ptr_decode_block,
+// ptr_decode_wide_f32) and bfloat16 (ptr_decode_cluster_bf16,
+// ptr_decode_block_bf16, ptr_decode_wide_bf16).  The bf16 ones take C, CWg,
+// CWp, emb, dec0, Wx, Wh, Wqg, vg, Wqp and vp in bfloat16 (the wrapper
+// rounds CWg and CWp from the float32 products) and widen every element to
+// float32 on read; the bias, h0, c0 and all state in shared memory stay
+// float32, and every sum runs in float32 in the float32 template's order.
+// So a bf16 template gives the bits its float32 twin gives on the same
+// operands rounded to bfloat16.  It reads half the bytes of the frontier
+// rows and the query weights a step, and the cluster templates keep their
+// weights in shared memory as bfloat16.
 //
 // Bound on the H100: neither bytes nor operations.  The n steps of a graph
 // are a dependent chain, each a few small matrix-vector products (d Wx and
@@ -27,28 +28,49 @@
 // request batch puts one graph on each of a handful of the 132 SMs.  The
 // kernel is latency-bound.
 //
-// Two templates; ptr_decode_launch picks one by shape and reports which:
-// * ptr_decode_cluster (H % 4 == 0 and 8 H^2 bytes of gate weights plus the
-//   per-graph state fit one block's shared memory: H <= 128 at the release's
-//   buckets): a graph runs on a cluster of four blocks.  Block r owns hidden
-//   units [r H/4, (r+1) H/4) and keeps the Wx and Wh columns of all four
-//   gates of those units in its shared memory for the whole decode (128 KB
-//   at H = 128), so the gate products read shared memory instead of
-//   streaming 512 KB from L2 into one SM every step.  It runs the cell for
-//   its units, writes its H/4 new h values into every block's h buffer
-//   through distributed shared memory and meets the others at one cluster
-//   barrier a step; h is double-buffered by step parity, so no block
-//   overwrites an h another block may still be reading.  Everything after
-//   the cell runs redundantly in all four blocks on the same data in the
-//   same order, so all four pick the same row with no further exchange;
-//   rank 0 alone writes the outputs.
-// * ptr_decode_block (every other shape the 227 KB take, e.g. H = 256): one
-//   block per graph, Wx and Wh read from L2 every step.
+// Three templates; ptr_decode_launch picks one by shape and batch and
+// reports which:
+// * ptr_decode_cluster (H % 4 == 0, H divides PTR_THREADS, and 8 H^2 bytes
+//   of gate weights plus the per-graph state fit one block's shared memory:
+//   H <= 128 at the release's buckets): a graph runs on a cluster of four
+//   blocks.  Block r owns hidden units [r H/4, (r+1) H/4) and keeps the Wx
+//   and Wh columns of all four gates of those units in its shared memory for
+//   the whole decode (128 KB at H = 128), so the gate products read shared
+//   memory instead of streaming 512 KB from L2 into one SM every step.  It
+//   runs the cell for its units, writes its H/4 new h values into every
+//   block's h buffer through distributed shared memory and meets the others
+//   at one cluster barrier a step; h is double-buffered by step parity, so
+//   no block overwrites an h another block may still be reading.
+//   Everything after the cell runs redundantly in all four blocks on the
+//   same data in the same order, so all four pick the same row with no
+//   further exchange; rank 0 alone writes the outputs.
+// * ptr_decode_wide_f32 / _bf16 (128 < H <= PTR_THREADS, H % 16 == 0, its
+//   shared memory fits, and the batch takes at most PTR_WIDE_MAX_WAVES waves
+//   of the clusters the card holds): the same design on a non-portable
+//   cluster of PTR_WIDE = 16 blocks, for the widths whose gate weights four
+//   blocks cannot hold (8 H^2 floats = 2 MiB at H = 256).  Block r owns
+//   units [r H/16, (r+1) H/16) and keeps, for the whole decode, their Wx and
+//   Wh columns (128 KB at H = 256 in float32) and the columns of Wqg and Wqp
+//   that produce them (32 KB).  A real step exchanges three vectors, each
+//   written by its owners into every block through distributed shared
+//   memory and followed by one cluster barrier: h after the cell, then
+//   qg = h Wqg, then qp = gl Wqp.  Everything else (the compaction, the
+//   frontier rows' scores read from L2, the softmaxes, the pick, the next
+//   input) runs redundantly in all 16 blocks.  A batch of B graphs takes
+//   ceil(B / clusters) waves, against one for the block template, so a
+//   large batch of small graphs stays on the block template (the rule's
+//   numbers are in decode.py:decode_template).  Both cluster templates are
+//   one body, ptr_decode_cluster_body<K>: the cluster size and whether the
+//   query columns are resident are all that set them apart.
+// * ptr_decode_block (every other shape the 227 KB take, any H): one block
+//   per graph, Wx, Wh, Wqg and Wqp read from L2 every step.
 //
-// Both keep each gate element's sums in one order — d Wx and h Wh each over
-// j ascending by fmaf, then (ax + ah) + b — so the two give the same bits.
+// All three keep each sum in one order — d Wx and h Wh each over j
+// ascending by fmaf, then (ax + ah) + b; each query column over the row
+// slices of ptr_matvec, each ascending, added in order from 0 — so the three
+// give the same bits.
 //
-// Shared by both:
+// Shared by all:
 // * h, the decoder input d, the per-step vectors, the visited flags and the
 //   graph's (n, D) parent indices live in shared memory (feasibility gathers
 //   the <= D parents of a row; the TPU kernel's dense (n, n) adjacency
@@ -69,6 +91,9 @@
 namespace cg = cooperative_groups;
 
 #define PTR_CLUSTER 4  // blocks a graph of the cluster template runs on
+#define PTR_WIDE 16    // blocks a graph of the wide template runs on (non-portable)
+#define PTR_WIDE_MIN_HIDDEN 129  // the wide template takes widths above the cluster's
+#define PTR_WIDE_MAX_WAVES 2    // the most waves of wide clusters a launch may take
 
 // Phase clocks, compiled in only with -DPTR_DECODE_PHASES (an instrumented
 // build that scripts/ptr_decode_phases.py makes; the kernels' own build has
@@ -80,9 +105,9 @@ enum {
   PH_COMPACT,   // the selectable rows
   PH_DRAIN,     // a drained step
   PH_GATES,     // the gate products
-  PH_CELL,      // the cell update (and, in the cluster, the exchange of h)
-  PH_GLIMPSE,   // h Wqg, glimpse scores, softmax, weighted rows of C
-  PH_POINTER,   // gl Wqp, pointer scores
+  PH_CELL,      // the cell update (and, in the clusters, the exchange of h)
+  PH_GLIMPSE,   // h Wqg (and its exchange), glimpse scores, softmax, weighted rows
+  PH_POINTER,   // gl Wqp (and its exchange), pointer scores
   PH_PICK,      // log-softmax, entropy, the pick
   PH_INPUT,     // the next decoder input
   PTR_PHASES
@@ -132,7 +157,7 @@ struct PhaseClock {
 };
 #endif
 
-// The per-graph state both templates keep in shared memory.
+// The per-graph state every template keeps in shared memory.
 struct DecodeState {
   float *ds, *qg, *gl, *qp, *vgs, *vps, *part, *red, *s, *pr;
   int *list, *cnt, *pm, *picked;
@@ -170,11 +195,20 @@ static size_t ptr_decode_block_smem_bytes(int n, int H, int D) {
   return sizeof(float) * 10 * (size_t)H + ptr_decode_state_bytes(n, H, D);
 }
 
-// ptr_decode_cluster: Wx and Wh columns (H x H each, elem bytes an
-// element: the storage type's), h by parity (2H), bias (H), c (H/4, padded
-// to H), then the state.
-static size_t ptr_decode_cluster_smem_bytes(int n, int H, int D, size_t elem) {
-  return elem * 2 * (size_t)H * H + sizeof(float) * 4 * (size_t)H +
+// Whether a cluster of K blocks keeps the query columns its units produce
+// in shared memory (the wide template) or reads Wqg and Wqp from L2 (the
+// four-block one, the design its A/B against the block template measured).
+__host__ __device__ constexpr bool ptr_query_resident(int K) { return K == PTR_WIDE; }
+
+// The cluster templates, K blocks a graph: the block's Wx and Wh columns
+// (H x 4H/K each) and, if resident, its Wqg and Wqp columns (H x H/K each),
+// in the storage type (elem bytes an element); h by parity (2H), bias
+// (4H/K); then the state (16-byte aligned: every piece is a multiple of 16
+// bytes).
+static size_t ptr_decode_cluster_smem_bytes(int K, int n, int H, int D, size_t elem) {
+  const size_t Hq = (size_t)H / K;
+  const size_t cols = 4 * Hq + (ptr_query_resident(K) ? Hq : 0);
+  return elem * 2 * (size_t)H * cols + sizeof(float) * (2 * (size_t)H + 4 * Hq) +
          ptr_decode_state_bytes(n, H, D);
 }
 
@@ -213,18 +247,20 @@ __device__ __forceinline__ void ptr_decode_state_init(const DecodeState& st,
   for (int i = tid; i < n; i += PTR_THREADS) st.visited[i] = 0;
 }
 
-// The step loop both templates run.  cell() is called by every thread on
+// The step loop every template runs.  cell() is called by every thread on
 // the steps that pick a real node: it runs the decoder LSTM cell on st.ds
 // and the current h and returns the new h (H floats in this block's shared
-// memory, published to every thread).  emit: this block writes order, logp
-// and ent.  clk marks the phases.
-template <class T, class Cell>
+// memory, published to every thread).  query(x, which, y) is called by
+// every thread: y (H floats in shared memory, published to every thread on
+// return) = x Wqg (which 0) or x Wqp (which 1), each column summed in
+// ptr_matvec's order.  emit: this block writes order, logp and ent.  clk
+// marks the phases.
+template <class T, class Cell, class Query>
 __device__ __forceinline__ void ptr_decode_steps(
-    const DecodeState& st, Cell&& cell, PhaseClock& clk, const T* __restrict__ C,
+    const DecodeState& st, Cell&& cell, Query&& query, PhaseClock& clk, const T* __restrict__ C,
     const T* __restrict__ CWg, const T* __restrict__ CWp, const T* __restrict__ emb,
-    const T* __restrict__ wqg, const T* __restrict__ wqp, const float* u_row,
-    int* __restrict__ order, float* __restrict__ logp, float* __restrict__ ent, int n, int nv,
-    int H, int D, bool emit) {
+    const float* u_row, int* __restrict__ order, float* __restrict__ logp,
+    float* __restrict__ ent, int n, int nv, int H, int D, bool emit) {
   const int tid = threadIdx.x;
   int drain_cursor = 0;  // used by thread 0 only
   for (int t = 0; t < n; ++t) {
@@ -257,12 +293,12 @@ __device__ __forceinline__ void ptr_decode_steps(
 
     // glimpse attention, then pointer logits, over the selectable rows
     float* s = st.s;
-    ptr_matvec(hs, wqg, H, st.part, st.qg);
+    query(hs, 0, st.qg);
     ptr_row_scores(CWg, st.list, m, st.qg, st.vgs, H, s);
     ptr_softmax(s, m, st.red);
     ptr_weighted_rows(C, st.list, s, m, H, st.part, st.gl);
     clk.mark(PH_GLIMPSE);
-    ptr_matvec(st.gl, wqp, H, st.part, st.qp);
+    query(st.gl, 1, st.qp);
     ptr_row_scores(CWp, st.list, m, st.qp, st.vps, H, s);
     clk.mark(PH_POINTER);
 
@@ -390,90 +426,110 @@ __device__ __forceinline__ void ptr_decode_block_body(const DecodeArgs<T>& a, fl
     clk.mark(PH_CELL);
     return hs;
   };
-  ptr_decode_steps(st, cell, clk, a.C + off, a.CWg + off, a.CWp + off, a.emb + off, a.wqg, a.wqp,
+  // the query weights stream from L2 every step as well
+  auto query = [&](const float* x, int which, float* y) {
+    ptr_matvec(x, which ? a.wqp : a.wqg, H, st.part, y);
+  };
+  ptr_decode_steps(st, cell, query, clk, a.C + off, a.CWg + off, a.CWp + off, a.emb + off,
                    a.unif ? a.unif + (size_t)b * n : nullptr, a.order + (size_t)b * n,
                    a.logp + (size_t)b * n, a.ent + (size_t)b * n, n, a.n_valid[b], H, D, true);
   clk.flush();
 }
 
-// ptr_decode_cluster's body: one graph a cluster of PTR_CLUSTER blocks
-// (launched with the cluster dimension by ptr_decode_launch); needs
-// H % PTR_CLUSTER == 0.
-template <class T>
+// The cluster templates' body: one graph a cluster of K blocks, K =
+// PTR_CLUSTER (ptr_decode_cluster) or PTR_WIDE (ptr_decode_wide_*), launched
+// with the cluster dimension (and, above 8, the non-portable cluster size) by
+// ptr_decode_launch; needs what ptr_cluster_takes asks.  Block r owns hidden
+// units [r H/K, (r+1) H/K) and keeps their gate columns of Wx and Wh in its
+// shared memory; with resident query columns (ptr_query_resident(K)) also
+// the columns of Wqg and Wqp that produce them, else the query products read
+// Wqg and Wqp from L2 as the block template does.
+template <int K, class T>
 __device__ __forceinline__ void ptr_decode_cluster_body(const DecodeArgs<T>& a, float* smem) {
+  constexpr bool resident_q = ptr_query_resident(K);
   cg::cluster_group cluster = cg::this_cluster();
   const int n = a.n, H = a.H, D = a.D;
   const int r = (int)cluster.block_rank();
-  const int Hq = H / PTR_CLUSTER;   // hidden units this block owns
+  const int Hq = H / K;             // hidden units (and query columns) this block owns
+  const int G4 = 4 * Hq;            // its gate columns
   const int H4 = 4 * H;
-  // local gate column k (0..H-1) is gate k / Hq of unit r Hq + k % Hq:
-  // global column (k / Hq) H + r Hq + k % Hq of Wx, Wh and the bias
-  T* wxs = reinterpret_cast<T*>(smem);      // H x H, row j, local column k
-  T* whs = wxs + (size_t)H * H;             // H x H
-  float* hb = reinterpret_cast<float*>(whs + (size_t)H * H);  // 2 x H: h of even, odd steps
-  float* bs = hb + 2 * H;                   // H
-  float* cs = bs + H;                       // H/4 used: c of this block's units
-  const DecodeState st = ptr_decode_state(cs + H, n, H, D);
+  // local gate column k (0..G4-1) is gate k / Hq of unit r Hq + k % Hq:
+  // global column (k / Hq) H + r Hq + k % Hq of Wx, Wh and the bias; local
+  // query column c is global column r Hq + c of Wqg and Wqp
+  T* wxs = reinterpret_cast<T*>(smem);      // H x G4, row j, local column k
+  T* whs = wxs + (size_t)H * G4;            // H x G4
+  T* wqgs = whs + (size_t)H * G4;           // H x Hq, row k, local column c (if resident)
+  T* wqps = wqgs + (size_t)H * Hq;          // H x Hq (if resident)
+  float* hb = reinterpret_cast<float*>(resident_q ? wqps + (size_t)H * Hq : wqgs);  // 2 x H
+  float* bs = hb + 2 * H;                   // G4
+  const DecodeState st = ptr_decode_state(bs + G4, n, H, D);
   PhaseClock clk(threadIdx.x == 0 && r == 0);
 
-  const int b = blockIdx.x / PTR_CLUSTER;   // the graph
+  const int b = blockIdx.x / K;             // the graph
   const int tid = threadIdx.x;
   const size_t off = (size_t)b * n * H;
 #pragma unroll 4
-  for (int i = tid; i < H * H; i += PTR_THREADS) {
-    const int j = i / H, k = i - j * H;
+  for (int i = tid; i < H * G4; i += PTR_THREADS) {
+    const int j = i / G4, k = i - j * G4;
     const size_t g = (size_t)j * H4 + (size_t)(k / Hq) * H + r * Hq + k % Hq;
     wxs[i] = __ldg(&a.wx[g]);
     whs[i] = __ldg(&a.wh[g]);
   }
-  for (int k = tid; k < H; k += PTR_THREADS) {
-    bs[k] = a.bias[(k / Hq) * H + r * Hq + k % Hq];
-    hb[k] = a.h0[(size_t)b * H + k];
+  if constexpr (resident_q) {
+    for (int i = tid; i < H * Hq; i += PTR_THREADS) {
+      const int k = i / Hq, c = i - k * Hq;
+      wqgs[i] = __ldg(&a.wqg[(size_t)k * H + r * Hq + c]);
+      wqps[i] = __ldg(&a.wqp[(size_t)k * H + r * Hq + c]);
+    }
   }
-  for (int u = tid; u < Hq; u += PTR_THREADS) cs[u] = a.c0[(size_t)b * H + r * Hq + u];
+  for (int k = tid; k < G4; k += PTR_THREADS) bs[k] = a.bias[(k / Hq) * H + r * Hq + k % Hq];
+  for (int k = tid; k < H; k += PTR_THREADS) hb[k] = a.h0[(size_t)b * H + k];
   ptr_decode_state_init(st, a.dec0, a.vg, a.vp, a.parent_mat + (size_t)b * n * D, n, H, D);
+  // thread tid < H runs the cell of unit r Hq + tid % Hq and sends its h to
+  // block tid / Hq: K copies of each unit's cell, each keeping c in a
+  // register (they compute the same bits)
+  const int u = tid % Hq, dst = tid / Hq;
+  float c_reg = tid < H ? a.c0[(size_t)b * H + r * Hq + u] : 0.0f;
   // every block of the cluster has started (its shared memory may be
   // written) and has its own state loaded
   cluster.sync();
   clk.mark(PH_SETUP);
 
   // decoder LSTM cell for this block's units, then the exchange of h:
-  // threads [0, H) sum d Wx of local column tid, threads [H, 2H) h Wh of
-  // column tid - H, each over j ascending (the block template's order)
+  // threads [0, G4) sum d Wx of local column tid, threads [G4, 2 G4) h Wh of
+  // column tid - G4, each over j ascending (the block template's order)
   int parity = 0;
   auto cell = [&]() -> const float* {
     const float* h = hb + parity * H;
     float* h_next = hb + (parity ^ 1) * H;
-    if (tid < 2 * H) {
-      const bool hh = tid >= H;
-      const int k = hh ? tid - H : tid;
+    if (tid < 2 * G4) {
+      const bool hh = tid >= G4;
+      const int k = hh ? tid - G4 : tid;
       const float* x = hh ? h : st.ds;
       const T* w = (hh ? whs : wxs) + k;
       float acc = 0.0f;
 #pragma unroll 4
       for (int j = 0; j < H; j += 4) {
         const float4 xv = *reinterpret_cast<const float4*>(x + j);
-        acc = fmaf(xv.x, ptr_f(w[(size_t)j * H]), acc);
-        acc = fmaf(xv.y, ptr_f(w[(size_t)(j + 1) * H]), acc);
-        acc = fmaf(xv.z, ptr_f(w[(size_t)(j + 2) * H]), acc);
-        acc = fmaf(xv.w, ptr_f(w[(size_t)(j + 3) * H]), acc);
+        acc = fmaf(xv.x, ptr_f(w[(size_t)j * G4]), acc);
+        acc = fmaf(xv.y, ptr_f(w[(size_t)(j + 1) * G4]), acc);
+        acc = fmaf(xv.z, ptr_f(w[(size_t)(j + 2) * G4]), acc);
+        acc = fmaf(xv.w, ptr_f(w[(size_t)(j + 3) * G4]), acc);
       }
       st.part[tid] = acc;
     }
     __syncthreads();
     clk.mark(PH_GATES);
-    if (tid < Hq) {
-      float gt[4];  // i, f, g, o of unit r Hq + tid
+    if (tid < H) {
+      float gt[4];  // i, f, g, o of unit r Hq + u
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int k = q * Hq + tid;
-        gt[q] = st.part[k] + st.part[H + k] + bs[k];
+        const int k = q * Hq + u;
+        gt[q] = st.part[k] + st.part[G4 + k] + bs[k];
       }
-      const float c = ptr_sigmoid(gt[1] + 1.0f) * cs[tid] + ptr_sigmoid(gt[0]) * tanhf(gt[2]);
-      cs[tid] = c;
-      const float hv = ptr_sigmoid(gt[3]) * tanhf(c);
-#pragma unroll
-      for (int q = 0; q < PTR_CLUSTER; ++q) cluster.map_shared_rank(h_next, q)[r * Hq + tid] = hv;
+      const float c = ptr_sigmoid(gt[1] + 1.0f) * c_reg + ptr_sigmoid(gt[0]) * tanhf(gt[2]);
+      c_reg = c;
+      cluster.map_shared_rank(h_next, dst)[r * Hq + u] = ptr_sigmoid(gt[3]) * tanhf(c);
     }
     // release the stores into the other blocks, acquire theirs into ours
     cluster.sync();
@@ -481,7 +537,37 @@ __device__ __forceinline__ void ptr_decode_cluster_body(const DecodeArgs<T>& a, 
     parity ^= 1;
     return h_next;
   };
-  ptr_decode_steps(st, cell, clk, a.C + off, a.CWg + off, a.CWp + off, a.emb + off, a.wqg, a.wqp,
+  // resident: this block's Hq columns of x Wqg or x Wqp from its own
+  // columns, in ptr_matvec's order (its row slices, each ascending, added in
+  // order from 0), sent to every block; then one cluster barrier.  A block's
+  // y is read only after the barrier; the next step's stores into it come
+  // after that step's exchange of h, which no block passes before every
+  // block is done with this step, so y needs no second buffer.
+  auto query = [&](const float* x, int which, float* y) {
+    if constexpr (resident_q) {
+      const T* w = which ? wqps : wqgs;
+      const int G = ptr_groups(H);
+      const int kc = (H + G - 1) / G;
+      if (tid < G * Hq) {
+        const int c = tid % Hq, g = tid / Hq;
+        const int k0 = g * kc, k1 = min(H, k0 + kc);
+        float acc = 0.0f;
+#pragma unroll 8
+        for (int k = k0; k < k1; ++k) acc = fmaf(x[k], ptr_f(w[(size_t)k * Hq + c]), acc);
+        st.part[tid] = acc;
+      }
+      __syncthreads();
+      if (tid < H) {
+        float v = 0.0f;
+        for (int q = 0; q < G; ++q) v += st.part[q * Hq + u];
+        cluster.map_shared_rank(y, dst)[r * Hq + u] = v;
+      }
+      cluster.sync();
+    } else {
+      ptr_matvec(x, which ? a.wqp : a.wqg, H, st.part, y);
+    }
+  };
+  ptr_decode_steps(st, cell, query, clk, a.C + off, a.CWg + off, a.CWp + off, a.emb + off,
                    a.unif ? a.unif + (size_t)b * n : nullptr, a.order + (size_t)b * n,
                    a.logp + (size_t)b * n, a.ent + (size_t)b * n, n, a.n_valid[b], H, D, r == 0);
   // no block leaves while another may still write into its shared memory
@@ -489,50 +575,128 @@ __device__ __forceinline__ void ptr_decode_cluster_body(const DecodeArgs<T>& a, 
   clk.flush();
 }
 
-// The four kernels: each template in each storage type, under its own name
-// (the launch counters and the profiler tell them apart by it).
-#define PTR_DECODE_KERNEL(name, body, T)                                      \
-  extern "C" __global__ void __launch_bounds__(PTR_THREADS) name(DecodeArgs<T> a) { \
+// The six kernels: each template in each storage type, under its own name
+// (the launch counters and the profiler tell them apart by it; no name is a
+// prefix of another's but the block's and the cluster's float32 ones).
+//
+// Their register budgets: under __launch_bounds__(PTR_THREADS) alone ptxas
+// gave ptr_decode_block 32 registers (with spills), enough for four blocks
+// an SM, and its gate loop then kept few L2 loads in flight; allowed one
+// block an SM it takes 63 and runs 1.9x faster at hidden 256, bit for bit
+// the same (scripts/ptr_decode_phases.py --wide; the phase clocks' 128
+// registers had made the instrumented build the faster one).  The cluster
+// templates take up to 64 (two blocks an SM: the bf16 ones fit two where
+// their shared memory does): the wide one ran 1.1x faster at 64 than at the
+// default's 56, the four-block one 2-4 % faster at 64 (no spills) than
+// under the default budget.
+#define PTR_DECODE_KERNEL(name, body, T, bounds)                              \
+  extern "C" __global__ void bounds name(DecodeArgs<T> a) {                   \
     extern __shared__ __align__(16) float smem[];                             \
     body(a, smem);                                                            \
   }
-PTR_DECODE_KERNEL(ptr_decode_block, ptr_decode_block_body, float)
-PTR_DECODE_KERNEL(ptr_decode_cluster, ptr_decode_cluster_body, float)
-PTR_DECODE_KERNEL(ptr_decode_block_bf16, ptr_decode_block_body, __nv_bfloat16)
-PTR_DECODE_KERNEL(ptr_decode_cluster_bf16, ptr_decode_cluster_body, __nv_bfloat16)
+#ifdef PTR_DECODE_PHASES   // room for the clocks: 64 registers spill them
+#define PTR_BOUNDS_CLUSTER __launch_bounds__(PTR_THREADS, 1)
+#else
+#define PTR_BOUNDS_CLUSTER __launch_bounds__(PTR_THREADS, 2)
+#endif
+#define PTR_BOUNDS_BLOCK __launch_bounds__(PTR_THREADS, 1)
+PTR_DECODE_KERNEL(ptr_decode_block, ptr_decode_block_body, float, PTR_BOUNDS_BLOCK)
+PTR_DECODE_KERNEL(ptr_decode_cluster, ptr_decode_cluster_body<PTR_CLUSTER>, float,
+                  PTR_BOUNDS_CLUSTER)
+PTR_DECODE_KERNEL(ptr_decode_block_bf16, ptr_decode_block_body, __nv_bfloat16, PTR_BOUNDS_BLOCK)
+PTR_DECODE_KERNEL(ptr_decode_cluster_bf16, ptr_decode_cluster_body<PTR_CLUSTER>, __nv_bfloat16,
+                  PTR_BOUNDS_CLUSTER)
+PTR_DECODE_KERNEL(ptr_decode_wide_f32, ptr_decode_cluster_body<PTR_WIDE>, float,
+                  PTR_BOUNDS_CLUSTER)
+PTR_DECODE_KERNEL(ptr_decode_wide_bf16, ptr_decode_cluster_body<PTR_WIDE>, __nv_bfloat16,
+                  PTR_BOUNDS_CLUSTER)
+
+// The templates of one storage type.
+template <class T>
+struct DecodeKernels {
+  using Fn = void (*)(DecodeArgs<T>);
+  Fn block, cluster, wide;
+  Fn of_size(int K) const { return K == PTR_WIDE ? wide : cluster; }  // a cluster template
+};
+static const DecodeKernels<float> kF32 = {ptr_decode_block, ptr_decode_cluster,
+                                          ptr_decode_wide_f32};
+static const DecodeKernels<__nv_bfloat16> kBf16 = {ptr_decode_block_bf16, ptr_decode_cluster_bf16,
+                                                   ptr_decode_wide_bf16};
+
+// Sets cfg (and its one attribute, attr) up for B clusters of `size` blocks
+// of kernel k with smem bytes of shared memory each, on stream st, and
+// writes how many such clusters the card holds at once to *clusters.
+template <class T>
+static cudaError_t ptr_cluster_setup(void (*k)(DecodeArgs<T>), int size, int B, size_t smem,
+                                     cudaStream_t st, cudaLaunchConfig_t* cfg,
+                                     cudaLaunchAttribute* attr, int* clusters) {
+  cudaError_t e = cudaFuncSetAttribute((const void*)k,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  if (size > 8) {   // above the portable cluster size
+    e = cudaFuncSetAttribute((const void*)k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = size;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)B * size);
+  cfg->blockDim = dim3(PTR_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, (void*)k, cfg);
+}
+
+// The shape gate of the cluster template of K blocks a graph (the wide
+// one's batch rule aside): the four-block one takes the widths that divide
+// the block (those of its A/B), the wide one the widths above them up to
+// one unit a thread; both need whole units a block, float4 rows and their
+// shared memory to fit.
+static bool ptr_cluster_takes(int K, int n, int H, int D, size_t elem, int max_smem) {
+  const bool width = K == PTR_WIDE ? H >= PTR_WIDE_MIN_HIDDEN && H <= PTR_THREADS
+                                   : PTR_THREADS % H == 0;
+  return width && H % K == 0 && H % 4 == 0 &&
+         ptr_decode_cluster_smem_bytes(K, n, H, D, elem) <= (size_t)max_smem;
+}
 
 // The launch of one storage type; see ptr_decode_launch.  tag is the value
-// *template_out takes for the block kernel, tag + 1 for the cluster kernel.
+// *template_out takes for the block kernel, tag + 1 for the cluster kernel;
+// wide_tag the wide kernel's.
 template <class T>
-static int ptr_decode_run(const DecodeArgs<T>& a, void (*cluster_k)(DecodeArgs<T>),
-                          void (*block_k)(DecodeArgs<T>), int tag, int B, int max_smem,
-                          cudaStream_t st, int* template_out) {
+static int ptr_decode_run(const DecodeArgs<T>& a, const DecodeKernels<T>& k, int tag,
+                          int wide_tag, int B, int max_smem, cudaStream_t st,
+                          int* template_out) {
   cudaError_t e;
-  const size_t smem_c = ptr_decode_cluster_smem_bytes(a.n, a.H, a.D, sizeof(T));
-#ifndef PTR_DECODE_FORCE_BLOCK  // defined only in a build that compares the templates
-  if (a.H % PTR_CLUSTER == 0 && smem_c <= (size_t)max_smem) {
-    e = cudaFuncSetAttribute((const void*)cluster_k,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
-    if (e != cudaSuccess) return (int)e;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = PTR_CLUSTER;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)B * PTR_CLUSTER);
-    cfg.blockDim = dim3(PTR_THREADS);
-    cfg.dynamicSmemBytes = smem_c;
-    cfg.stream = st;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  // PTR_DECODE_FORCE_BLOCK (the block template only) and
+  // PTR_DECODE_FORCE_WIDE (the wide template at any batch) are defined only
+  // in the builds that compare the templates
+#ifndef PTR_DECODE_FORCE_BLOCK
+#ifdef PTR_DECODE_FORCE_WIDE
+  const int sizes[] = {PTR_WIDE};
+#else
+  const int sizes[] = {PTR_CLUSTER, PTR_WIDE};
+#endif
+  for (const int K : sizes) {
+    if (!ptr_cluster_takes(K, a.n, a.H, a.D, sizeof(T), max_smem)) continue;
     int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, (void*)cluster_k, &cfg);
+    e = ptr_cluster_setup(k.of_size(K), K, B,
+                          ptr_decode_cluster_smem_bytes(K, a.n, a.H, a.D, sizeof(T)), st, &cfg,
+                          attr, &clusters);
     if (e != cudaSuccess) return (int)e;
-    if (clusters > 0) {
-      e = cudaLaunchKernelEx(&cfg, cluster_k, a);
+    bool runs = clusters > 0;
+#ifndef PTR_DECODE_FORCE_WIDE
+    if (K == PTR_WIDE) runs = runs && (B + clusters - 1) / clusters <= PTR_WIDE_MAX_WAVES;
+#endif
+    if (runs) {
+      e = cudaLaunchKernelEx(&cfg, k.of_size(K), a);
       if (e != cudaSuccess) return (int)e;
-      *template_out = tag + 1;
+      *template_out = K == PTR_WIDE ? wide_tag : tag + 1;
       return (int)cudaGetLastError();
     }
   }
@@ -540,15 +704,15 @@ static int ptr_decode_run(const DecodeArgs<T>& a, void (*cluster_k)(DecodeArgs<T
 
   const size_t smem_b = ptr_decode_block_smem_bytes(a.n, a.H, a.D);
   if (smem_b > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute((const void*)block_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute((const void*)k.block, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem_b);
   if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
+  cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3((unsigned)B);
   cfg.blockDim = dim3(PTR_THREADS);
   cfg.dynamicSmemBytes = smem_b;
   cfg.stream = st;
-  e = cudaLaunchKernelEx(&cfg, block_k, a);
+  e = cudaLaunchKernelEx(&cfg, k.block, a);
   if (e != cudaSuccess) return (int)e;
   *template_out = tag;
   return (int)cudaGetLastError();
@@ -556,11 +720,14 @@ static int ptr_decode_run(const DecodeArgs<T>& a, void (*cluster_k)(DecodeArgs<T
 
 // Launch on the given stream; returns cudaGetLastError() (0 on success) and
 // writes the template it launched to *template_out: 1 ptr_decode_cluster,
-// 0 ptr_decode_block, 3 ptr_decode_cluster_bf16, 2 ptr_decode_block_bf16.
-// bf16 != 0: C, CWg, CWp, emb, dec0, wx, wh, wqg, vg, wqp and vp point to
-// __nv_bfloat16, else to float; the rest is float (int for the indices).
-// The cluster template runs when H % PTR_CLUSTER == 0, its shared memory
-// fits a block and the card can hold one such cluster; else the block
+// 0 ptr_decode_block, 3 ptr_decode_cluster_bf16, 2 ptr_decode_block_bf16,
+// 4 ptr_decode_wide_f32, 5 ptr_decode_wide_bf16.  bf16 != 0: C, CWg, CWp,
+// emb, dec0, wx, wh, wqg, vg, wqp and vp point to __nv_bfloat16, else to
+// float; the rest is float (int for the indices).  The four-block cluster
+// template runs when ptr_cluster_takes the shape and the card can hold one
+// such cluster; else the wide template when ptr_cluster_takes the shape at
+// 16 blocks, the card holds such a cluster and B graphs take at most
+// PTR_WIDE_MAX_WAVES waves of the clusters it holds; else the block
 // template, if its shared memory fits; else nothing runs.
 extern "C" int ptr_decode_launch(const void* C, const void* CWg, const void* CWp,
                                  const void* emb, const void* dec0, const float* h0,
@@ -571,8 +738,7 @@ extern "C" int ptr_decode_launch(const void* C, const void* CWg, const void* CWp
                                  float* ent, int B, int n, int H, int D, int sampled, int bf16,
                                  int device, void* stream, int* template_out) {
   *template_out = -1;
-  if (H <= 0 || H > PTR_THREADS || PTR_THREADS % H != 0 || B <= 0 || n <= 0 || D <= 0 ||
-      (sampled && unif == nullptr))
+  if (H <= 0 || B <= 0 || n <= 0 || D <= 0 || (sampled && unif == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -591,45 +757,33 @@ extern "C" int ptr_decode_launch(const void* C, const void* CWg, const void* CWp
                          ent,           n,              H,             D};
   };
   if (bf16)
-    return ptr_decode_run(args(__nv_bfloat16()), ptr_decode_cluster_bf16, ptr_decode_block_bf16,
-                          2, B, max_smem, st, template_out);
-  return ptr_decode_run(args(0.0f), ptr_decode_cluster, ptr_decode_block, 0, B, max_smem, st,
-                        template_out);
+    return ptr_decode_run(args(__nv_bfloat16()), kBf16, 2, 5, B, max_smem, st, template_out);
+  return ptr_decode_run(args(0.0f), kF32, 0, 4, B, max_smem, st, template_out);
 }
 
 // The occupancy probes scripts/ptr_decode_phases.py reads, from the plain
-// build (the phase clocks' registers would change their answer).
+// build (the phase clocks' registers would change their answer), for the
+// cluster template of `size` blocks a graph: PTR_CLUSTER or PTR_WIDE (else
+// cudaErrorInvalidValue), at an (n, H, D) batch (bf16 != 0: the bf16
+// template).  Each returns a CUDA error code.
 
-// How many clusters of the cluster template the card holds at once for an
-// (n, H, D) batch, into *out (bf16 != 0: the bf16 template); returns a CUDA
-// error code.
-extern "C" int ptr_decode_max_clusters(int n, int H, int D, int bf16, int* out) {
-  const void* k = bf16 ? (const void*)ptr_decode_cluster_bf16 : (const void*)ptr_decode_cluster;
-  const size_t smem =
-      ptr_decode_cluster_smem_bytes(n, H, D, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+// How many such clusters the card holds at once, into *out.
+extern "C" int ptr_decode_max_clusters(int n, int H, int D, int bf16, int size, int* out) {
+  if (size != PTR_CLUSTER && size != PTR_WIDE) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = PTR_CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(PTR_CLUSTER);
-  cfg.blockDim = dim3(PTR_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(out, k, &cfg);
+  const size_t smem = ptr_decode_cluster_smem_bytes(
+      size, n, H, D, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  return (int)(bf16 ? ptr_cluster_setup(kBf16.of_size(size), size, 1, smem, 0, &cfg, attr, out)
+                    : ptr_cluster_setup(kF32.of_size(size), size, 1, smem, 0, &cfg, attr, out));
 }
 
-// How many blocks of the cluster template one SM holds at once, clusters
-// aside, for an (n, H, D) batch, into *out (bf16 != 0: the bf16 template);
-// returns a CUDA error code.
-extern "C" int ptr_decode_max_blocks(int n, int H, int D, int bf16, int* out) {
-  const void* k = bf16 ? (const void*)ptr_decode_cluster_bf16 : (const void*)ptr_decode_cluster;
-  const size_t smem =
-      ptr_decode_cluster_smem_bytes(n, H, D, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+// How many of its blocks one SM holds at once, clusters aside, into *out.
+extern "C" int ptr_decode_max_blocks(int n, int H, int D, int bf16, int size, int* out) {
+  if (size != PTR_CLUSTER && size != PTR_WIDE) return (int)cudaErrorInvalidValue;
+  const void* k = bf16 ? (const void*)kBf16.of_size(size) : (const void*)kF32.of_size(size);
+  const size_t smem = ptr_decode_cluster_smem_bytes(
+      size, n, H, D, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, PTR_THREADS, smem);

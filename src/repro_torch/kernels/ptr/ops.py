@@ -3,10 +3,10 @@ kernels, their shape gates, the build helper and the launch counters.
 
 On CPU tensors every op runs its plain PyTorch version; on CUDA tensors it
 launches its kernel or raises.  The gates test the CUDA kernels' own limits
-and nothing of the TPU's tiling: the single step takes any hidden width
-whose block fits the 227 KB of shared memory a block may use; the whole
-decode also needs a width that divides its 512-thread block and, for its
-cluster template, splits over four blocks.
+and nothing of the TPU's tiling: the single step and the whole decode take
+any hidden width whose block fits the 227 KB of shared memory a block may
+use (the whole decode's cluster templates take fewer widths and shapes:
+see ``decode.decode_template``).
 """
 
 from __future__ import annotations

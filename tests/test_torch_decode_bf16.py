@@ -55,6 +55,10 @@ F32 = json.loads((GOLDEN / "dnn_schedules.json").read_text())
 NAMES = BF16["meta"]["table1"]
 MAX_DEG = 6
 STAGES = 4
+#: clusters of 16 wide blocks an H100 SXM holds at once at these shapes (the
+#: occupancy probe of scripts/ptr_decode_phases.py --wide), as the card
+#: would answer decode_template
+H100_CLUSTERS = 7
 TOL = 1e-4
 HETERO = PipelineSystem(n_stages=STAGES, compute_rate=(4e12, 2e12, 4e12, 8e12),
                         link_bw=(320e6, 160e6, 320e6, 640e6))
@@ -256,22 +260,31 @@ def _state(n, hidden, max_deg=MAX_DEG):
     return decode_smem_bytes(n, hidden, max_deg, "ptr_decode_block") - 4 * 10 * hidden
 
 
-@pytest.mark.parametrize("bucket_n, hidden, f32, bf16", [
-    (32, 128, "ptr_decode_cluster", "ptr_decode_cluster_bf16"),       # the release
-    (1024, 128, "ptr_decode_cluster", "ptr_decode_cluster_bf16"),
-    (4096, 128, "ptr_decode_block", "ptr_decode_cluster_bf16"),       # bf16 weights fit
-    (32, 256, "ptr_decode_block", "ptr_decode_block_bf16"),           # init's default width
-    (1024, 256, "ptr_decode_block", "ptr_decode_block_bf16"),
-    (8, 32, "ptr_decode_cluster", "ptr_decode_cluster_bf16"),
+def _case(bucket_n, hidden, f32, bf16, batch=1):
+    return pytest.param(bucket_n, hidden, batch, f32, bf16,
+                        id=f"{bucket_n}-{hidden}-{f32}-{bf16}")
+
+
+@pytest.mark.parametrize("bucket_n, hidden, batch, f32, bf16", [
+    _case(32, 128, "ptr_decode_cluster", "ptr_decode_cluster_bf16"),       # the release
+    _case(1024, 128, "ptr_decode_cluster", "ptr_decode_cluster_bf16"),
+    _case(4096, 128, "ptr_decode_block", "ptr_decode_cluster_bf16"),       # bf16 weights fit
+    # init's default width: 64 graphs are too many waves for the wide template
+    _case(32, 256, "ptr_decode_block", "ptr_decode_block_bf16", batch=64),
+    _case(1024, 256, "ptr_decode_block", "ptr_decode_block_bf16", batch=64),
+    _case(8, 32, "ptr_decode_cluster", "ptr_decode_cluster_bf16"),
+    _case(1024, 256, "ptr_decode_wide_f32", "ptr_decode_wide_bf16"),       # one graph
 ])
-def test_bf16_template_follows_launcher_arithmetic(bucket_n, hidden, f32, bf16):
-    assert decode_template(bucket_n, hidden, MAX_DEG) == f32
-    assert decode_template(bucket_n, hidden, MAX_DEG, bf16=True) == bf16
-    # the cluster's Wx and Wh columns: 2 hidden^2 elements of 2 bytes in bf16
+def test_bf16_template_follows_launcher_arithmetic(bucket_n, hidden, batch, f32, bf16):
+    kw = {"batch": batch, "clusters": H100_CLUSTERS}
+    assert decode_template(bucket_n, hidden, MAX_DEG, **kw) == f32
+    assert decode_template(bucket_n, hidden, MAX_DEG, bf16=True, **kw) == bf16
+    # the cluster's Wx and Wh columns: 2 hidden^2 elements of 2 bytes in bf16;
+    # h by parity and the bias of its units: 3 hidden floats
     cluster = decode_smem_bytes(bucket_n, hidden, MAX_DEG, "ptr_decode_cluster_bf16")
-    assert cluster == 2 * 2 * hidden * hidden + 4 * 4 * hidden + _state(bucket_n, hidden)
+    assert cluster == 2 * 2 * hidden * hidden + 4 * 3 * hidden + _state(bucket_n, hidden)
     assert (decode_smem_bytes(bucket_n, hidden, MAX_DEG, "ptr_decode_cluster")
-            == 4 * 2 * hidden * hidden + 4 * 4 * hidden + _state(bucket_n, hidden))
+            == 4 * 2 * hidden * hidden + 4 * 3 * hidden + _state(bucket_n, hidden))
     # the block template keeps no weights: the same bytes in both types
     assert (decode_smem_bytes(bucket_n, hidden, MAX_DEG, "ptr_decode_block_bf16")
             == decode_smem_bytes(bucket_n, hidden, MAX_DEG, "ptr_decode_block"))
@@ -282,7 +295,7 @@ def test_bf16_template_follows_launcher_arithmetic(bucket_n, hidden, f32, bf16):
 
 
 @pytest.mark.parametrize("bucket_n, hidden, max_deg", [
-    (8192, 128, 6), (1024, 128, 64), (1024, 96, 6), (64, 1024, 6)])
+    (8192, 128, 6), (1024, 128, 64), (1024, 3006, 6), (64, 4096, 6)])
 def test_bf16_template_refuses_what_both_refuse(bucket_n, hidden, max_deg):
     with pytest.raises(ValueError, match="cannot take .* in bf16"):
         decode_template(bucket_n, hidden, max_deg, bf16=True)

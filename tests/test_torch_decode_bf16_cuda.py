@@ -97,7 +97,8 @@ def test_bf16_cluster_template_drains_at_bucket_1024_on_cuda(sampled):
 @pytest.mark.parametrize("sampled", [False, True])
 def test_bf16_block_template_matches_plain_at_hidden_256_on_cuda(sampled):
     _need_cuda()
-    graphs = [_dag_case(s) for s in range(50, 58)]
+    # 64 graphs: more waves of 16-block clusters than the wide template takes
+    graphs = [_dag_case(s) for s in range(50, 114)]
     _kernel_vs_plain(_net(256), graphs, 32, sampled, "ptr_decode_block_bf16", 1e-3)
 
 

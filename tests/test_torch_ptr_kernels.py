@@ -10,13 +10,14 @@ reference's pure-jnp ops and to its Pallas kernels in interpret mode:
   uniforms): orders equal, logp and entropy allclose at atol = 1e-4
   (float32 drift carried through n LSTM steps);
 * padded equals unpadded at 1x and 2x buckets with mixed ``n_valid``;
-* the whole-decode kernel's template choice by shape: the release's shapes
-  (hidden 128, buckets 8..2048) take the four-block cluster template, the
-  default width 256 the one-block template, and a shape neither takes
-  raises;
+* the whole-decode kernel's template choice by shape and batch: the
+  release's shapes (hidden 128, buckets 8..2048) take the four-block
+  cluster template, the default width 256 the 16-block wide template for a
+  few waves of graphs and the one-block template for more, and a shape no
+  template takes raises;
 * the single-step kernel's gate: any hidden width whose block fits the
-  shared memory (96, 192, 384, 640 among them, which the whole decode
-  refuses), and its cluster size, one block per 128 rows up to 8.
+  shared memory (96, 192, 384, 640 among them, which the whole decode now
+  takes too), and its cluster size, one block per 128 rows up to 8.
 
 The kernels themselves run only on the card: the ``cuda`` tests skip here.
 On the card, the single-step kernel is held to its plain version at hidden
@@ -57,6 +58,9 @@ torch.set_num_threads(1)
 
 MAX_DEG = 6
 HIDDEN = 32
+#: clusters of 16 wide blocks an H100 SXM holds at once at hidden 256 (the
+#: occupancy probe of scripts/ptr_decode_phases.py --wide)
+H100_CLUSTERS = 7
 _JPARAMS = jptrnet.init_params(jax.random.PRNGKey(0), embed_dim(MAX_DEG), HIDDEN)
 _NET = params_from_numpy(jax.tree.map(np.asarray, _JPARAMS))
 _jax_step = jax.jit(jax.vmap(jax_pointer_step, in_axes=(0, 0, 0, 0, None, None, None, None, 0)))
@@ -216,9 +220,11 @@ def test_decode_batch_routes_cpu_tensors_to_plain_version():
 
 
 def test_kernel_gates_follow_cuda_limits():
-    # hidden must divide the 512-thread block
+    # any hidden width whose block template fits 227 KB: its thread groups
+    # loop over the columns (64 bytes of vectors a unit, plus the state)
     assert ops.decode_kernel_supported(1024, 128)
-    assert not ops.decode_kernel_supported(1024, 96)
+    assert ops.decode_kernel_supported(1024, 96)
+    assert ops.decode_kernel_supported(1024, 3005) and not ops.decode_kernel_supported(1024, 3006)
     assert ops.step_kernel_supported(64, 8205) and not ops.step_kernel_supported(64, 8206)
     # shared memory: 227 KB a block
     assert ops.decode_kernel_supported(4096, 128)
@@ -229,13 +235,16 @@ def test_kernel_gates_follow_cuda_limits():
 
 @pytest.mark.parametrize("hidden", [96, 192, 384, 640])
 def test_step_gate_takes_widths_the_whole_decode_refuses(hidden):
-    # the single step loops its thread groups over any width; the whole
-    # decode still needs one that divides its 512-thread block
+    # the single step loops its thread groups over any width; so does the
+    # whole decode now (it refused these widths when its groups had to
+    # divide the 512-thread block): uniform batches take it, and a
+    # profile-conditioned one still the scan
     for n in (8, 32, 1024, 4096):
         assert ops.step_kernel_supported(n, hidden)
         assert step_smem_bytes(n, hidden) <= ops.MAX_SMEM_BYTES
-    assert not ops.decode_kernel_supported(1024, hidden)
-    assert BucketedDecoder("cpu").resolve_decode_impl(1024, hidden) == "scan"
+    assert ops.decode_kernel_supported(1024, hidden)
+    assert BucketedDecoder("cpu").resolve_decode_impl(1024, hidden) == "kernel"
+    assert BucketedDecoder("cpu").resolve_decode_impl(1024, hidden, conditioned=True) == "scan"
 
 
 @pytest.mark.parametrize("n, k", [(1, 1), (8, 1), (32, 1), (128, 1), (129, 2), (256, 2),
@@ -250,34 +259,43 @@ def test_step_cluster_size_follows_n(n, k):
 
 @pytest.mark.parametrize("bucket_n", [8, 32, 256, 512, 1024, 2048])
 def test_release_shapes_take_the_cluster_template(bucket_n):
-    # the release's width: 8 H^2 = 128 KB of gate weights a block, plus the
-    # per-graph state (48 KB at bucket 1024), within 227 KB
+    # the release's width: 8 H^2 = 128 KB of gate weights a block, h by
+    # parity and the bias of its units (3 H floats), plus the per-graph state
+    # (48 KB at bucket 1024), within 227 KB
     assert decode_template(bucket_n, 128, MAX_DEG) == "ptr_decode_cluster"
     smem = decode_smem_bytes(bucket_n, 128, MAX_DEG, "ptr_decode_cluster")
     state = decode_smem_bytes(bucket_n, 128, MAX_DEG, "ptr_decode_block") - 4 * 10 * 128
-    assert smem == 8 * 128 * 128 + 4 * 4 * 128 + state <= ops.MAX_SMEM_BYTES
+    assert smem == 8 * 128 * 128 + 4 * 3 * 128 + state <= ops.MAX_SMEM_BYTES
     assert BucketedDecoder("cpu").resolve_decode_impl(bucket_n, 128) == "kernel"
 
 
-@pytest.mark.parametrize("bucket_n, hidden, want", [
-    (8, 32, "ptr_decode_cluster"), (1024, 32, "ptr_decode_cluster"),
-    (4096, 64, "ptr_decode_cluster"),
-    (4096, 128, "ptr_decode_block"),     # the cluster's state no longer fits
-    (32, 256, "ptr_decode_block"),       # RespectScheduler.init's default width
-    (1024, 256, "ptr_decode_block"),
-    (256, 512, "ptr_decode_block"),
+@pytest.mark.parametrize("bucket_n, hidden, batch, want", [
+    pytest.param(8, 32, 1, "ptr_decode_cluster", id="8-32-ptr_decode_cluster"),
+    pytest.param(1024, 32, 1, "ptr_decode_cluster", id="1024-32-ptr_decode_cluster"),
+    pytest.param(4096, 64, 1, "ptr_decode_cluster", id="4096-64-ptr_decode_cluster"),
+    # the cluster's state no longer fits
+    pytest.param(4096, 128, 1, "ptr_decode_block", id="4096-128-ptr_decode_block"),
+    # RespectScheduler.init's default width: 64 graphs take more waves of
+    # 16-block clusters than the wide template is worth
+    pytest.param(32, 256, 64, "ptr_decode_block", id="32-256-ptr_decode_block"),
+    pytest.param(1024, 256, 64, "ptr_decode_block", id="1024-256-ptr_decode_block"),
+    pytest.param(256, 512, 1, "ptr_decode_block", id="256-512-ptr_decode_block"),
+    # one graph, or a few waves of them: the wide template
+    pytest.param(1024, 256, 1, "ptr_decode_wide_f32", id="1024-256-ptr_decode_wide_f32"),
+    pytest.param(32, 256, 14, "ptr_decode_wide_f32", id="32-256-ptr_decode_wide_f32"),
 ])
-def test_template_follows_shape(bucket_n, hidden, want):
-    assert decode_template(bucket_n, hidden, MAX_DEG) == want
+def test_template_follows_shape(bucket_n, hidden, batch, want):
+    assert decode_template(bucket_n, hidden, MAX_DEG, batch=batch,
+                           clusters=H100_CLUSTERS) == want
     assert decode_smem_bytes(bucket_n, hidden, MAX_DEG, want) <= ops.MAX_SMEM_BYTES
     assert ops.decode_kernel_supported(bucket_n, hidden, MAX_DEG)
 
 
 @pytest.mark.parametrize("bucket_n, hidden, max_deg", [
-    (8192, 128, 6),      # n too large for either template
+    (8192, 128, 6),      # n too large for any template
     (1024, 128, 64),     # D too large: 256 KB of parent indices
-    (1024, 96, 6),       # 96 does not divide the 512-thread block
-    (64, 1024, 6),
+    (1024, 3006, 6),     # any width, but the block's vectors and state exceed 227 KB
+    (64, 4096, 6),
 ])
 def test_template_refuses_oversized_shapes(bucket_n, hidden, max_deg):
     with pytest.raises(ValueError, match="cannot take"):
@@ -424,5 +442,6 @@ def test_cluster_template_drains_at_bucket_1024_on_cuda(sampled):
 @pytest.mark.parametrize("sampled", [False, True])
 def test_block_template_matches_plain_at_hidden_256_on_cuda(sampled):
     _need_cuda()
-    graphs = [_dag_case(s) for s in range(50, 58)]
+    # 64 graphs: more waves of 16-block clusters than the wide template takes
+    graphs = [_dag_case(s) for s in range(50, 114)]
     _kernel_vs_plain(_net(256), graphs, 32, sampled, "ptr_decode_block", 1e-3)

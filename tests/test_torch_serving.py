@@ -6,9 +6,10 @@
 * on 32 mixed-size synthetic graphs it equals the reference's
   ``RespectScheduler.from_release().schedule_many`` integer for integer,
   for a uniform, a heterogeneous and a memory-capped system;
-* at hidden 96, a width the whole-decode kernel refuses, a scheduler built
-  from the reference's seeded ``init_params`` equals the reference's
-  ``RespectScheduler`` with those parameters, uniform and heterogeneous;
+* at hidden 96, a width the reference's whole-decode kernel refuses (the
+  port's takes it), a scheduler built from the reference's seeded
+  ``init_params`` equals the reference's ``RespectScheduler`` with those
+  parameters, uniform and heterogeneous;
 * cache hits return copies; without CUDA, entry points raise unless given
   ``device="cpu"``;
 * seeded weights are the reference's: ``RespectScheduler.init(seed)``,
@@ -20,10 +21,13 @@
 * ``tests/golden/torch_seeded_schedules.json``: its bucket-32 part is
   re-derived from JAX here, and the port reproduces the file on the CPU.
 
-On the card (``cuda`` tests, skipped here): ``schedule_many`` at hidden 96
-and 640 runs the scan with the single-step kernel at every step and equals
-the CPU plain path; the whole-decode kernel's sampled orders equal the
-golden file's, its logp and entropy within 1e-3 of the plain version.
+On the card (``cuda`` tests, skipped here): ``schedule_many`` of a
+heterogeneous system at hidden 96 and 640 runs the scan with the
+single-step kernel at every step and equals the CPU plain path (a uniform
+one runs the whole-decode kernel at any width:
+``tests/test_torch_decode_wide_cuda.py``); the whole-decode kernel's
+sampled orders equal the golden file's, its logp and entropy within 1e-3
+of the plain version.
 """
 
 import hashlib
@@ -182,16 +186,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_decode_impl_routing_and_pad_batch():
     dec = batching.BucketedDecoder("cpu")
     assert dec.resolve_decode_impl(1024, 128) == "kernel"
-    assert dec.resolve_decode_impl(1024, 96) == "scan"
+    assert dec.resolve_decode_impl(1024, 96) == "kernel"      # any width whose state fits
+    assert dec.resolve_decode_impl(1024, 3006) == "scan"
     assert dec.resolve_decode_impl(32, 128, conditioned=True) == "scan"
     forced = batching.BucketedDecoder("cpu", decode_impl="kernel")
     assert forced.resolve_decode_impl(1024, 128) == "kernel"
+    assert forced.resolve_decode_impl(32, 96) == "kernel"
     with pytest.raises(ValueError, match="profile-conditioned"):
         forced.resolve_decode_impl(32, 128, conditioned=True)
     with pytest.raises(ValueError, match="bucket_n=8192"):
         forced.resolve_decode_impl(8192, 128)
-    with pytest.raises(ValueError, match="hidden=96"):
-        forced.resolve_decode_impl(32, 96)
+    with pytest.raises(ValueError, match="hidden=4096"):
+        forced.resolve_decode_impl(32, 4096)
     assert batching.BucketedDecoder("cpu", decode_impl="scan").resolve_decode_impl(
         32, 128, conditioned=True) == "scan"
     with pytest.raises(ValueError):
